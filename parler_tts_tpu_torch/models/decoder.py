@@ -1,0 +1,263 @@
+"""Autoregressive codec-token decoder (port of `parler_tts_tpu/models/decoder.py`).
+
+  - the K per-codebook embedding tables live in one stacked (K, vocab+1, D)
+    parameter, gathered and summed in one lookup;
+  - attention is GQA in the (B, T, H, Dh) layout with fp32 softmax, serving
+    self- and cross-attention; with RoPE the cross-attention query is rotated
+    and the encoder keys are not (the reference's quirk, kept);
+  - the KV cache is a static buffer written in place: prefill (T > 1) attends
+    through an additive bias, and the one-token decode step attends through
+    kernel K1 (`ops/flash_decode.py`) over the flat (L, B, S, H_kv*Dh) cache,
+    read in place at the layer's index;
+  - the LM heads are one stacked (K, D, V) parameter applied as one einsum.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import DecoderConfig
+from ..ops.flash_decode import flash_decode_attention
+from ..ops.positions import apply_rope, rope_cos_sin, sinusoidal_embed, sinusoidal_table
+from .layers import Dense, LayerNorm, new_param
+
+ACT_FNS = {
+    "gelu": F.gelu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+}
+
+
+@dataclass
+class DecoderCache:
+    """Static-shape KV cache of the whole decoder stack, updated in place.
+
+    self_k/self_v: (L, B, S_max, H_kv*Dh), the flat layout K1 reads in place
+    cross_k/cross_v: (L, B, S_enc, H_ckv, Dh), filled once per generate
+    index: next self-attention write position
+    """
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    index: int = 0
+
+    @classmethod
+    def zeros(cls, config: DecoderConfig, batch_size: int, max_length: int,
+              encoder_length: int, dtype=torch.float32, device=None) -> "DecoderCache":
+        n, dh = config.num_hidden_layers, config.head_dim
+        self_shape = (n, batch_size, max_length, config.num_key_value_heads * dh)
+        cross_shape = (n, batch_size, encoder_length,
+                       config.num_cross_attention_key_value_heads, dh)
+        return cls(
+            self_k=torch.zeros(self_shape, dtype=dtype, device=device),
+            self_v=torch.zeros(self_shape, dtype=dtype, device=device),
+            cross_k=torch.zeros(cross_shape, dtype=dtype, device=device),
+            cross_v=torch.zeros(cross_shape, dtype=dtype, device=device),
+        )
+
+
+def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """q (B, T, H, Dh) pre-scaled; k/v (B, S, H_kv, Dh); bias (B, 1, T, S).
+    fp32 scores and softmax; returns (B, T, H, Dh) in q's dtype."""
+    b, t, h, dh = q.shape
+    h_kv = k.shape[2]
+    qg = q.reshape(b, t, h_kv, h // h_kv, dh)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+    if bias is not None:
+        scores = scores + bias[:, :, None, :, :]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(q.dtype))
+    return out.reshape(b, t, h, dh)
+
+
+class Attention(nn.Module):
+    """Bias-free multi-head attention with GQA/MQA."""
+
+    def __init__(self, config: DecoderConfig, num_kv_heads: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.config = config
+        self.num_kv_heads = num_kv_heads
+        d, dh, std = config.hidden_size, config.head_dim, config.initializer_factor
+        kw = dict(std=std, device=device, dtype=dtype)
+        self.q_proj = Dense(d, d, **kw)
+        self.k_proj = Dense(d, num_kv_heads * dh, **kw)
+        self.v_proj = Dense(d, num_kv_heads * dh, **kw)
+        self.out_proj = Dense(d, d, **kw)
+
+    def _split(self, x: torch.Tensor, heads: int) -> torch.Tensor:
+        return x.reshape(x.shape[0], x.shape[1], heads, self.config.head_dim)
+
+    def project_kv(self, states: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """k/v of (encoder) states, (B, S, H_kv, Dh) each."""
+        return (self._split(self.k_proj(states), self.num_kv_heads),
+                self._split(self.v_proj(states), self.num_kv_heads))
+
+    def _query(self, x, cos, sin):
+        # scaled before RoPE like the reference (the rotation commutes with it)
+        q = self._split(self.q_proj(x), self.config.num_attention_heads)
+        q = q * (self.config.head_dim ** -0.5)
+        if cos is not None:
+            q = apply_rope(q, cos, sin)
+        return q
+
+    def self_attention(self, x, bias, cos, sin, cache: DecoderCache, layer_idx: int,
+                       decode_lengths: Optional[Tuple[torch.Tensor, int]] = None):
+        """Writes this step's k/v into the cache at `cache.index`, then attends:
+        through K1 when `decode_lengths` = (starts, limit) is given, else
+        densely over the layer's cache with the additive `bias`."""
+        b, t, _ = x.shape
+        q = self._query(x, cos, sin)
+        k, v = self.project_kv(x)
+        if cos is not None:
+            k = apply_rope(k, cos, sin)
+        i = cache.index
+        ck, cv = cache.self_k, cache.self_v
+        ck[layer_idx, :, i:i + t] = k.reshape(b, t, -1)
+        cv[layer_idx, :, i:i + t] = v.reshape(b, t, -1)
+        if decode_lengths is not None:
+            starts, limit = decode_lengths
+            out = flash_decode_attention(q[:, 0] if t == 1 else q, ck, cv, starts, limit,
+                                         layer=layer_idx)
+            out = out.to(q.dtype)
+            if t == 1:
+                out = out[:, None]
+        else:
+            s = ck.shape[2]
+            k_l = ck[layer_idx].reshape(b, s, self.num_kv_heads, -1)
+            v_l = cv[layer_idx].reshape(b, s, self.num_kv_heads, -1)
+            out = _gqa_attention(q, k_l, v_l, bias)
+        return self.out_proj(out.reshape(b, t, -1))
+
+    def cross_attention(self, x, k, v, bias, cos, sin):
+        q = self._query(x, cos, sin)
+        out = _gqa_attention(q, k, v, bias)
+        return self.out_proj(out.reshape(out.shape[0], out.shape[1], -1))
+
+
+class DecoderLayer(nn.Module):
+    """Pre-LN block: self-attn -> cross-attn -> MLP."""
+
+    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = config
+        d, std = config.hidden_size, config.initializer_factor
+        self.self_attn = Attention(config, config.num_key_value_heads, device, dtype)
+        self.self_attn_layer_norm = LayerNorm(d, device=device, dtype=dtype)
+        self.encoder_attn = Attention(config, config.num_cross_attention_key_value_heads,
+                                      device, dtype)
+        self.encoder_attn_layer_norm = LayerNorm(d, device=device, dtype=dtype)
+        self.fc1 = Dense(d, config.ffn_dim, std=std, device=device, dtype=dtype)
+        self.fc2 = Dense(config.ffn_dim, d, std=std, device=device, dtype=dtype)
+        self.final_layer_norm = LayerNorm(d, device=device, dtype=dtype)
+        self.act = ACT_FNS[config.activation_function]
+
+    def forward(self, x, *, self_attn_bias, cross_k, cross_v, cross_attn_bias, cos, sin,
+                cache: DecoderCache, layer_idx: int, decode_lengths=None):
+        x = x + self.self_attn.self_attention(
+            self.self_attn_layer_norm(x), self_attn_bias, cos, sin, cache, layer_idx,
+            decode_lengths,
+        )
+        x = x + self.encoder_attn.cross_attention(
+            self.encoder_attn_layer_norm(x), cross_k, cross_v, cross_attn_bias, cos, sin
+        )
+        return x + self.fc2(self.act(self.fc1(self.final_layer_norm(x))))
+
+
+class ParlerDecoder(nn.Module):
+    """The decoder stack over a static cache."""
+
+    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = new_param(config.num_codebooks, config.embed_rows,
+                                      config.hidden_size, device=device, dtype=dtype)
+        self.layers = nn.ModuleList(
+            DecoderLayer(config, device, dtype) for _ in range(config.num_hidden_layers)
+        )
+        self.layer_norm = LayerNorm(config.hidden_size, device=device, dtype=dtype)
+        if not config.rope_embeddings:
+            table = sinusoidal_table(config.max_position_embeddings, config.hidden_size,
+                                     dtype, device)
+            self.register_buffer("positions", table, persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.embed_tokens.normal_(0.0, self.config.initializer_factor, generator=generator)
+
+    def embed_ids(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Sum of the K codebook embeddings: (B, K, T) -> (B, T, D), one gather."""
+        cfg = self.config
+        flat = self.embed_tokens.reshape(-1, cfg.hidden_size)
+        offsets = (torch.arange(cfg.num_codebooks, device=input_ids.device)
+                   * cfg.embed_rows)[None, :, None]
+        out = F.embedding(input_ids + offsets, flat).sum(dim=1)
+        return out * cfg.hidden_size ** 0.5 if cfg.scale_embedding else out
+
+    def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):
+        """Per-layer cross-attention k/v, stacked (L, B, S_enc, H_ckv, Dh)."""
+        x = encoder_hidden_states.to(self.embed_tokens.dtype)
+        kvs = [layer.encoder_attn.project_kv(x) for layer in self.layers]
+        return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+
+    def forward(self, inputs_embeds: torch.Tensor, position_ids: torch.Tensor, *,
+                self_attn_bias: Optional[torch.Tensor],
+                cross_attn_bias: Optional[torch.Tensor],
+                cache: DecoderCache,
+                decode_lengths: Optional[Tuple[torch.Tensor, int]] = None) -> torch.Tensor:
+        """(B, T, D) embeds at absolute positions (B, T) -> hidden (B, T, D).
+        Advances `cache.index` by T."""
+        cfg = self.config
+        x = inputs_embeds.to(self.embed_tokens.dtype)
+        cos = sin = None
+        if cfg.rope_embeddings:
+            cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, x.dtype)
+        else:
+            x = x + sinusoidal_embed(self.positions, position_ids)
+        for i, layer in enumerate(self.layers):
+            x = layer(
+                x, self_attn_bias=self_attn_bias, cross_k=cache.cross_k[i],
+                cross_v=cache.cross_v[i], cross_attn_bias=cross_attn_bias, cos=cos, sin=sin,
+                cache=cache, layer_idx=i, decode_lengths=decode_lengths,
+            )
+        cache.index += inputs_embeds.shape[1]
+        return self.layer_norm(x)
+
+
+class ParlerForCausalLM(nn.Module):
+    """Decoder + stacked LM heads."""
+
+    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = config
+        self.decoder = ParlerDecoder(config, device, dtype)
+        self.lm_heads = new_param(config.num_codebooks, config.hidden_size, config.vocab_size,
+                                  device=device, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.lm_heads.normal_(0.0, self.config.initializer_factor, generator=generator)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(B, T, D) -> (B, K, T, V) fp32."""
+        return torch.einsum("btd,kdv->bktv", hidden, self.lm_heads).float()
+
+    def forward(self, inputs_embeds, position_ids, *, self_attn_bias, cross_attn_bias,
+                cache: DecoderCache, decode_lengths=None) -> torch.Tensor:
+        hidden = self.decoder(inputs_embeds, position_ids, self_attn_bias=self_attn_bias,
+                              cross_attn_bias=cross_attn_bias, cache=cache,
+                              decode_lengths=decode_lengths)
+        return self.logits(hidden)
+
+    def embed_ids(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.decoder.embed_ids(input_ids)
+
+    def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):
+        return self.decoder.precompute_cross_kv(encoder_hidden_states)

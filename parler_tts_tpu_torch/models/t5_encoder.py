@@ -1,0 +1,160 @@
+"""Encoder-only T5, the Flan-T5 description encoder (port of
+`parler_tts_tpu/models/t5_encoder.py`).
+
+T5 specifics: RMS layer norm (no mean, no bias, eps 1e-6), no 1/sqrt(d)
+score scaling, one relative-position-bias table shared by all layers
+(bidirectional buckets), gated-gelu MLPs for flan variants.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import T5Config
+from .layers import Dense, new_param
+
+_ACTS = {
+    "gelu": lambda y: F.gelu(y, approximate="tanh"),  # HF t5 "gelu_new"
+    "gelu_new": lambda y: F.gelu(y, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+}
+
+
+def relative_position_bucket(
+    relative_position: torch.Tensor, num_buckets: int = 32, max_distance: int = 128
+) -> torch.Tensor:
+    """Bidirectional T5 relative-position bucketing (encoder form)."""
+    num_buckets = num_buckets // 2
+    ret = (relative_position > 0).to(torch.int64) * num_buckets
+    n = relative_position.abs()
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(n.to(torch.float32) / max_exact)
+        / np.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(torch.int64)
+    val_if_large = val_if_large.clamp_max(num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)
+
+
+class T5LayerNorm(nn.Module):
+    def __init__(self, features: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = new_param(features, device=device, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        var = xf.square().mean(dim=-1, keepdim=True)
+        return (self.weight.float() * (xf * torch.rsqrt(var + 1e-6))).to(x.dtype)
+
+
+class T5SelfAttention(nn.Module):
+    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32):
+        super().__init__()
+        inner = cfg.num_heads * cfg.d_kv
+        self.cfg = cfg
+        self.q = Dense(cfg.d_model, inner, device=device, dtype=dtype)
+        self.k = Dense(cfg.d_model, inner, device=device, dtype=dtype)
+        self.v = Dense(cfg.d_model, inner, device=device, dtype=dtype)
+        self.o = Dense(inner, cfg.d_model, device=device, dtype=dtype)
+
+    def forward(self, x, position_bias, mask_bias):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        q = self.q(x).reshape(b, t, cfg.num_heads, cfg.d_kv)
+        k = self.k(x).reshape(b, t, cfg.num_heads, cfg.d_kv)
+        v = self.v(x).reshape(b, t, cfg.num_heads, cfg.d_kv)
+        scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) + position_bias
+        if mask_bias is not None:
+            scores = scores + mask_bias
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(b, t, -1)
+        return self.o(out)
+
+
+class T5FeedForward(nn.Module):
+    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32):
+        super().__init__()
+        self.gated = cfg.is_gated_act
+        self.act = _ACTS[cfg.dense_act_fn]
+        if self.gated:
+            self.wi_0 = Dense(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+            self.wi_1 = Dense(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        else:
+            self.wi = Dense(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        self.wo = Dense(cfg.d_ff, cfg.d_model, device=device, dtype=dtype)
+
+    def forward(self, x):
+        if self.gated:
+            h = self.act(self.wi_0(x)) * self.wi_1(x)
+        else:
+            h = self.act(self.wi(x))
+        return self.wo(h)
+
+
+class T5Block(nn.Module):
+    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32):
+        super().__init__()
+        self.ln_attn = T5LayerNorm(cfg.d_model, device=device, dtype=dtype)
+        self.attention = T5SelfAttention(cfg, device=device, dtype=dtype)
+        self.ln_ff = T5LayerNorm(cfg.d_model, device=device, dtype=dtype)
+        self.ff = T5FeedForward(cfg, device=device, dtype=dtype)
+
+    def forward(self, x, position_bias, mask_bias):
+        x = x + self.attention(self.ln_attn(x), position_bias, mask_bias)
+        return x + self.ff(self.ln_ff(x))
+
+
+class T5Encoder(nn.Module):
+    """input_ids (B, T) -> last_hidden_state (B, T, d_model)."""
+
+    def __init__(self, config: T5Config, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = config
+        self.shared_embedding = new_param(config.vocab_size, config.d_model,
+                                          device=device, dtype=dtype)
+        self.relative_attention_bias = new_param(
+            config.relative_attention_num_buckets, config.num_heads,
+            device=device, dtype=torch.float32,
+        )
+        self.block = nn.ModuleList(
+            T5Block(config, device=device, dtype=dtype) for _ in range(config.num_layers)
+        )
+        self.final_layer_norm = T5LayerNorm(config.d_model, device=device, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.shared_embedding.normal_(0.0, 1.0, generator=generator)
+        self.relative_attention_bias.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None):
+        cfg = self.config
+        x = F.embedding(input_ids, self.shared_embedding)
+        t = input_ids.shape[-1]
+        ctx = torch.arange(t, device=input_ids.device)
+        rel_pos = ctx[None, :] - ctx[:, None]  # memory - query
+        buckets = relative_position_bucket(
+            rel_pos, cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance
+        )
+        position_bias = self.relative_attention_bias[buckets].permute(2, 0, 1)[None]
+        mask_bias = None
+        if attention_mask is not None:
+            fmin = torch.finfo(torch.float32).min
+            mask_bias = torch.zeros(attention_mask.shape, dtype=torch.float32,
+                                    device=input_ids.device)
+            mask_bias = mask_bias.masked_fill(~attention_mask.to(torch.bool), fmin)
+            mask_bias = mask_bias[:, None, None, :]
+        for block in self.block:
+            x = block(x, position_bias, mask_bias)
+        return self.final_layer_norm(x)
+
+

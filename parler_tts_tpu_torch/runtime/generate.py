@@ -1,0 +1,225 @@
+"""Token generation over the static KV cache (port of the static-cache path
+of `parler_tts_tpu/runtime/generate.py`).
+
+Prefill, then a one-column decode loop: each step embeds the previous
+column, runs the decoder with kernel K1 over the cache, applies the
+processors in the reference order (codebook guard -> min-length -> EOS
+ordering -> warpers), forces PAD on finished codebooks and overrides with the
+delay pattern. The loop runs on the host in Python with no host sync inside a
+step: the step index is a Python int, and the all-EOS early exit is checked
+on the host only every `EOS_CHECK_EVERY` steps. Steps run past the exit
+rewrite the values the output already holds (finished rows emit PAD, which
+the pattern keeps), and `steps` is recovered exactly from the per-step
+all-EOS record, so the results equal a loop that checks every step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import GenerationConfig, ParlerTTSConfig
+from ..models.decoder import DecoderCache
+from ..models.parler import ParlerTTS
+from ..ops.delay_pattern import (
+    apply_delay_pattern_mask,
+    build_delay_pattern_mask,
+    undelay_pattern,
+    valid_frame_lengths,
+)
+from ..ops.masks import causal_self_attention_bias, padding_cross_attention_bias
+from ..ops.sampling import (
+    NEG_INF,
+    EosState,
+    advance_eos_state,
+    init_eos_state,
+    mask_eos_ordering,
+    record_sampled,
+    sample_tokens,
+    suppress_eos_before_min_length,
+)
+
+# decode steps between host checks of the all-EOS early exit
+EOS_CHECK_EVERY = 32
+
+
+class GenerateOutput(NamedTuple):
+    delayed_ids: torch.Tensor  # (B, K, L)
+    codes: torch.Tensor        # (B, K, L - K) un-delayed
+    lengths: torch.Tensor      # (B,) valid frame counts
+    steps: int                 # columns actually sampled (early exit aware)
+
+
+def _process_column(
+    logits: torch.Tensor,
+    t: int,
+    eos_state: EosState,
+    gen: GenerationConfig,
+    num_codebooks: int,
+    prompt_cols: int = 1,
+) -> Tuple[torch.Tensor, EosState]:
+    """The logits processors of one sampling event, in the reference order:
+    codebook guard, min-length, EOS ordering. Returns the fp32 logits the
+    sampler sees and the advanced EOS state."""
+    x = logits.to(torch.float32)
+    if gen.codebook_guard is not None:
+        ids = torch.arange(x.shape[-1], device=x.device)
+        blocked = (ids >= gen.codebook_guard) & (ids != gen.eos_token_id)
+        x = x.masked_fill(blocked[None, None, :], NEG_INF)
+    if gen.min_new_tokens > 0:
+        x = suppress_eos_before_min_length(
+            x, t, gen.min_new_tokens + prompt_cols, gen.eos_token_id
+        )
+    eos_state = advance_eos_state(eos_state, num_codebooks)
+    return mask_eos_ordering(x, eos_state, gen.eos_token_id), eos_state
+
+
+def _sample_column(
+    logits: torch.Tensor,  # (B, K, V)
+    t: int,
+    eos_state: EosState,
+    pattern: torch.Tensor,
+    gen: GenerationConfig,
+    num_codebooks: int,
+    prompt_cols: int = 1,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, EosState]:
+    """One sampling event: processors, sampling, finished-row PAD forcing,
+    delay-pattern override. `prompt_cols` = decoder-prompt column count
+    (min_new_tokens counts from there)."""
+    x, eos_state = _process_column(logits, t, eos_state, gen, num_codebooks, prompt_cols)
+    toks = sample_tokens(
+        x, do_sample=gen.do_sample, temperature=gen.temperature,
+        top_k=gen.top_k, top_p=gen.top_p, generator=generator,
+    )
+    toks = toks.masked_fill(eos_state.eos_seen, gen.pad_token_id)
+    eos_state = record_sampled(eos_state, toks, gen.eos_token_id)
+    pat_col = pattern[:, :, t]
+    return torch.where(pat_col == -1, toks, pat_col), eos_state
+
+
+@torch.inference_mode()
+def generate_tokens(
+    model: ParlerTTS,
+    gen: GenerationConfig,
+    desc_ids: torch.Tensor,
+    desc_mask: Optional[torch.Tensor],
+    prompt_ids: torch.Tensor,
+    prompt_mask: Optional[torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    decoder_prompt_codes: Optional[torch.Tensor] = None,
+    cache_dtype=torch.bfloat16,
+) -> GenerateOutput:
+    """Full token generation on the device of `desc_ids`.
+
+    `decoder_prompt_codes` (B, K, T0) steers the voice: codec tokens of a
+    reference clip are the decoder prompt after the BOS column.
+    """
+    cfg: ParlerTTSConfig = model.config
+    dcfg = cfg.decoder
+    k_cb, max_len = dcfg.num_codebooks, gen.max_length
+    b = desc_ids.shape[0]
+    device = desc_ids.device
+    if gen.cache_implementation != "static":
+        raise NotImplementedError(
+            f"cache_implementation={gen.cache_implementation!r}: the port serves the "
+            "static cache only (sliding-window decode is not ported yet)"
+        )
+    span = (0 if cfg.prompt_cross_attention else prompt_ids.shape[1]) + max_len
+    if span > dcfg.max_position_embeddings:
+        raise ValueError(
+            f"prompt ({prompt_ids.shape[1]}) + max_length ({max_len}) exceeds "
+            f"max_position_embeddings={dcfg.max_position_embeddings}"
+        )
+    if desc_mask is None:
+        desc_mask = torch.ones_like(desc_ids)
+    if prompt_mask is None:
+        prompt_mask = torch.ones_like(prompt_ids)
+
+    # ---- encoder precompute
+    enc = model.encode_description(desc_ids, desc_mask)
+    prompt = model.prompt_hidden(prompt_ids)
+    pca = cfg.prompt_cross_attention
+    enc_states, enc_mask = model.build_encoder_states(
+        enc, desc_mask, prompt if pca else None, prompt_mask if pca else None
+    )
+    if pca:
+        s_p = 0
+        prefix = prompt.new_zeros((b, 0, dcfg.hidden_size))
+        prefix_mask = torch.zeros((b, 0), dtype=torch.int32, device=device)
+    else:
+        s_p = prompt_ids.shape[1]
+        prefix = prompt
+        prefix_mask = prompt_mask.to(torch.int32)
+
+    # ---- delay pattern: BOS column, then any voice-prompt codes
+    start = torch.full((b, k_cb, 1), gen.bos_token_id, dtype=torch.int64, device=device)
+    if decoder_prompt_codes is not None:
+        start = torch.cat([start, decoder_prompt_codes.to(device, torch.int64)], dim=-1)
+    first_ids, pattern = build_delay_pattern_mask(
+        start, gen.bos_token_id, gen.pad_token_id, max_len
+    )
+    out_ids = torch.where(pattern == -1, torch.full_like(pattern, gen.pad_token_id), pattern)
+
+    # ---- cache and masks
+    s_cache = s_p + max_len
+    cache = DecoderCache.zeros(dcfg, b, s_cache, enc_states.shape[1], cache_dtype, device)
+    cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc_states)
+    kv_valid = torch.cat(
+        [prefix_mask.to(torch.bool), torch.ones((b, max_len), dtype=torch.bool, device=device)],
+        dim=1,
+    )
+    # left-padded prompts: first valid cache slot of each row, K1's `starts`
+    flash_starts = (s_p - prefix_mask.sum(dim=1)).to(torch.int32).contiguous()
+    positions = torch.arange(s_cache, device=device)[None, :].expand(b, s_cache)
+
+    # ---- prefill: [prompt prefix, delayed columns 0 .. s0-1]
+    s0 = first_ids.shape[-1]
+    emb0 = model.decoder.embed_ids(first_ids)
+    pre_embeds = torch.cat([prefix.to(emb0.dtype), emb0], dim=1)
+    abs_pos = positions[:, : s_p + s0]
+    logits_pre = model.decoder(
+        pre_embeds, abs_pos,
+        self_attn_bias=causal_self_attention_bias(abs_pos, kv_valid),
+        cross_attn_bias=padding_cross_attention_bias(enc_mask, s_p + s0),
+        cache=cache,
+    )
+
+    # ---- first sampled column (index s0)
+    eos_state = init_eos_state(b, k_cb, device)
+    col, eos_state = _sample_column(
+        logits_pre[:, :, -1, :], s0, eos_state, pattern, gen, k_cb,
+        prompt_cols=s0, generator=generator,
+    )
+    out_ids[:, :, s0] = col
+
+    # ---- decode loop: columns s0+1 .. L-1
+    cross_bias = padding_cross_attention_bias(enc_mask, 1)
+    # all_done[t]: every codebook of every row had emitted EOS before column t
+    all_done = torch.zeros((max_len + 2,), dtype=torch.bool, device=device)
+    t = s0 + 1
+    while t < max_len:
+        all_done[t] = eos_state.eos_seen.all()
+        if (t - s0 - 1) % EOS_CHECK_EVERY == 0 and bool(all_done[t]):
+            break
+        emb = model.decoder.embed_ids(out_ids[:, :, t - 1: t])
+        logits = model.decoder(
+            emb, positions[:, s_p + t - 1: s_p + t],
+            self_attn_bias=None, cross_attn_bias=cross_bias, cache=cache,
+            decode_lengths=(flash_starts, s_p + t),
+        )
+        col, eos_state = _sample_column(
+            logits[:, :, -1, :], t, eos_state, pattern, gen, k_cb,
+            prompt_cols=s0, generator=generator,
+        )
+        out_ids[:, :, t] = col
+        t += 1
+    all_done[t] = eos_state.eos_seen.all()
+    done_at = torch.nonzero(all_done[s0 + 1: t + 1])
+    steps = s0 + 1 + int(done_at[0, 0]) if done_at.numel() else t
+
+    delayed = apply_delay_pattern_mask(out_ids, pattern)
+    codes = undelay_pattern(delayed, k_cb)
+    lengths = valid_frame_lengths(codes, dcfg.pad_token_id)  # pad == eos == codebook_size
+    return GenerateOutput(delayed, codes, lengths, steps)

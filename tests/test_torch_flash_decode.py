@@ -1,0 +1,194 @@
+"""Kernel K1's plain PyTorch version against the Pallas kernel (interpret mode).
+
+`flash_decode_attention_plain` is what the port's wrapper runs for CPU
+tensors and what the CUDA kernel is held against on the card
+(`tests/test_torch_cuda.py`, `chip_smoke.py`). Here it is held against the
+Pallas kernel itself, run in interpret mode as `tests/test_flash_decode.py`
+runs it, on the same cases. Tolerance: atol 2e-5, rtol 1e-4 in fp32 (the
+Pallas file's own); atol 2e-3, rtol 1e-2 in bf16 (one bf16 ulp, 2.4e-4, is the
+most these cases read).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from parler_tts_tpu.ops.pallas.flash_decode import flash_decode_attention as pallas_decode
+from parler_tts_tpu_torch.ops.flash_decode import (
+    flash_decode_attention,
+    flash_decode_attention_plain,
+)
+
+F32_TOL = dict(atol=2e-5, rtol=1e-4)
+BF16_TOL = dict(atol=2e-3, rtol=1e-2)
+
+
+def make_case(seed=0, b=2, h=8, h_kv=8, dh=64, s=512, w=None):
+    rng = np.random.default_rng(seed)
+    qshape = (b, h, dh) if w is None else (b, w, h, dh)
+    q = rng.normal(size=qshape).astype(np.float32) * 0.3
+    k = rng.normal(size=(b, s, h_kv, dh)).astype(np.float32) * 0.3
+    v = rng.normal(size=(b, s, h_kv, dh)).astype(np.float32) * 0.3
+    return q, k, v
+
+
+def both(q, k, v, starts, limit, block_s=256, layer=None, dtype=np.float32):
+    """(Pallas interpret output, port plain output) as fp32 numpy."""
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    starts = np.asarray(starts, np.int32)
+    limit_np = np.asarray(limit, np.int32)
+    got = pallas_decode(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(starts), jnp.asarray(limit_np), block_s=block_s, interpret=True,
+        layer=layer,
+    )
+    t_limit = int(limit) if limit_np.ndim == 0 else torch.from_numpy(limit_np)
+    port = flash_decode_attention_plain(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt),
+        torch.from_numpy(starts), t_limit, layer=layer,
+    )
+    return np.asarray(got, np.float32), port.float().numpy()
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("limit", [1, 5, 255, 256, 257, 512])
+def test_plain_matches_pallas_prefix(b, limit):
+    q, k, v = make_case(b=b)
+    want, got = both(q, k, v, np.zeros(b), limit)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_plain_matches_pallas_left_padded_starts(b):
+    q, k, v = make_case(seed=1, b=b)
+    starts = np.random.default_rng(7).integers(0, 120, (b,))
+    want, got = both(q, k, v, starts, 300, block_s=128)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_plain_matches_pallas_per_row_limits():
+    b = 8
+    q, k, v = make_case(seed=9, b=b)
+    rng = np.random.default_rng(3)
+    starts = rng.integers(0, 50, (b,))
+    limits = rng.integers(60, 512, (b,))
+    want, got = both(q, k, v, starts, limits, block_s=128)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_plain_matches_pallas_gqa():
+    q, k, v = make_case(seed=2, h=8, h_kv=2)
+    want, got = both(q, k, v, np.zeros(2), 200, block_s=128)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_plain_matches_pallas_mqa():
+    q, k, v = make_case(seed=4, h=8, h_kv=1)
+    want, got = both(q, k, v, np.array([0, 33]), 200, block_s=128)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_plain_matches_pallas_bf16():
+    q, k, v = make_case(seed=3)
+    want, got = both(q, k, v, np.zeros(2), 400, dtype="bf16")
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("w", [2, 8])
+def test_plain_matches_pallas_window(b, w):
+    q, k, v = make_case(seed=11, b=b, w=w)
+    want, got = both(q, k, v, np.zeros(b), 130, block_s=128)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_plain_matches_pallas_window_per_row_limits():
+    b, w = 8, 6
+    q, k, v = make_case(seed=12, b=b, w=w)
+    rng = np.random.default_rng(5)
+    starts = rng.integers(0, 40, (b,))
+    limits = rng.integers(41, 500 - w, (b,))
+    want, got = both(q, k, v, starts, limits, block_s=128)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_plain_matches_pallas_window_gqa_bf16():
+    q, k, v = make_case(seed=13, b=2, h=8, h_kv=2, w=4)
+    want, got = both(q, k, v, np.array([0, 17]), 333, dtype="bf16")
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("limit", [126, 127, 128])
+def test_plain_matches_pallas_window_block_boundaries(limit):
+    q, k, v = make_case(seed=14, b=2, w=4, s=256)
+    want, got = both(q, k, v, np.zeros(2), limit, block_s=128)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("flat", [True, False])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_plain_matches_pallas_stacked_layer(flat, layer):
+    b, h, h_kv, dh, s, n_layers = 2, 8, 4, 64, 384, 3
+    rng = np.random.default_rng(20 + layer)
+    q = rng.normal(size=(b, h, dh)).astype(np.float32) * 0.3
+    ks = rng.normal(size=(n_layers, b, s, h_kv, dh)).astype(np.float32) * 0.3
+    vs = rng.normal(size=(n_layers, b, s, h_kv, dh)).astype(np.float32) * 0.3
+    starts = rng.integers(0, 40, (b,))
+    if flat:
+        ks, vs = ks.reshape(n_layers, b, s, -1), vs.reshape(n_layers, b, s, -1)
+    want, got = both(q, ks, vs, starts, 300, block_s=128, layer=layer)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_plain_matches_pallas_stacked_layer_windowed():
+    b, w, h, h_kv, dh, s, n_layers = 2, 4, 8, 8, 64, 384, 2
+    rng = np.random.default_rng(31)
+    q = rng.normal(size=(b, w, h, dh)).astype(np.float32) * 0.3
+    ks = rng.normal(size=(n_layers, b, s, h_kv * dh)).astype(np.float32) * 0.3
+    vs = rng.normal(size=(n_layers, b, s, h_kv * dh)).astype(np.float32) * 0.3
+    want, got = both(q, ks, vs, np.zeros(b), np.array([100, 250]), block_s=128, layer=1)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_empty_range_returns_zero_like_the_kernel():
+    """limit <= start: the Pallas kernel's clamped denominator gives 0 (its
+    XLA oracle would give the mean of V); the port follows the kernel."""
+    q, k, v = make_case(seed=15, b=2)
+    want, got = both(q, k, v, np.array([40, 0]), np.array([40, 0]), block_s=128)
+    np.testing.assert_array_equal(want, 0.0)
+    np.testing.assert_array_equal(got, 0.0)
+
+
+def test_wrapper_runs_plain_version_for_cpu_tensors():
+    q, k, v = (torch.from_numpy(x) for x in make_case(seed=16, b=2, h=8, h_kv=2))
+    starts = torch.tensor([0, 9], dtype=torch.int32)
+    before = flash_decode_attention.launches
+    got = flash_decode_attention(q, k, v, starts, 100)
+    want = flash_decode_attention_plain(q, k, v, starts, 100)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert flash_decode_attention.launches == before  # only kernel launches count
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["q_rank", "heads", "layer_range", "starts_shape", "batch"],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, k, v = (torch.from_numpy(x) for x in make_case(seed=17, b=2, h=8, h_kv=4, s=64))
+    starts = torch.zeros(2, dtype=torch.int32)
+    layer = None
+    if bad == "q_rank":
+        q = q[0]
+    elif bad == "heads":
+        q = q[:, :6]
+    elif bad == "layer_range":
+        k, v, layer = k[None], v[None], 1
+    elif bad == "starts_shape":
+        starts = torch.zeros(3, dtype=torch.int32)
+    elif bad == "batch":
+        k, v = k[:1], v[:1]
+    with pytest.raises(ValueError):
+        flash_decode_attention(q, k, v, starts, 10, layer=layer)
