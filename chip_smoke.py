@@ -15,7 +15,28 @@ Builds the port's CUDA kernels with nvcc, then:
       greedy columns with codebook_guard=1024, then `decode_codes` to 44.1 kHz
       audio, counting K1's launches (24 per decode step);
   (c) runs one mini-v1 decode step in fp32 through K1 and through the dense
-      attention path on the same cache, and compares the logits.
+      attention path on the same cache, and compares the logits;
+  (d) holds kernel K2 (int8 weight-only matmul) against its plain version at
+      the int8 path's shapes (M in {1, 2, 18, 32}; K x N = 1024 x 1024,
+      1024 x 4096, 4096 x 1024; fp32 and bf16 x), and times K2, its plain
+      version and a bf16 `torch.matmul` on pre-dequantized weights (a
+      yardstick only) at M=2 over 24 layers' weights;
+  (e) serves mini-v1 with `weight_quant=True` (int8 decoder layers quantized
+      on the card) at B=2 over (b)'s request, counting K2's launches
+      (192 x (decode steps + 1) + 48) and K1's (24 per decode step), profiles
+      it, and compares one fp32 int8 decode step's logits, K2 against its
+      plain version;
+  (f) holds kernel K3 (the fused 24-layer decode step) against its plain
+      version at the kernel's tiling, at mini-v1 shapes (cache 868 rows,
+      S_enc 16 with 4 masked, n_rows in {1, 64, 65, 434, 867}, start in
+      {0, 3}), layer by layer within limits set by the plain version's own
+      fp32-vs-float64 noise in this run (`fused_limits`), checks that a K3
+      that drops the first or last cache row (at n_rows 8, 434 and 867) or a
+      layer's fc2 fails them, and times K3 and its plain version;
+  (g) serves mini-v1 at B=1 with `fused_decode=True` (row 1 of (b)'s request,
+      left-padded) over 860 columns, counting one K3 launch per decode step,
+      and prints steps/s, RTF, kernels per decode step and device idle share
+      beside the eager bf16 path on the same request.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
@@ -29,6 +50,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -39,6 +61,7 @@ PROFILE_COLUMNS = 240
 # kernel that drops or repeats one 64-slot tile (~4e-3) fails
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
 LOGITS_TOL = dict(atol=2e-4, rtol=2e-4)
+KERNEL_SOURCES = ("flash_decode", "quant_matmul", "fused_decode_step")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
 
@@ -62,6 +85,24 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of one call of `fn`: every CUDA kernel it launches,
+    summed from a CUDA-only torch.profiler trace of `iters` calls (the host's
+    launch overhead, which paces back-to-back small calls, is left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
 def phase_a(dev, card):
@@ -310,6 +351,453 @@ def phase_c(dev, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- int8 side
+K2_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))  # q/k/v/out/cross q/out, fc1, fc2
+K2_PER_LAYER = (6, 1, 1)                                # launches of each shape per layer
+INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak, NVIDIA data sheet
+
+
+def phase_d(dev, card):
+    """K2 against its plain version; times it over 24 layers' weights per shape."""
+    from parler_tts_tpu_torch.ops.quant_matmul import k2_close, quant_matmul, quant_matmul_plain
+
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    def scales(n):  # the CPU test's range
+        return torch.rand(n, generator=g, device=dev) * 0.009 + 1e-3
+
+    max_err, n_cases = 0.0, 0
+    for m in (1, BATCH, 18, 32):  # decode, B=2 decode, prefill B*(8+1), cross kv B*16
+        for k, n in K2_SHAPES:
+            w, s = int8(k, n), scales(n)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn(m, k, generator=g, device=dev) * 0.3).to(dtype)
+                got = quant_matmul(x, w, s)
+                torch.cuda.synchronize()
+                want = quant_matmul_plain(x, w, s)
+                err = (got.float() - want.float()).abs().max().item()
+                if got.dtype != dtype or not k2_close(got, want):
+                    raise AssertionError(f"K2 {dtype} M={m} K={k} N={n}: error {err:.3e}")
+                max_err, n_cases = max(max_err, err), n_cases + 1
+                print(f"  K2 vs plain {str(dtype)[6:]:8s} M={m:2d} K={k} N={n} "
+                      f"max_abs_err={err:.3e} (max |y| {want.float().abs().max().item():.1f})")
+    print(f"  {n_cases} cases within 1e-6 x max|y| + 1e-5 x |y| (bf16: or one bf16 ulp)")
+
+    # timing at the decode shapes (M=2, bf16 x): each launch reads another
+    # layer's weights (24 layers, 352 MB in all, beyond the 50 MB L2)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    for (k, n), per_layer in zip(K2_SHAPES, K2_PER_LAYER):
+        ws = [int8(k, n) for _ in range(24)]
+        ss = [scales(n) for _ in range(24)]
+        deq = [w.to(torch.bfloat16) for w in ws]  # the yardstick's pre-dequantized weights
+        x = torch.randn(BATCH, k, generator=g, device=dev).to(torch.bfloat16)
+        kernel_ms = device_ms(lambda i: quant_matmul(x, ws[i % 24], ss[i % 24]), iters=240)
+        paced_ms = cuda_ms(lambda i: quant_matmul(x, ws[i % 24], ss[i % 24]), iters=480)
+        plain_ms = device_ms(lambda i: quant_matmul_plain(x, ws[i % 24], ss[i % 24]), iters=96)
+        lib_ms = device_ms(lambda i: torch.matmul(x, deq[i % 24]), iters=240)
+        lib_paced_ms = cuda_ms(lambda i: torch.matmul(x, deq[i % 24]), iters=480)
+        bytes_moved = k * n + BATCH * k * 2 + n * 4 + BATCH * n * 2
+        ops = 2 * BATCH * k * n
+        bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+        print(f"  K2 M={BATCH} K={k} N={n}: {kernel_ms * 1e3:.2f} us device time "
+              f"({paced_ms * 1e3:.2f} us per call when the host paces back-to-back calls), "
+              f"plain {plain_ms * 1e3:.2f} us, bf16 matmul {lib_ms * 1e3:.2f} us "
+              f"({lib_paced_ms * 1e3:.2f} us paced by the host), bound "
+              f"{bound_ms * 1e3:.2f} us (bytes: {bytes_moved / 1e6:.2f} MB) ({card})")
+        for key, value in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bytes", bytes_moved), ("ops", ops)):
+            totals[key] += per_layer * value
+        del ws, deq
+    byte_s, op_s = totals["bytes"] / HBM_BYTES_PER_S, totals["ops"] / INT8_OPS_PER_S
+    timing = dict(ms=totals["ms"], plain_ms=totals["plain_ms"], library_ms=totals["library_ms"],
+                  bound_ms=max(byte_s, op_s) * 1e3,
+                  bound_by="bytes" if byte_s >= op_s else "operations")
+    print(f"  K2, one decode layer's 8 launches at M={BATCH}: {timing['ms'] * 1e3:.2f} us device "
+          f"time, plain "
+          f"{timing['plain_ms'] * 1e3:.2f} us, bf16 matmul {timing['library_ms'] * 1e3:.2f} us, "
+          f"bound {timing['bound_ms'] * 1e3:.2f} us ({card})")
+    return max_err, timing
+
+
+def serve(pipe, request, label, card):
+    """One timed generate_codes + decode_codes of `request`; returns
+    (output, generate seconds, decode seconds, audio, lengths)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = pipe.generate_codes(*request, seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    audio, lengths = pipe.decode_codes(out.codes, out.lengths)
+    t2 = time.perf_counter()
+    cfg = pipe.config
+    decode_steps = out.steps - 2
+    frames = pipe.generation_config.max_length - cfg.decoder.num_codebooks
+    audio_s = frames * cfg.audio_encoder.hop_length / cfg.sampling_rate
+    b = audio.shape[0]
+    print(f"  {label}: audio {tuple(audio.shape)} finite={bool(np.isfinite(audio).all())}; "
+          f"generate_codes {t1 - t0:.3f} s ({decode_steps / (t1 - t0):.1f} decode steps/s), "
+          f"decode_codes {t2 - t1:.3f} s; {audio_s:.2f} s of audio -> real-time factor "
+          f"{(t2 - t0) / audio_s:.4f} at B={b} ({card})")
+    if out.steps != pipe.generation_config.max_length:
+        raise AssertionError(f"{label}: expected {pipe.generation_config.max_length} columns, "
+                             f"got {out.steps}")
+    if not np.isfinite(audio).all() or (lengths != frames * cfg.audio_encoder.hop_length).any():
+        raise AssertionError(f"{label}: bad audio {audio.shape} or lengths {lengths}")
+    return out, t1 - t0, t2 - t1
+
+
+def profile_steps(pipe, request, columns):
+    """(kernels per decode step, device-busy ms per decode step, busy us by
+    kernel name) from a CUDA-only profile of `request` over `columns`
+    columns, prefill included."""
+    import dataclasses
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+
+    gen = dataclasses.replace(pipe.generation_config, max_length=columns,
+                              min_new_tokens=columns)
+    short = ParlerTTSPipeline(pipe.model, pipe.dac, gen, cache_dtype=pipe.cache_dtype,
+                              device=pipe.device, fused_decode=pipe.fused is not None)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = short.generate_codes(*request)
+        torch.cuda.synchronize()
+    steps = out.steps - 2
+    by_name, count = defaultdict(float), 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            count += 1
+    return count / steps, sum(by_name.values()) / steps / 1e3, by_name
+
+
+def phase_e(dev, card):
+    """mini-v1 with int8 weights over K2, B=2; returns K2's launches."""
+    import dataclasses
+
+    from parler_tts_tpu_torch.config import GenerationConfig, mini_v1_config
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+
+    gen = GenerationConfig(max_length=MAX_LENGTH, min_new_tokens=MAX_LENGTH, do_sample=False,
+                           codebook_guard=1024)
+    t0 = time.perf_counter()
+    pipe = ParlerTTSPipeline.from_random(mini_v1_config(), seed=0, generation_config=gen,
+                                         device=dev, dtype=torch.bfloat16,
+                                         cache_dtype=torch.bfloat16, weight_quant=True)
+    torch.cuda.synchronize()
+    print(f"  mini-v1 int8 initialised and quantized on the card: "
+          f"{time.perf_counter() - t0:.2f} s")
+    request = request_ids(0)
+    warm = ParlerTTSPipeline(pipe.model, pipe.dac, dataclasses.replace(
+        gen, max_length=40, min_new_tokens=40), cache_dtype=torch.bfloat16, device=dev)
+    warm.decode_codes(*warm.generate_codes(*request)[1:3])
+    torch.cuda.synchronize()
+
+    quant_matmul.launches = flash_decode_attention.launches = 0
+    out, gen_s, _ = serve(pipe, request, "int8 serve", card)
+    k2, k1 = quant_matmul.launches, flash_decode_attention.launches
+    n_layers = pipe.config.decoder.num_hidden_layers
+    decode_steps = out.steps - 2
+    want_k2 = 8 * n_layers * (decode_steps + 1) + 2 * n_layers
+    print(f"  K2 launches {k2} = 192 x ({decode_steps} decode steps + prefill) + 48 cross-kv: "
+          f"{k2 == want_k2}; K1 launches {k1} = 24 x {decode_steps}: "
+          f"{k1 == n_layers * decode_steps}")
+    if k2 != want_k2 or k1 != n_layers * decode_steps:
+        raise AssertionError(f"launches: K2 {k2} (want {want_k2}), K1 {k1}")
+    per_step, busy_ms, by_name = profile_steps(pipe, request, PROFILE_COLUMNS)
+    k2_ms = sum(v for k, v in by_name.items() if "quant_matmul_kernel" in k) / (
+        PROFILE_COLUMNS - 2) / 1e3
+    wall_ms = gen_s / decode_steps * 1e3
+    print(f"  int8 profile over {PROFILE_COLUMNS} columns: {per_step:.0f} kernels per decode "
+          f"step, device busy {busy_ms:.3f} ms per step (K2 {k2_ms:.3f} ms), unprofiled wall "
+          f"{wall_ms:.3f} ms per step: device idle {1 - busy_ms / wall_ms:.1%} ({card})")
+    del pipe, warm
+    torch.cuda.empty_cache()
+    int8_decode_step_logits(dev, card)
+    return k2
+
+
+def norm_rel(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def plain_f64(x, w_q, scale):
+    """K2's plain version summing in float64: the same function as
+    `quant_matmul_plain`, with the sums rounded in another way."""
+    y = x.to(torch.bfloat16).double() @ w_q.double()
+    return (y * scale.double()[None, :]).to(x.dtype)
+
+
+def int8_decode_step_logits(dev, card):
+    """One fp32 int8 mini-v1 decode step with K2 against the same step with
+    QuantDense over K2's plain version (substituted here, for the check only).
+
+    Every projection rounds its input to bf16, so a last-bit difference in an
+    fp32 sum moves some of those roundings, and 24 layers carry the change
+    to the logits. The tolerance is 4 x what that noise alone does: the gap
+    between the plain version and the plain version summing in float64."""
+    import parler_tts_tpu_torch.models.decoder as decoder_module
+    from parler_tts_tpu_torch.config import GenerationConfig, mini_v1_config
+    from parler_tts_tpu_torch.models.decoder import DecoderCache
+    from parler_tts_tpu_torch.ops.masks import causal_self_attention_bias
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul_plain
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+
+    pipe = ParlerTTSPipeline.from_random(mini_v1_config(), seed=1,
+                                         generation_config=GenerationConfig(), device=dev,
+                                         dtype=torch.float32, cache_dtype=torch.float32,
+                                         weight_quant=True)
+    model, dcfg = pipe.model, pipe.config.decoder
+    desc, desc_mask, prompt, prompt_mask = (torch.as_tensor(x, device=dev)
+                                            for x in request_ids(1))
+    g = torch.Generator(device=dev).manual_seed(1)
+    n_pre = MAX_LENGTH // 2
+    cols = torch.randint(0, 1024, (BATCH, dcfg.num_codebooks, n_pre + 1), generator=g,
+                         device=dev)
+    kv_valid = torch.cat([prompt_mask.bool(),
+                          torch.ones(BATCH, MAX_LENGTH, dtype=torch.bool, device=dev)], 1)
+    pos = torch.arange(S_CACHE, device=dev)[None].expand(BATCH, -1)
+    starts = (S_PROMPT - prompt_mask.sum(1)).to(torch.int32)
+    t = S_PROMPT + n_pre
+
+    def decode_step():
+        with torch.inference_mode():
+            enc = model.encode_description(desc, desc_mask)
+            cache = DecoderCache.zeros(dcfg, BATCH, S_CACHE, enc.shape[1], torch.float32, dev)
+            cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc)
+            pre = torch.cat([model.prompt_hidden(prompt),
+                             model.decoder.embed_ids(cols[:, :, :n_pre])], dim=1)
+            model.decoder(pre, pos[:, :t], self_attn_bias=causal_self_attention_bias(
+                pos[:, :t], kv_valid), cross_attn_bias=None, cache=cache)
+            return model.decoder(model.decoder.embed_ids(cols[:, :, n_pre:]), pos[:, t:t + 1],
+                                 self_attn_bias=None, cross_attn_bias=None, cache=cache,
+                                 decode_lengths=(starts, t + 1))
+
+    with_k2 = decode_step()
+    kernel = decoder_module.quant_matmul
+    try:
+        decoder_module.quant_matmul = quant_matmul_plain
+        plain = decode_step()
+        decoder_module.quant_matmul = plain_f64
+        plain64 = decode_step()
+    finally:
+        decoder_module.quant_matmul = kernel
+    err, noise = norm_rel(with_k2, plain), norm_rel(plain64, plain)
+    print(f"  int8 fp32 decode step at position {t}: logits {tuple(with_k2.shape)}, K2 vs plain "
+          f"norm-rel {err:.3e}, max abs {(with_k2 - plain).abs().max().item():.3e}; plain vs "
+          f"plain summing in float64 {noise:.3e}; tolerance 4 x that ({card})")
+    if err > 4 * noise:
+        raise AssertionError(f"int8 decode step: K2 vs plain {err:.3e} > 4 x {noise:.3e}")
+    del pipe, model
+    torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------------- fused side
+def phase_f(dev, card):
+    """K3 against its plain version at mini-v1 shapes, slice by slice within
+    the limits `fused_limits` sets from this run's fp32-vs-float64 noise;
+    returns (max abs error, largest norm-relative gap, timing)."""
+    import dataclasses
+
+    from parler_tts_tpu_torch.config import mini_v1_decoder_config
+    from parler_tts_tpu_torch.models.decoder import ParlerDecoder
+    from parler_tts_tpu_torch.models.layers import init_weights
+    from parler_tts_tpu_torch.ops.fused_decode_step import (
+        CUDA_CHUNK,
+        K3_FLOOR,
+        K3_NOISE_FACTOR,
+        fused_close,
+        fused_decode_layers,
+        fused_decode_layers_plain,
+        fused_gaps,
+        fused_limits,
+        grid_blocks,
+        prepare_fused_params,
+    )
+
+    cfg = mini_v1_decoder_config()
+    g = torch.Generator(device=dev).manual_seed(5)
+    decoder = ParlerDecoder(cfg, device=dev, dtype=torch.bfloat16)
+    init_weights(decoder, g)
+    fp = prepare_fused_params(decoder)
+    del decoder
+    n_layers, d, s_enc = cfg.num_hidden_layers, cfg.hidden_size, 16
+
+    def bf16(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+
+    cache_k, cache_v = bf16(n_layers, S_CACHE, d), bf16(n_layers, S_CACHE, d)
+    cross_k, cross_v, x = bf16(n_layers, s_enc, d), bf16(n_layers, s_enc, d), bf16(1, d)
+    enc_bias = torch.zeros(1, s_enc, device=dev)
+    enc_bias[0, 12:] = torch.finfo(torch.float32).min  # 4 masked encoder positions
+    print(f"  cooperative grid: {grid_blocks(cfg)} blocks of 256 threads")
+
+    def args(start, n_rows, params=fp):
+        return (cfg, params, x, cache_k, cache_v, cross_k, cross_v, enc_bias, start, n_rows)
+
+    def plain(start, n_rows, **kw):  # at the kernel's tiling
+        return fused_decode_layers_plain(*args(start, n_rows), block_s=CUDA_CHUNK,
+                                         tiling="cuda", **kw)
+
+    def show(gaps):  # layers 0-3, the largest of layers 4 .. L-1, the hidden state
+        return (" ".join(f"{v:.2e}" for v in gaps[:4].tolist())
+                + f" | {gaps[4:-1].max().item():.2e} | {gaps[-1].item():.2e}")
+
+    cases = [(start, n_rows) for start in (0, 3) for n_rows in (1, 64, 65, 434, 867)]
+    got, want, noise = {}, {}, []
+    for case in cases:
+        got[case] = fused_decode_layers(*args(*case))
+        torch.cuda.synchronize()
+        want[case] = plain(*case)
+        noise.append(fused_gaps(plain(*case, dtype=torch.float64), want[case]))
+    noise = torch.stack(noise)
+    limits = fused_limits(noise)
+    per_case, median_limit = limits
+
+    def verdict(gaps):  # (worst slice / its limit, median at slice 1 / its limit)
+        gaps = gaps.reshape(-1, gaps.shape[-1])
+        return ((gaps / per_case).max().item(), gaps[:, 1].median().item() / median_limit)
+
+    print(f"  slices: layer 0-3 | largest of layers 4-{n_layers - 1} | hidden; norm-relative")
+    print(f"  limit in every case = {K3_NOISE_FACTOR:g} x max(largest plain fp32 vs float64 "
+          f"noise over the cases, {K3_FLOOR:.2e}): {show(per_case)}")
+    print(f"  limit of the median over the cases at layer 1 = {K3_NOISE_FACTOR:g} x max(median "
+          f"noise there {noise[:, 1].median().item():.2e}, {K3_FLOOR:.2e}) = {median_limit:.2e}")
+    max_abs, gaps = 0.0, []
+    for case, noise_gaps in zip(cases, noise):
+        gaps.append(fused_gaps(got[case], want[case]))
+        tiling = fused_gaps(fused_decode_layers_plain(*args(*case), block_s=64), want[case])
+        abs_err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got[case], want[case]))
+        max_abs = max(max_abs, abs_err)
+        print(f"  K3 vs plain start={case[0]} n_rows={case[1]:3d}: {show(gaps[-1])}; max abs "
+              f"{abs_err:.3e}\n    plain fp32 vs float64: {show(noise_gaps)}\n"
+              f"    plain at the Pallas tiling (block_s=64): {show(tiling)}")
+    gaps = torch.stack(gaps)
+    worst, median = verdict(gaps)
+    print(f"  K3: worst slice {worst:.2f} x its limit, median at layer 1 {median:.2f} x its limit")
+    # negative checks: a kernel that dropped a cache row at either end of the
+    # range, or a layer's fc2, must fail the limits
+    no_fc2 = dataclasses.replace(fp, sfc2=fp.sfc2.clone())
+    no_fc2.sfc2[12] = 0.0
+    want[(0, 8)] = plain(0, 8)
+    long = [case for case in cases if case[1] >= 434]
+    broken = {
+        "row 0 dropped at n_rows=8": [(fused_decode_layers(*args(1, 8)), want[(0, 8)])],
+        "row 7 dropped at n_rows=8": [(fused_decode_layers(*args(0, 7)), want[(0, 8)])],
+        "first row dropped at n_rows 434 and 867, starts 0 and 3":
+            [(fused_decode_layers(*args(s + 1, n)), want[(s, n)]) for s, n in long],
+        "last row dropped at n_rows 434 and 867, starts 0 and 3":
+            [(fused_decode_layers(*args(s, n - 1)), want[(s, n)]) for s, n in long],
+        "layer 12's fc2 dropped at n_rows=434":
+            [(fused_decode_layers(*args(0, 434, no_fc2)), want[(0, 434)])],
+    }
+    passed_broken = []
+    for label, pairs in broken.items():
+        broken_gaps = torch.stack([fused_gaps(out, ref) for out, ref in pairs])
+        worst_b, median_b = verdict(broken_gaps)
+        print(f"  negative check, {label}: worst slice {worst_b:.2f} x its limit, median at "
+              f"layer 1 {median_b:.2f} x its limit")
+        if fused_close(broken_gaps, limits):
+            passed_broken.append(label)
+    if not fused_close(gaps, limits):
+        raise AssertionError(f"K3 exceeds its limits: worst slice {worst:.2f} x, median at "
+                             f"layer 1 {median:.2f} x")
+    if passed_broken:
+        raise AssertionError(f"a broken K3 passes the limits: {passed_broken}")
+
+    timing = {}
+    for n_rows in (434, 867):  # the mean and the last decode step of 860 columns
+        kernel_ms = device_ms(lambda i: fused_decode_layers(*args(3, n_rows)), iters=50)
+        plain_ms = device_ms(lambda i: plain(3, n_rows), iters=3, warmup=1)
+        weights = fp.w_attn.numel() + fp.wfc1.numel() + fp.wfc2.numel()
+        small = 4 * (fp.s_attn.numel() + fp.sfc1.numel() + fp.sfc2.numel() + 6 * n_layers * d)
+        rows = n_rows - 3
+        bytes_moved = (weights + small + 2 * n_layers * rows * d * 2 + 2 * n_layers * s_enc * d * 2
+                       + s_enc * 4 + d * 2 * 2 + 2 * n_layers * d * 2)
+        ops = 2 * weights + 4 * n_layers * (rows + 1 + s_enc) * d
+        byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        timing[n_rows] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=max(byte_s, op_s) * 1e3,
+                              bound_by="bytes" if byte_s >= op_s else "operations")
+        t = timing[n_rows]
+        print(f"  K3 24 layers, {n_rows} cache rows: {kernel_ms:.4f} ms device time, plain "
+              f"{plain_ms:.2f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+              f"{bytes_moved / 1e6:.1f} MB) ({card})")
+    del fp, cache_k, cache_v
+    torch.cuda.empty_cache()
+    return max_abs, gaps.max().item(), timing[434]  # the mean decode step of 860 columns
+
+
+def phase_g(dev, card):
+    """mini-v1 served at B=1 through K3 (fused_decode=True), beside the eager
+    bf16 path on the same request; returns K3's launches."""
+    import dataclasses
+
+    from parler_tts_tpu_torch.config import GenerationConfig, mini_v1_config
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.ops.fused_decode_step import fused_decode_layers
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+
+    gen = GenerationConfig(max_length=MAX_LENGTH, min_new_tokens=MAX_LENGTH, do_sample=False,
+                           codebook_guard=1024)
+    eager = ParlerTTSPipeline.from_random(mini_v1_config(), seed=0, generation_config=gen,
+                                          device=dev, dtype=torch.bfloat16,
+                                          cache_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    fused = ParlerTTSPipeline(eager.model, eager.dac, gen, cache_dtype=torch.bfloat16,
+                              device=dev, fused_decode=True)
+    torch.cuda.synchronize()
+    print(f"  prepare_fused_params (quantize + stack 24 layers on the card): "
+          f"{time.perf_counter() - t0:.2f} s")
+    # row 1 of phase (b)'s request: its prompt is left-padded, so K3's start is 3
+    request = tuple(x[1:2] for x in request_ids(0))
+    short = dataclasses.replace(gen, max_length=40, min_new_tokens=40)
+    for pipe in (fused, eager):
+        warm = ParlerTTSPipeline(pipe.model, pipe.dac, short, cache_dtype=torch.bfloat16,
+                                 device=dev, fused_decode=pipe.fused is not None)
+        warm.decode_codes(*warm.generate_codes(*request)[1:3])
+    torch.cuda.synchronize()
+
+    fused_decode_layers.launches = flash_decode_attention.launches = quant_matmul.launches = 0
+    out, gen_s, _ = serve(fused, request, "fused B=1 serve", card)
+    k3 = fused_decode_layers.launches
+    decode_steps = out.steps - 2
+    print(f"  K3 launches {k3} = 1 x {decode_steps} decode steps: {k3 == decode_steps} "
+          f"(K1 {flash_decode_attention.launches}, K2 {quant_matmul.launches})")
+    if k3 != decode_steps or flash_decode_attention.launches or quant_matmul.launches:
+        raise AssertionError(f"fused path launches: K3 {k3}, want {decode_steps}")
+    rows = {}
+    for label, pipe, wall_s in (("fused", fused, gen_s),
+                                ("eager bf16", eager, serve(eager, request, "eager B=1 serve",
+                                                            card)[1])):
+        per_step, busy_ms, by_name = profile_steps(pipe, request, PROFILE_COLUMNS)
+        wall_ms = wall_s / decode_steps * 1e3
+        rows[label] = busy_ms
+        print(f"  {label} B=1: {decode_steps / wall_s:.1f} decode steps/s, {per_step:.0f} "
+              f"kernels per decode step, device busy {busy_ms:.3f} ms per step (profile over "
+              f"{PROFILE_COLUMNS} columns, prefill included), wall {wall_ms:.3f} ms per step: "
+              f"device idle {1 - busy_ms / wall_ms:.1%} ({card})")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"    {us / sum(by_name.values()):6.1%} {name[:90]}")
+    print(f"  eager bf16 B=1 decode step device time (K3's yardstick): "
+          f"{rows['eager bf16']:.3f} ms; fused {rows['fused']:.3f} ms ({card})")
+    del fused, eager
+    torch.cuda.empty_cache()
+    return k3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -323,12 +811,14 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    log = build("flash_decode")
-    print(f"[build] nvcc of flash_decode{'' if log else ' (up to date)'}: "
-          f"{time.perf_counter() - t0:.2f} s ({card})")
-    for line in log.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, all at once
+        logs = list(pool.map(build, KERNEL_SOURCES))
+    print(f"[build] nvcc of {', '.join(KERNEL_SOURCES)}: {time.perf_counter() - t0:.2f} s "
+          f"({card})")
+    for name, log in zip(KERNEL_SOURCES, logs):
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
 
     t0 = time.perf_counter()
     max_err, timing = phase_a(dev, card)
@@ -339,13 +829,34 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_c(dev, card)
     print(f"[phase c] decode step K1 vs dense: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    k2_err, k2_timing = phase_d(dev, card)
+    print(f"[phase d] K2 vs plain: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    k2_launches = phase_e(dev, card)
+    print(f"[phase e] mini-v1 int8 pipeline: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    k3_err, k3_norm_rel, k3_timing = phase_f(dev, card)
+    print(f"[phase f] K3 vs plain: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    k3_launches = phase_g(dev, card)
+    print(f"[phase g] mini-v1 fused B=1 pipeline: {time.perf_counter() - t0:.2f} s ({card})")
 
-    kernels = [dict(
-        name="flash_decode_attention", route="cuda",
-        source="parler_tts_tpu_torch/csrc/flash_decode.cu",
-        replaces="parler_tts_tpu/ops/pallas/flash_decode.py:192",
-        launches=launches, max_abs_err=max_err, **timing,
-    )]
+    kernels = [
+        dict(name="flash_decode_attention", route="cuda",
+             source="parler_tts_tpu_torch/csrc/flash_decode.cu",
+             replaces="parler_tts_tpu/ops/pallas/flash_decode.py:192",
+             launches=launches, max_abs_err=max_err, **timing),
+        dict(name="quant_matmul", route="cuda",
+             source="parler_tts_tpu_torch/csrc/quant_matmul.cu",
+             replaces="parler_tts_tpu/ops/pallas/quant_matmul.py:39",
+             launches=k2_launches, max_abs_err=k2_err, **k2_timing),
+        dict(name="fused_decode_layers", route="cuda",
+             source="parler_tts_tpu_torch/csrc/fused_decode_step.cu",
+             replaces="parler_tts_tpu/ops/pallas/fused_decode_step.py:352",
+             launches=k3_launches, max_abs_err=k3_err, max_norm_rel_err=k3_norm_rel,
+             **k3_timing),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ The port's modules use the flax parameter names, so a JAX leaf
 `decoder/decoder/layers_3/self_attn/q_proj/kernel` lands in
 `decoder.decoder.layers.3.self_attn.q_proj.kernel`. A module that stores a
 parameter in another layout (the codec's convs) maps the leaf itself with
-`from_jax(leaf, array) -> (name, array)`. Every leaf is shape-checked, and
-every parameter of the port's module must receive a leaf.
+`from_jax(leaf, array) -> (name, array)`. Every leaf is shape- and
+dtype-checked (an integer leaf, such as the int8 `w_q` of a quantized tree,
+only into a parameter of its own dtype; a float leaf only into a float
+parameter), and every parameter of the port's module must receive a leaf.
 """
 
 from __future__ import annotations
@@ -56,6 +58,12 @@ def _load(root: nn.Module, tree: Mapping[str, Any], skip: Callable[[Path], bool]
             raise ValueError(
                 f"JAX leaf {'/'.join(path)}: shape {tuple(arr.shape)} != "
                 f"{name} {tuple(param.shape)}"
+            )
+        leaf_int = np.issubdtype(arr.dtype, np.integer)
+        if leaf_int != (not param.dtype.is_floating_point) or (
+                leaf_int and torch.from_numpy(np.zeros(0, arr.dtype)).dtype != param.dtype):
+            raise TypeError(
+                f"JAX leaf {'/'.join(path)}: dtype {arr.dtype} does not fit {name} {param.dtype}"
             )
         with torch.no_grad():
             param.copy_(torch.from_numpy(np.array(arr)).to(param.dtype))

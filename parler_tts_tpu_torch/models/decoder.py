@@ -9,13 +9,17 @@
     through an additive bias, and the one-token decode step attends through
     kernel K1 (`ops/flash_decode.py`) over the flat (L, B, S, H_kv*Dh) cache,
     read in place at the layer's index;
-  - the LM heads are one stacked (K, D, V) parameter applied as one einsum.
+  - the LM heads are one stacked (K, D, V) parameter applied as one einsum;
+  - `weight_quant=True` (int8 serving) makes every layer's attention
+    projections and MLP a `QuantDense` over kernel K2 (`ops/quant_matmul.py`):
+    int8 `w_q` (in, out) and fp32 per-output-channel `scale` (out,), the
+    flax names; embeddings, layer norms and heads stay in the float dtype.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +28,8 @@ from torch import nn
 from ..config import DecoderConfig
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.positions import apply_rope, rope_cos_sin, sinusoidal_embed, sinusoidal_table
+from ..ops.quant_matmul import quant_matmul
+from ..utils.quantize import quantize_kernel_torch
 from .layers import Dense, LayerNorm, new_param
 
 ACT_FNS = {
@@ -79,20 +85,67 @@ def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, t, h, dh)
 
 
+class QuantDense(nn.Module):
+    """Weight-only int8 linear over kernel K2: y = (bf16(x) @ w_q) * scale in
+    the module's dtype. x is cast to the module's dtype first, as flax's
+    `QuantDense` does.
+
+    `reset_parameters` draws the float kernel a `Dense` of the same shape and
+    dtype would draw, on the parameters' device, and quantizes it there
+    (`utils.quantize.quantize_kernel_torch`): from one seed, a quantized model
+    holds the quantization of the float model's weights."""
+
+    def __init__(self, in_features: int, out_features: int, std: float, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.w_q = new_param(in_features, out_features, device=device, dtype=torch.int8)
+        self.scale = new_param(out_features, device=device, dtype=torch.float32)
+        self.std = std
+        self.dtype = dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        w = torch.empty(self.w_q.shape, dtype=self.dtype, device=self.w_q.device)
+        w_q, scale = quantize_kernel_torch(w.normal_(0.0, self.std, generator=generator))
+        self.w_q.copy_(w_q)
+        self.scale.copy_(scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = x.shape
+        y = quant_matmul(x.reshape(-1, shape[-1]).to(self.dtype).contiguous(), self.w_q,
+                         self.scale)
+        return y.reshape(*shape[:-1], y.shape[-1])
+
+
+def make_dense(in_features: int, out_features: int, std: float, device, dtype,
+               weight_quant: Any) -> nn.Module:
+    """The bias-free linear layer of a `weight_quant` setting: `Dense` (False)
+    or `QuantDense` (True). The JAX package's `"xla"` form is not ported."""
+    if weight_quant == "xla":
+        raise NotImplementedError(
+            'weight_quant="xla" is not ported (ROADMAP.md, item 19b); use weight_quant=True, '
+            "whose kernel K2 is the CUDA form of the int8 matmul"
+        )
+    if weight_quant is True:
+        return QuantDense(in_features, out_features, std, device, dtype)
+    if weight_quant is False:
+        return Dense(in_features, out_features, std=std, device=device, dtype=dtype)
+    raise ValueError(f"weight_quant must be False or True, got {weight_quant!r}")
+
+
 class Attention(nn.Module):
     """Bias-free multi-head attention with GQA/MQA."""
 
     def __init__(self, config: DecoderConfig, num_kv_heads: int, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, weight_quant: Any = False):
         super().__init__()
         self.config = config
         self.num_kv_heads = num_kv_heads
         d, dh, std = config.hidden_size, config.head_dim, config.initializer_factor
-        kw = dict(std=std, device=device, dtype=dtype)
-        self.q_proj = Dense(d, d, **kw)
-        self.k_proj = Dense(d, num_kv_heads * dh, **kw)
-        self.v_proj = Dense(d, num_kv_heads * dh, **kw)
-        self.out_proj = Dense(d, d, **kw)
+        kw = dict(std=std, device=device, dtype=dtype, weight_quant=weight_quant)
+        self.q_proj = make_dense(d, d, **kw)
+        self.k_proj = make_dense(d, num_kv_heads * dh, **kw)
+        self.v_proj = make_dense(d, num_kv_heads * dh, **kw)
+        self.out_proj = make_dense(d, d, **kw)
 
     def _split(self, x: torch.Tensor, heads: int) -> torch.Tensor:
         return x.reshape(x.shape[0], x.shape[1], heads, self.config.head_dim)
@@ -147,17 +200,20 @@ class Attention(nn.Module):
 class DecoderLayer(nn.Module):
     """Pre-LN block: self-attn -> cross-attn -> MLP."""
 
-    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
+                 weight_quant: Any = False):
         super().__init__()
         self.config = config
         d, std = config.hidden_size, config.initializer_factor
-        self.self_attn = Attention(config, config.num_key_value_heads, device, dtype)
+        self.self_attn = Attention(config, config.num_key_value_heads, device, dtype,
+                                   weight_quant)
         self.self_attn_layer_norm = LayerNorm(d, device=device, dtype=dtype)
         self.encoder_attn = Attention(config, config.num_cross_attention_key_value_heads,
-                                      device, dtype)
+                                      device, dtype, weight_quant)
         self.encoder_attn_layer_norm = LayerNorm(d, device=device, dtype=dtype)
-        self.fc1 = Dense(d, config.ffn_dim, std=std, device=device, dtype=dtype)
-        self.fc2 = Dense(config.ffn_dim, d, std=std, device=device, dtype=dtype)
+        kw = dict(std=std, device=device, dtype=dtype, weight_quant=weight_quant)
+        self.fc1 = make_dense(d, config.ffn_dim, **kw)
+        self.fc2 = make_dense(config.ffn_dim, d, **kw)
         self.final_layer_norm = LayerNorm(d, device=device, dtype=dtype)
         self.act = ACT_FNS[config.activation_function]
 
@@ -176,13 +232,15 @@ class DecoderLayer(nn.Module):
 class ParlerDecoder(nn.Module):
     """The decoder stack over a static cache."""
 
-    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
+                 weight_quant: Any = False):
         super().__init__()
         self.config = config
         self.embed_tokens = new_param(config.num_codebooks, config.embed_rows,
                                       config.hidden_size, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(config, device, dtype) for _ in range(config.num_hidden_layers)
+            DecoderLayer(config, device, dtype, weight_quant)
+            for _ in range(config.num_hidden_layers)
         )
         self.layer_norm = LayerNorm(config.hidden_size, device=device, dtype=dtype)
         if not config.rope_embeddings:
@@ -233,12 +291,13 @@ class ParlerDecoder(nn.Module):
 
 
 class ParlerForCausalLM(nn.Module):
-    """Decoder + stacked LM heads."""
+    """Decoder + stacked LM heads (never quantized, as in the JAX package)."""
 
-    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
+                 weight_quant: Any = False):
         super().__init__()
         self.config = config
-        self.decoder = ParlerDecoder(config, device, dtype)
+        self.decoder = ParlerDecoder(config, device, dtype, weight_quant)
         self.lm_heads = new_param(config.num_codebooks, config.hidden_size, config.vocab_size,
                                   device=device, dtype=dtype)
 

@@ -13,7 +13,7 @@ Prompt conditioning:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,12 +26,19 @@ from .t5_encoder import T5Encoder
 
 
 class ParlerTTS(nn.Module):
-    def __init__(self, config: ParlerTTSConfig, device=None, dtype=torch.float32):
+    """`weight_quant=True`: int8 weight-only decoder layers over kernel K2
+    (`models/decoder.py:QuantDense`); the parameters then follow
+    `utils.quantize.quantize_decoder_params`."""
+
+    def __init__(self, config: ParlerTTSConfig, device=None, dtype=torch.float32,
+                 weight_quant: Any = False):
         super().__init__()
         self.config = config
+        self.weight_quant = weight_quant
         dcfg = config.decoder
         self.text_encoder = T5Encoder(config.text_encoder, device=device, dtype=dtype)
-        self.decoder = ParlerForCausalLM(dcfg, device=device, dtype=dtype)
+        self.decoder = ParlerForCausalLM(dcfg, device=device, dtype=dtype,
+                                         weight_quant=weight_quant)
         self.embed_prompts = Embed(config.vocab_size, dcfg.hidden_size,
                                    std=dcfg.initializer_factor, device=device, dtype=dtype)
         self.needs_proj = (

@@ -11,6 +11,12 @@ on the host only every `EOS_CHECK_EVERY` steps. Steps run past the exit
 rewrite the values the output already holds (finished rows emit PAD, which
 the pattern keeps), and `steps` is recovered exactly from the per-step
 all-EOS record, so the results equal a loop that checks every step.
+
+`generate_tokens_fused` (port of `generate_tokens_fused`) is the B=1 serving
+mode whose decode step is kernel K3 (`ops/fused_decode_step.py`): the whole
+layer stack of one token in one launch with int8 weights, the final LN and
+the stacked heads in fp32 after it. Prefill and sampling are shared with
+`generate_tokens`.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ from ..ops.delay_pattern import (
     undelay_pattern,
     valid_frame_lengths,
 )
+from ..ops.fused_decode_step import FusedParams, check_fused_config, fused_decode_layers
 from ..ops.masks import causal_self_attention_bias, padding_cross_attention_bias
+from ..ops.positions import sinusoidal_table
 from ..ops.sampling import (
     NEG_INF,
     EosState,
@@ -99,7 +107,6 @@ def _sample_column(
     return torch.where(pat_col == -1, toks, pat_col), eos_state
 
 
-@torch.inference_mode()
 def generate_tokens(
     model: ParlerTTS,
     gen: GenerationConfig,
@@ -116,6 +123,38 @@ def generate_tokens(
     `decoder_prompt_codes` (B, K, T0) steers the voice: codec tokens of a
     reference clip are the decoder prompt after the BOS column.
     """
+    return _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+                     decoder_prompt_codes, cache_dtype, fused=None)
+
+
+def generate_tokens_fused(
+    model: ParlerTTS,
+    gen: GenerationConfig,
+    fused: FusedParams,
+    desc_ids: torch.Tensor,
+    desc_mask: Optional[torch.Tensor],
+    prompt_ids: torch.Tensor,
+    prompt_mask: Optional[torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    decoder_prompt_codes: Optional[torch.Tensor] = None,
+) -> GenerateOutput:
+    """B=1 generation whose decode step is kernel K3 over `fused`
+    (`prepare_fused_params` of the model's float decoder). The KV cache is
+    bf16 whatever the model's dtype, as in the JAX package."""
+    dcfg = model.config.decoder
+    if desc_ids.shape[0] != 1:
+        raise ValueError(f"the fused decode path serves B=1, got B={desc_ids.shape[0]}")
+    check_fused_config(dcfg)
+    if gen.cache_implementation == "sliding_window":
+        raise ValueError("the fused decode step uses [start, n_rows) bounds; "
+                         "sliding_window needs the eager path")
+    return _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+                     decoder_prompt_codes, torch.bfloat16, fused=fused)
+
+
+@torch.inference_mode()
+def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+              decoder_prompt_codes, cache_dtype, fused) -> GenerateOutput:
     cfg: ParlerTTSConfig = model.config
     dcfg = cfg.decoder
     k_cb, max_len = dcfg.num_codebooks, gen.max_length
@@ -195,7 +234,19 @@ def generate_tokens(
     out_ids[:, :, s0] = col
 
     # ---- decode loop: columns s0+1 .. L-1
-    cross_bias = padding_cross_attention_bias(enc_mask, 1)
+    if fused is None:
+        cross_bias = padding_cross_attention_bias(enc_mask, 1)
+
+        def decode_step(t: int) -> torch.Tensor:
+            emb = model.decoder.embed_ids(out_ids[:, :, t - 1: t])
+            return model.decoder(
+                emb, positions[:, s_p + t - 1: s_p + t],
+                self_attn_bias=None, cross_attn_bias=cross_bias, cache=cache,
+                decode_lengths=(flash_starts, s_p + t),
+            )[:, :, -1, :]
+    else:
+        decode_step = _fused_step(model, fused, cache, enc_mask, out_ids, s_p,
+                                  int(flash_starts[0]))
     # all_done[t]: every codebook of every row had emitted EOS before column t
     all_done = torch.zeros((max_len + 2,), dtype=torch.bool, device=device)
     t = s0 + 1
@@ -203,14 +254,8 @@ def generate_tokens(
         all_done[t] = eos_state.eos_seen.all()
         if (t - s0 - 1) % EOS_CHECK_EVERY == 0 and bool(all_done[t]):
             break
-        emb = model.decoder.embed_ids(out_ids[:, :, t - 1: t])
-        logits = model.decoder(
-            emb, positions[:, s_p + t - 1: s_p + t],
-            self_attn_bias=None, cross_attn_bias=cross_bias, cache=cache,
-            decode_lengths=(flash_starts, s_p + t),
-        )
         col, eos_state = _sample_column(
-            logits[:, :, -1, :], t, eos_state, pattern, gen, k_cb,
+            decode_step(t), t, eos_state, pattern, gen, k_cb,
             prompt_cols=s0, generator=generator,
         )
         out_ids[:, :, t] = col
@@ -223,3 +268,38 @@ def generate_tokens(
     codes = undelay_pattern(delayed, k_cb)
     lengths = valid_frame_lengths(codes, dcfg.pad_token_id)  # pad == eos == codebook_size
     return GenerateOutput(delayed, codes, lengths, steps)
+
+
+def _fused_step(model: ParlerTTS, fp: FusedParams, cache: DecoderCache, enc_mask, out_ids,
+                s_p: int, start: int):
+    """The B=1 decode step over K3: column t -> logits (1, K, V) in fp32. The
+    kernel returns the new k/v rows, written here into the cache at n_rows."""
+    dcfg = model.config.decoder
+    n_layers, d = dcfg.num_hidden_layers, dcfg.hidden_size
+    lm = model.decoder
+    device = out_ids.device
+    table = sinusoidal_table(dcfg.max_position_embeddings, d, torch.float32, device)
+    self_k, self_v = cache.self_k[:, 0], cache.self_v[:, 0]  # (L, S, D) views
+    s_enc = cache.cross_k.shape[2]
+    cross_k = cache.cross_k[:, 0].reshape(n_layers, s_enc, d).to(torch.bfloat16).contiguous()
+    cross_v = cache.cross_v[:, 0].reshape(n_layers, s_enc, d).to(torch.bfloat16).contiguous()
+    enc_bias = torch.zeros((1, s_enc), dtype=torch.float32, device=device)
+    if enc_mask is not None:
+        enc_bias = enc_bias.masked_fill(~enc_mask.to(torch.bool), torch.finfo(torch.float32).min)
+    ln = lm.decoder.layer_norm
+    ln_scale, ln_bias = ln.scale.float(), ln.bias.float()
+    heads = lm.lm_heads.float()
+
+    def step(t: int) -> torch.Tensor:
+        n_rows = s_p + t - 1
+        emb = lm.embed_ids(out_ids[:, :, t - 1: t]).float()[0] + table[n_rows]
+        hidden, new_k, new_v = fused_decode_layers(
+            dcfg, fp, emb.to(torch.bfloat16), self_k, self_v, cross_k, cross_v, enc_bias,
+            start, n_rows,
+        )
+        self_k[:, n_rows] = new_k[:, 0]
+        self_v[:, n_rows] = new_v[:, 0]
+        hf = torch.nn.functional.layer_norm(hidden.float(), (d,), ln_scale, ln_bias, 1e-5)
+        return torch.einsum("td,kdv->tkv", hf, heads)
+
+    return step

@@ -5,6 +5,11 @@ Runs on the GPU unless the caller passes `device="cpu"`: without a GPU the
 pipeline raises instead of falling back. It takes id arrays; string input
 needs the tokenizer, which the port does not have yet.
 
+Two serving modes of the JAX pipeline: a model built with `weight_quant=True`
+(int8 weight-only decoder layers over kernel K2) is served unchanged, and
+`fused_decode=True` sends B=1 requests through the fused decode step (kernel
+K3, `generate_tokens_fused`) while B>1 requests take the eager loop.
+
 Codec decode is bucketed: the batch's largest valid frame count is rounded up
 to `frame_bucket` frames, so the conv stack never runs over the full
 max_length grid when the frames end early.
@@ -21,7 +26,8 @@ from ..codec.dac_model import DACModel
 from ..config import GenerationConfig, ParlerTTSConfig
 from ..models.layers import init_weights
 from ..models.parler import ParlerTTS
-from .generate import GenerateOutput, generate_tokens
+from ..ops.fused_decode_step import prepare_fused_params
+from .generate import GenerateOutput, generate_tokens, generate_tokens_fused
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,7 +65,13 @@ class ParlerTTSPipeline:
         frame_bucket: int = 256,
         cache_dtype: torch.dtype = torch.bfloat16,
         device=None,
+        fused_decode: bool = False,
     ):
+        if fused_decode and getattr(model, "weight_quant", False):
+            raise ValueError(
+                "fused_decode and weight_quant are exclusive: the fused step quantizes the "
+                "float decoder itself (prepare_fused_params)"
+            )
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dac = dac.to(self.device).eval()
@@ -72,6 +84,8 @@ class ParlerTTSPipeline:
             pad_token_id=dcfg.pad_token_id,
             eos_token_id=dcfg.eos_token_id,
         )
+        # B=1 requests run the fused decode step over int8 weights stacked once
+        self.fused = prepare_fused_params(self.model.decoder.decoder) if fused_decode else None
 
     @classmethod
     def from_random(
@@ -81,14 +95,17 @@ class ParlerTTSPipeline:
         generation_config: Optional[GenerationConfig] = None,
         device=None,
         dtype: torch.dtype = torch.float32,
+        weight_quant: bool = False,
         **kw,
     ) -> "ParlerTTSPipeline":
         """Randomly initialised pipeline, built and filled on the device from a
-        `torch.Generator` seeded with `seed` (the codec stays fp32)."""
+        `torch.Generator` seeded with `seed` (the codec stays fp32). With
+        `weight_quant=True` each decoder projection draws its `dtype` weights
+        on the device and quantizes them there to int8."""
         dev = resolve_device(device)
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
-        model = ParlerTTS(config, device=dev, dtype=dtype)
+        model = ParlerTTS(config, device=dev, dtype=dtype, weight_quant=weight_quant)
         init_weights(model, generator)
         dac = DACModel(config.audio_encoder, device=dev)
         init_weights(dac, generator)
@@ -117,6 +134,11 @@ class ParlerTTSPipeline:
             ids = [None if x is None else x.repeat_interleave(n, dim=0) for x in ids]
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
+        if self.fused is not None and ids[0].shape[0] == 1:
+            return generate_tokens_fused(
+                self.model, gen, self.fused, ids[0], ids[1], ids[2], ids[3], generator,
+                decoder_prompt_codes=ids[4],
+            )
         return generate_tokens(
             self.model, gen, ids[0], ids[1], ids[2], ids[3], generator,
             decoder_prompt_codes=ids[4], cache_dtype=self.cache_dtype,

@@ -1,5 +1,6 @@
-"""Port tests that need the card: the CUDA kernel K1 against its plain
-version, and the pipeline on the GPU. Marked `cuda`; without a GPU each test
+"""Port tests that need the card: the CUDA kernels K1 (flash-decode), K2
+(int8 matmul) and K3 (fused decode step) against their plain versions, and
+the pipeline on the GPU in its eager, int8 and fused modes. Marked `cuda`; without a GPU each test
 skips (a CUDA kernel has no CPU mode). This file imports no JAX, since the
 machine with the card has none. Run there with
 
@@ -11,7 +12,18 @@ Tolerances: fp32 atol 2e-5 / rtol 1e-4 (the Pallas tests' own); bf16
 atol 2e-3 / rtol 1e-2 (both sides round P to bf16, at different points of the
 online softmax; the card reads at most 4.9e-4 on outputs of 0.01-0.05, and a
 kernel that drops or repeats one 64-slot tile moves them by ~4e-3).
+K2: `k2_close` (ops/quant_matmul.py): within 1e-6 x max|y| + 1e-5 x |y|
+(fp32 summation-order noise over K <= 4096 terms), bf16 also within one bf16
+ulp. K3: `fused_close` (ops/fused_decode_step.py) over `fused_gaps`, slice
+by slice (each layer's new k and v rows, then the hidden state), within the
+limits `fused_limits` sets from the noise between its plain version summing
+in fp32 and in float64 over the cases held: in every case 4 x the largest
+noise, and for the median over the cases at layer 1 4 x the median noise,
+both at least 4 x one bf16 step in 1 of 64 entries.
 """
+
+import dataclasses
+
 
 import pytest
 import torch
@@ -23,15 +35,29 @@ from parler_tts_tpu_torch.config import (
     ParlerTTSConfig,
     T5Config,
 )
+from parler_tts_tpu_torch.config import mini_v1_decoder_config
+from parler_tts_tpu_torch.models.decoder import ParlerDecoder
+from parler_tts_tpu_torch.models.layers import init_weights
 from parler_tts_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_plain,
 )
+from parler_tts_tpu_torch.ops.fused_decode_step import (
+    CUDA_CHUNK,
+    fused_close,
+    fused_decode_layers,
+    fused_decode_layers_plain,
+    fused_gaps,
+    fused_limits,
+    prepare_fused_params,
+)
+from parler_tts_tpu_torch.ops.quant_matmul import k2_close, quant_matmul, quant_matmul_plain
 from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
+K3_CASES = [(0, 1), (3, 65), (0, 434), (3, 867)]  # (start, n_rows)
 
 
 @pytest.fixture
@@ -111,9 +137,9 @@ def test_kernel_empty_range_gives_zero(cuda):
     assert torch.count_nonzero(got) == 0
 
 
-def test_pipeline_on_the_gpu_launches_the_kernel_every_decode_step(cuda):
+def tiny_config(hidden=64):
     pad, bos = 88, 89
-    cfg = ParlerTTSConfig(
+    return ParlerTTSConfig(
         text_encoder=T5Config(vocab_size=120, d_model=48, d_kv=12, d_ff=96, num_layers=2,
                               num_heads=4, relative_attention_num_buckets=8,
                               relative_attention_max_distance=20, dropout_rate=0.0),
@@ -121,22 +147,33 @@ def test_pipeline_on_the_gpu_launches_the_kernel_every_decode_step(cuda):
                                 latent_dim=64, encoder_dim=4, encoder_rates=(2, 4, 4),
                                 decoder_dim=96, decoder_rates=(4, 4, 2),
                                 sampling_rate=16000, frame_rate=500),
-        decoder=DecoderConfig(vocab_size=100, hidden_size=64, num_hidden_layers=2,
-                              num_attention_heads=4, ffn_dim=128, num_codebooks=4,
+        decoder=DecoderConfig(vocab_size=100, hidden_size=hidden, num_hidden_layers=2,
+                              num_attention_heads=4, ffn_dim=2 * hidden, num_codebooks=4,
                               max_position_embeddings=128, pad_token_id=pad,
                               bos_token_id=bos, eos_token_id=pad, dropout=0.0),
         vocab_size=256, pad_token_id=pad, decoder_start_token_id=bos,
     )
-    gen = GenerationConfig(max_length=40, min_new_tokens=40, do_sample=False,
-                           bos_token_id=bos, pad_token_id=pad, eos_token_id=pad,
-                           codebook_guard=pad)
+
+
+TINY_GEN = GenerationConfig(max_length=40, min_new_tokens=40, do_sample=False,
+                            bos_token_id=89, pad_token_id=88, eos_token_id=88,
+                            codebook_guard=88)
+
+
+def tiny_request(b=2):
+    g = torch.Generator().manual_seed(0)
+    desc = torch.randint(0, 120, (b, 9), generator=g)
+    prompt = torch.randint(0, 256, (b, 5), generator=g)
+    prompt_mask = torch.ones(b, 5, dtype=torch.int64)
+    prompt_mask[0, :2] = 0
+    return desc, None, prompt, prompt_mask
+
+
+def test_pipeline_on_the_gpu_launches_the_kernel_every_decode_step(cuda):
+    cfg, gen = tiny_config(), TINY_GEN
     pipe = ParlerTTSPipeline.from_random(cfg, seed=0, generation_config=gen, frame_bucket=8)
     assert pipe.device.type == "cuda"
-    g = torch.Generator().manual_seed(0)
-    desc = torch.randint(0, 120, (2, 9), generator=g)
-    prompt = torch.randint(0, 256, (2, 5), generator=g)
-    prompt_mask = torch.ones(2, 5, dtype=torch.int64)
-    prompt_mask[0, :2] = 0
+    desc, _, prompt, prompt_mask = tiny_request()
     before = flash_decode_attention.launches
     out = pipe.generate_codes(desc, None, prompt, prompt_mask)
     decode_steps = out.steps - 2  # prefill samples column 1; the loop the rest
@@ -145,3 +182,116 @@ def test_pipeline_on_the_gpu_launches_the_kernel_every_decode_step(cuda):
     audio, lengths = pipe.decode_codes(out.codes, out.lengths)
     assert torch.isfinite(torch.from_numpy(audio)).all()
     assert (lengths == (gen.max_length - 4) * cfg.audio_encoder.hop_length).all()
+
+
+# ------------------------------------------------------------------ K2
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 4096), (4096, 1024)])
+@pytest.mark.parametrize("m", [1, 2, 18, 32])
+def test_quant_matmul_matches_plain(cuda, m, k, n, dtype):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = (torch.randn(m, k, generator=g, device=cuda) * 0.3).to(dtype)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    s = torch.rand(n, generator=g, device=cuda) * 0.009 + 1e-3
+    before = quant_matmul.launches
+    got = quant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    want = quant_matmul_plain(x, w, s)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert k2_close(got, want)
+    # deterministic: split-K partials are summed in a fixed order
+    assert torch.equal(quant_matmul(x, w, s), got)
+
+
+# ------------------------------------------------------------------ K3
+@pytest.fixture(scope="module")
+def mini_v1_fused():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    cfg = mini_v1_decoder_config()
+    g = torch.Generator(device=dev).manual_seed(0)
+    decoder = ParlerDecoder(cfg, device=dev, dtype=torch.bfloat16)
+    init_weights(decoder, g)
+    n_layers, d, s_enc = cfg.num_hidden_layers, cfg.hidden_size, 16
+
+    def bf16(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+
+    bias = torch.zeros(1, s_enc, device=dev)
+    bias[0, 12:] = torch.finfo(torch.float32).min
+    tensors = (bf16(1, d), bf16(n_layers, 868, d), bf16(n_layers, 868, d),
+               bf16(n_layers, s_enc, d), bf16(n_layers, s_enc, d), bias)
+    fp = prepare_fused_params(decoder)
+
+    def plain(start, n_rows, **kw):  # at the kernel's tiling
+        return fused_decode_layers_plain(cfg, fp, *tensors, start, n_rows,
+                                         block_s=CUDA_CHUNK, tiling="cuda", **kw)
+
+    want = {case: plain(*case) for case in K3_CASES}
+    noise = torch.stack([fused_gaps(plain(*case, dtype=torch.float64), want[case])
+                         for case in K3_CASES])
+    return cfg, fp, tensors, want, fused_limits(noise)
+
+
+@pytest.mark.parametrize("start,n_rows", K3_CASES)
+def test_fused_decode_matches_plain_at_mini_v1(cuda, mini_v1_fused, start, n_rows):
+    cfg, fp, tensors, wants, limits = mini_v1_fused
+    want = wants[(start, n_rows)]
+    before = fused_decode_layers.launches
+    got = fused_decode_layers(cfg, fp, *tensors, start, n_rows)
+    torch.cuda.synchronize()
+    assert fused_decode_layers.launches == before + 1
+    assert [g.shape for g in got] == [w.shape for w in want]
+    per_case, _ = limits
+    assert (fused_gaps(got, want) <= per_case).all()
+    # a kernel that dropped a layer's fc2 fails the limit of every case
+    no_fc2 = dataclasses.replace(fp, sfc2=fp.sfc2.clone())
+    no_fc2.sfc2[12] = 0.0
+    broken = fused_decode_layers(cfg, no_fc2, *tensors, start, n_rows)
+    assert (fused_gaps(broken, want) > per_case).any()
+
+
+def test_fused_decode_median_gap_at_mini_v1(cuda, mini_v1_fused):
+    cfg, fp, tensors, wants, limits = mini_v1_fused
+    gaps = torch.stack([fused_gaps(fused_decode_layers(cfg, fp, *tensors, *case), wants[case])
+                        for case in K3_CASES])
+    assert fused_close(gaps, limits)
+    # a kernel that dropped the first or the last cache row fails them
+    long = [(start, n_rows) for start, n_rows in K3_CASES if n_rows > start + 1]
+    for shift in ((1, 0), (0, -1)):
+        broken = torch.stack([
+            fused_gaps(fused_decode_layers(cfg, fp, *tensors, start + shift[0],
+                                           n_rows + shift[1]), wants[(start, n_rows)])
+            for start, n_rows in long])
+        assert not fused_close(broken, limits), shift
+
+
+# ------------------------------------------------------- int8 and fused
+def test_int8_pipeline_launch_counts(cuda):
+    cfg = tiny_config()
+    pipe = ParlerTTSPipeline.from_random(cfg, seed=0, generation_config=TINY_GEN,
+                                         frame_bucket=8, weight_quant=True)
+    k1, k2 = flash_decode_attention.launches, quant_matmul.launches
+    out = pipe.generate_codes(*tiny_request())
+    decode_steps = out.steps - 2
+    assert out.steps == TINY_GEN.max_length
+    # 8 projections a layer in the prefill and each decode step, 2 for cross k/v
+    assert quant_matmul.launches - k2 == 2 * 8 * (decode_steps + 1) + 2 * 2
+    assert flash_decode_attention.launches - k1 == 2 * decode_steps
+
+
+def test_fused_pipeline_launch_counts(cuda):
+    cfg = tiny_config(hidden=256)  # head_dim 64, as K3 needs
+    pipe = ParlerTTSPipeline.from_random(cfg, seed=0, generation_config=TINY_GEN,
+                                         frame_bucket=8, dtype=torch.bfloat16,
+                                         fused_decode=True)
+    before = fused_decode_layers.launches
+    out = pipe.generate_codes(*(None if x is None else x[1:] for x in tiny_request()))
+    assert out.steps == TINY_GEN.max_length
+    assert fused_decode_layers.launches - before == out.steps - 2
+    before = fused_decode_layers.launches
+    pipe.generate_codes(*tiny_request())  # B=2 takes the eager loop
+    assert fused_decode_layers.launches == before
