@@ -36,7 +36,30 @@ Builds the port's CUDA kernels with nvcc, then:
   (g) serves mini-v1 at B=1 with `fused_decode=True` (row 1 of (b)'s request,
       left-padded) over 860 columns, counting one K3 launch per decode step,
       and prints steps/s, RTF, kernels per decode step and device idle share
-      beside the eager bf16 path on the same request.
+      beside the eager bf16 path on the same request;
+  (h) holds kernel K4 (training flash attention: forward, dq, dk/dv) against
+      its plain version, output and gradients, at mini-v1's training
+      attention (B=2, H=16, Dh=64, T = 16 prompt + 1024 frames, causal, row
+      1's prompt left-padded by 5) in bf16 and fp32 and at small GQA 8:2,
+      q_offset 256, unaligned and non-causal cases, within limits set by the
+      plain version's own fp32-vs-float64 noise; checks that a kernel that
+      drops one key tile fails them; times each kernel and its own plain
+      version (the forward, the dq part and the dk/dv part of the plain
+      backward), and `F.scaled_dot_product_attention` forward and backward
+      (a yardstick only; no library call computes dq or dk/dv alone, so its
+      backward is reported once, as the dk/dv entry's `library_backward_ms`);
+  (i) trains parler-tts-mini-v1 at full width and depth (fp32 parameters and
+      AdamW moments, bf16 compute, K4 attention, every layer rematerialised)
+      for 5 steps on one B=2 batch with `make_optimizer(warmup_steps=1)`:
+      the loss is finite and falls from step 2 to step 5, step 1 (lr 0)
+      changes no parameter, the frozen text encoder never changes, and K4
+      launches exactly 48 forward, 24 dq and 24 dk/dv kernels a step; step
+      1's loss and gradient norm through the plain chunked-attention route
+      (bf16) agree with K4's within the gap between K4's bf16 and fp32 runs
+      of that step, the noise bf16 compute puts on them; and in fp32 the two
+      routes' step-1 loss, gradient norm and every gradient leaf agree
+      within 1e-4 (norm-relative), the CPU tests' gradient tolerance against
+      the JAX package.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
@@ -47,6 +70,8 @@ any check fails.
 """
 
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -61,9 +86,13 @@ PROFILE_COLUMNS = 240
 # kernel that drops or repeats one 64-slot tile (~4e-3) fails
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
 LOGITS_TOL = dict(atol=2e-4, rtol=2e-4)
-KERNEL_SOURCES = ("flash_decode", "quant_matmul", "fused_decode_step")
+KERNEL_SOURCES = ("flash_decode", "quant_matmul", "fused_decode_step", "flash_attention")
+T_PROMPT_TRAIN, T_FRAMES_TRAIN, TRAIN_STEPS = 16, 1024, 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
+# phase (i), fp32: the chunked route against K4, loss, gradient norm and each
+# gradient leaf, relative; the CPU tests hold each leaf to the JAX package so
+TRAIN_FP32_LIMIT = 1e-4
 
 
 def card_line() -> str:
@@ -103,6 +132,26 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA) / iters / 1e3
+
+
+def padded_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median device time of one call of `fn`, between CUDA events around it,
+    with the stream held by a spin kernel while the host enqueues the call:
+    the host's launch pace, which paces back-to-back calls of many small
+    kernels, stays out of the time."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # about 25 ms at the H100's clock
+        start.record()
+        fn(i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def phase_a(dev, card):
@@ -798,6 +847,291 @@ def phase_g(dev, card):
     return k3
 
 
+def k4_inputs(dev, dtype, b, tq, tk, h, h_kv, pad, dh=64, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, tq, h, dh, generator=g, device=dev) * dh ** -0.5).to(dtype)
+    k, v = (torch.randn(b, tk, h_kv, dh, generator=g, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn(b, tq, h, dh, generator=g, device=dev).to(dtype)
+    mask = torch.ones(b, tk, dtype=torch.bool, device=dev)
+    mask[1, :pad] = False
+    return q, k, v, mask, do
+
+
+def phase_h(dev, card):
+    """K4 against its plain version; returns {kernel: json fields} for the
+    forward, dq and dk/dv kernels."""
+    import torch.nn.functional as F
+
+    from parler_tts_tpu_torch.ops import flash_attention as fa
+
+    t_train = T_PROMPT_TRAIN + T_FRAMES_TRAIN
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [("mini-v1 training", 2, t_train, t_train, 16, 16, True, 0, 5)] * 2 + [
+        ("GQA 8:2", 2, 256, 256, 8, 2, True, 0, 0),
+        ("q_offset 256", 2, 128, 384, 4, 4, True, 256, 0),
+        ("unaligned T 200", 2, 200, 200, 4, 4, True, 0, 3),
+        ("non-causal", 2, 192, 256, 4, 4, False, 0, 0),
+    ] * 2
+    dtypes = [bf16, fp32] + [bf16] * 4 + [fp32] * 4
+    print(f"  limit of each of o, dq, dk, dv (norm-relative) = {fa.K4_NOISE_FACTOR:g} x the gap "
+          f"between the plain version summing in fp32 and in float64 on the same inputs, at "
+          f"least {fa.K4_FLOOR[fp32]:g} (fp32) / {fa.K4_FLOOR[bf16]:g} (bf16)")
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    failed = []
+    for (label, b, tq, tk, h, h_kv, causal, q_offset, pad), dtype in zip(cases, dtypes):
+        q, k, v, mask, do = k4_inputs(dev, dtype, b, tq, tk, h, h_kv, pad)
+        kw = dict(causal=causal, q_offset=q_offset)
+        got = fa.attention_and_grads(fa.flash_attention, q, k, v, mask, do, **kw)
+        torch.cuda.synchronize()
+        want = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do, **kw)
+        f64 = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do,
+                                     acc_dtype=torch.float64, **kw)
+        gaps, limits = fa.k4_gaps(got, want), fa.k4_limits(fa.k4_gaps(want, f64), dtype)
+        abs_err = [float((a - w).abs().max()) for a, w in zip(got, want)]
+        errs["fwd"] = max(errs["fwd"], abs_err[0])
+        errs["dq"] = max(errs["dq"], abs_err[1])
+        errs["dkv"] = max(errs["dkv"], abs_err[2], abs_err[3])
+        zero_rows = not pad or bool(got[0][1, :pad].abs().sum() == 0
+                                    and got[1][1, :pad].abs().sum() == 0)
+        print(f"  K4 vs plain, {label} ({str(dtype)[6:]}, Tq={tq}, Tk={tk}, H={h}/{h_kv}): "
+              f"o dq dk dv gaps " + " ".join(f"{x:.2e}" for x in gaps) + " | limits "
+              + " ".join(f"{x:.2e}" for x in limits) + f"; max abs "
+              + " ".join(f"{x:.2e}" for x in abs_err)
+              + ("" if not pad else f"; rows with no valid key exactly 0: {zero_rows}"))
+        if not zero_rows or any(x > lim for x, lim in zip(gaps, limits)):
+            failed.append(f"{label} {dtype}")
+
+    # negative check and timing at the main shape in bf16
+    q, k, v, mask, do = k4_inputs(dev, bf16, 2, t_train, t_train, 16, 16, 5)
+    want = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do)
+    f64 = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do,
+                                 acc_dtype=torch.float64)
+    limits = fa.k4_limits(fa.k4_gaps(want, f64), bf16)
+    dropped = mask.clone()
+    dropped[0, 512:576] = False  # what a kernel that skips key tile 8 of row 0 computes
+    got = fa.attention_and_grads(fa.flash_attention, q, k, v, dropped, do)
+    worst = max(x / lim for x, lim in zip(fa.k4_gaps(got, want), limits))
+    print(f"  negative check, key tile 8 of row 0 dropped: worst gap {worst:.1f} x its limit")
+    if worst <= 1.0:
+        failed.append("the dropped key tile passed the limits")
+    if failed:
+        raise AssertionError(f"K4 outside its limits: {failed}")
+
+    b, t, h, dh = q.shape
+    ok = fa._visible(mask, t, True, 0)                          # (B, 1, T, T)
+    pairs = int(ok.sum()) * h                                    # (b, h, query, key) pairs
+    elem = b * t * h * dh
+    dims = (1, b, h, t, t, dh, 1, 0)
+    mask_u8 = mask.to(torch.uint8)
+    with torch.no_grad():
+        o, lse = fa._launch_fwd(q, k, v, mask_u8, dims)
+        _, delta = fa._launch_dq(q, k, v, mask_u8, o, lse, do, dims)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
+    sdpa_o = F.scaled_dot_product_attention(*sdpa_leaves, attn_mask=ok, scale=1.0)
+    do_t = do.transpose(1, 2).contiguous()
+
+    # the library call and the plain version launch many short kernels, which
+    # the host paces when they are timed back to back
+    def timed(fn, iters):
+        return padded_ms(lambda i: fn(), iters=iters)
+
+    def plain_bwd(part):  # the plain version of one backward kernel, same inputs
+        return lambda: fa._plain_backward(q, k, v, ok, o, lse, do, torch.float32, parts=(part,))
+
+    with torch.no_grad():
+        fwd_ms = timed(lambda: fa._launch_fwd(q, k, v, mask_u8, dims), 20)
+        dq_ms = timed(lambda: fa._launch_dq(q, k, v, mask_u8, o, lse, do, dims), 20)
+        dkv_ms = timed(lambda: fa._launch_dkv(q, k, v, mask_u8, lse, do, delta, dims), 20)
+        plain_fwd_ms = timed(lambda: fa.flash_attention_plain(q, k, v, mask), 5)
+        plain_dq_ms, plain_dkv_ms = timed(plain_bwd("dq"), 5), timed(plain_bwd("dkv"), 5)
+        sdpa_fwd_ms = timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
+                                                                   scale=1.0), 20)
+    sdpa_bwd_ms = timed(lambda: torch.autograd.grad(sdpa_o, sdpa_leaves, do_t,
+                                                    retain_graph=True), 20)
+    out = {}
+    # operations: 2 * Dh per visible pair per matmul (the forward's s and p @ v;
+    # dq's s, dp and ds @ k; dk/dv's s, dp, p^T @ do and ds^T @ q); bytes: each
+    # input read once and each output written once, bf16 tensors, fp32 lse/delta.
+    # No library call computes dq alone or dk/dv alone: SDPA's backward (all
+    # three) is reported once, on the dk/dv entry, as library_backward_ms.
+    for name, ms, matmuls, n_in, n_out, n_rows, plain, lib in (
+            ("fwd", fwd_ms, 2, 3, 1, 1, plain_fwd_ms, sdpa_fwd_ms),
+            ("dq", dq_ms, 3, 5, 1, 2, plain_dq_ms, None),
+            ("dkv", dkv_ms, 4, 4, 2, 2, plain_dkv_ms, None)):
+        ops = 2 * dh * pairs * matmuls
+        bytes_moved = 2 * elem * (n_in + n_out) + 4 * b * h * t * n_rows + b * t
+        byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+        bound_ms = max(byte_s, op_s) * 1e3
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                         bound_by="bytes" if byte_s >= op_s else "operations",
+                         max_abs_err=errs[name])
+        print(f"  K4 {name} {ms:.3f} ms, plain {plain:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({ops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.1f} MB) at B={b}, H={h}, T={t}, "
+              f"bf16 ({card})")
+    out["dkv"]["library_backward_ms"] = sdpa_bwd_ms
+    print(f"  device time per call (CUDA events, host pace excluded): K4 forward "
+          f"{fwd_ms:.3f} ms + backward {dq_ms + dkv_ms:.3f} ms (dq {dq_ms:.3f}, dk/dv "
+          f"{dkv_ms:.3f}); plain {plain_fwd_ms:.3f} + {plain_dq_ms + plain_dkv_ms:.3f} ms; SDPA "
+          f"with the boolean mask {sdpa_fwd_ms:.3f} + {sdpa_bwd_ms:.3f} ms ({card})")
+    del sdpa_o, sdpa_leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_batch(dev, seed=0):
+    """B=2: 32 description ids (row 1 right-padded), 16 prompt ids (row 1
+    left-padded by 5), labels (2, 1024, 9) of codes < 1024 with a -100 tail
+    on row 0."""
+    from parler_tts_tpu_torch.training import Batch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    desc_mask = torch.ones(2, 32, dtype=torch.int64, device=dev)
+    desc_mask[1, 24:] = 0
+    prompt_mask = torch.ones(2, T_PROMPT_TRAIN, dtype=torch.int64, device=dev)
+    prompt_mask[1, :5] = 0
+    labels = torch.randint(0, 1024, (2, T_FRAMES_TRAIN, 9), generator=g, device=dev)
+    labels[0, -100:] = -100
+    return Batch(torch.randint(0, 32000, (2, 32), generator=g, device=dev), desc_mask,
+                 torch.randint(0, 32000, (2, T_PROMPT_TRAIN), generator=g, device=dev),
+                 prompt_mask, labels)
+
+
+def profile_train_step(step, state, batch, step_ms, card):
+    """A CUDA-only profile of one more step (after the counted ones): device
+    busy time, the idle share against `step_ms`, and the largest kernels."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch, TRAIN_STEPS)
+        torch.cuda.synchronize()
+    by_name, count = defaultdict(float), 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            count += 1
+    busy_ms = sum(by_name.values()) / 1e3
+    k4_tags = ("::fwd_kernel<", "::dq_kernel<", "::dkv_kernel<")  # csrc/flash_attention.cu
+    k4_ms = sum(us for name, us in by_name.items() if any(t in name for t in k4_tags)) / 1e3
+    print(f"  profile of one train step: {count} kernels, device busy {busy_ms:.1f} ms of "
+          f"{step_ms:.1f} ms (idle {1 - busy_ms / step_ms:.1%}), K4 {k4_ms:.1f} ms "
+          f"({k4_ms / busy_ms:.1%}) ({card})")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {us / 1e3 / busy_ms:6.1%} {us / 1e3:8.2f} ms  {name[:90]}")
+
+
+def phase_i(dev, card):
+    """mini-v1 trained for 5 steps over K4; returns K4's launches by kernel."""
+    from parler_tts_tpu_torch.config import mini_v1_config
+    from parler_tts_tpu_torch.models.layers import init_weights
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.ops.flash_attention import flash_attention
+    from parler_tts_tpu_torch.training import TrainState, make_optimizer, make_train_step
+
+    cfg = mini_v1_config()
+
+    def trainer(route, dtype, params=None):
+        model = ParlerTTS(cfg, device=dev, dtype=dtype, param_dtype=torch.float32,
+                          use_chunked_attention=route, remat_layers=True)
+        if params is None:
+            init_weights(model, torch.Generator(device=dev).manual_seed(0))
+        else:
+            model.load_state_dict(params)
+        tx = make_optimizer(warmup_steps=1)
+        return model, TrainState.create(model, tx), make_train_step(model, tx)
+
+    t0 = time.perf_counter()
+    model, state, step = trainer("pallas", torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  mini-v1 trainer on the card: {n_params / 1e6:.1f}M fp32 parameters, bf16 compute, "
+          f"K4 attention, remat_layers, {time.perf_counter() - t0:.2f} s")
+    initial = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = train_batch(dev)
+    torch.cuda.reset_peak_memory_stats()
+    k4 = flash_attention.launches
+    total = dict.fromkeys(k4, 0)
+    losses, norms, times = [], [], []
+    want = {"fwd": 2 * cfg.decoder.num_hidden_layers, "dq": cfg.decoder.num_hidden_layers,
+            "dkv": cfg.decoder.num_hidden_layers}
+    for i in range(TRAIN_STEPS):
+        for key in k4:
+            k4[key] = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if dict(k4) != want:
+            raise AssertionError(f"step {i + 1}: K4 launches {dict(k4)}, want {want}")
+        for key in k4:
+            total[key] += k4[key]
+        changed = [n for n, p in model.named_parameters()
+                   if (i == 0 or n.startswith("text_encoder.")) and not torch.equal(p, initial[n])]
+        if changed:
+            raise AssertionError(f"step {i + 1} changed {changed[:3]}")
+        print(f"  step {i + 1}: loss {losses[-1]:.6f}, grad_norm {norms[-1]:.6f}, "
+              f"{times[-1]:.1f} ms, K4 launches {dict(k4)}")
+    if not all(map(math.isfinite, losses + norms)) or not losses[-1] < losses[1]:
+        raise AssertionError(f"losses {losses}")
+    step_ms = statistics.median(times[1:])
+    frames = batch.labels.shape[0] * T_FRAMES_TRAIN
+    print(f"  {TRAIN_STEPS} steps: loss {losses[1]:.6f} at step 2 -> {losses[-1]:.6f} at step "
+          f"{TRAIN_STEPS}; step 1 changed no parameter, the text encoder none in any step; "
+          f"{step_ms:.1f} ms per step (median of steps 2-{TRAIN_STEPS}, CUDA events), "
+          f"{frames / step_ms * 1e3:.0f} label frames/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    profile_train_step(step, state, batch, step_ms, card)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # step 1 again through the plain chunked route: in bf16, beside K4's bf16
+    # step above, and in fp32 beside K4 in fp32, every gradient leaf
+    again, grads = {}, {}
+    for label, route, dtype in (("chunked bf16", True, torch.bfloat16),
+                                ("K4 fp32", "pallas", torch.float32),
+                                ("chunked fp32", True, torch.float32)):
+        model, state, step = trainer(route, dtype, initial)
+        _, metrics = step(state, batch, 0)
+        again[label] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+        if dtype == torch.float32:
+            grads[label] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del model, state, step
+        torch.cuda.empty_cache()
+    k4_run = (losses[0], norms[0])
+    fail = []
+    for j, name in enumerate(("loss", "grad_norm")):
+        gap = abs(again["chunked bf16"][j] - k4_run[j])
+        limit = abs(again["K4 fp32"][j] - k4_run[j])  # bf16's own noise on this step
+        gap32 = abs(again["chunked fp32"][j] - again["K4 fp32"][j]) / abs(again["K4 fp32"][j])
+        print(f"  step 1 {name}: K4 bf16 {k4_run[j]:.6f}, chunked bf16 "
+              f"{again['chunked bf16'][j]:.6f}, K4 fp32 {again['K4 fp32'][j]:.6f}, chunked fp32 "
+              f"{again['chunked fp32'][j]:.6f}; |chunked - K4 bf16| {gap:.3e} within "
+              f"|K4 fp32 - K4 bf16| = {limit:.3e}: {gap <= limit}; fp32 routes' relative gap "
+              f"{gap32:.2e} within {TRAIN_FP32_LIMIT:g}: {gap32 <= TRAIN_FP32_LIMIT}")
+        if gap > limit or gap32 > TRAIN_FP32_LIMIT:
+            fail.append(name)
+    leaf_gaps = {n: float((g - grads["K4 fp32"][n]).norm()
+                          / grads["K4 fp32"][n].norm().clamp_min(1e-30))
+                 for n, g in grads["chunked fp32"].items()}
+    worst = max(leaf_gaps, key=leaf_gaps.get)
+    print(f"  step 1 gradients, chunked fp32 vs K4 fp32, ||g_chunked - g_K4|| / ||g_K4|| per "
+          f"leaf: median {statistics.median(leaf_gaps.values()):.2e}, largest "
+          f"{leaf_gaps[worst]:.2e} ({worst}), limit {TRAIN_FP32_LIMIT:g} over "
+          f"{len(leaf_gaps)} leaves")
+    if leaf_gaps[worst] > TRAIN_FP32_LIMIT:
+        fail.append(f"gradient {worst}")
+    if fail:
+        raise AssertionError(f"chunked route vs K4 at step 1: {fail}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -842,6 +1176,13 @@ def main() -> int:
     k3_launches = phase_g(dev, card)
     print(f"[phase g] mini-v1 fused B=1 pipeline: {time.perf_counter() - t0:.2f} s ({card})")
 
+    t0 = time.perf_counter()
+    k4_timing = phase_h(dev, card)
+    print(f"[phase h] K4 vs plain: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    k4_launches = phase_i(dev, card)
+    print(f"[phase i] mini-v1 trainer: {time.perf_counter() - t0:.2f} s ({card})")
+
     kernels = [
         dict(name="flash_decode_attention", route="cuda",
              source="parler_tts_tpu_torch/csrc/flash_decode.cu",
@@ -856,6 +1197,12 @@ def main() -> int:
              replaces="parler_tts_tpu/ops/pallas/fused_decode_step.py:352",
              launches=k3_launches, max_abs_err=k3_err, max_norm_rel_err=k3_norm_rel,
              **k3_timing),
+    ] + [
+        dict(name=f"flash_attention_{name}", route="cuda",
+             source="parler_tts_tpu_torch/csrc/flash_attention.cu",
+             replaces=f"parler_tts_tpu/ops/pallas/flash_attention.py:{line}",
+             launches=k4_launches[name], **k4_timing[name])
+        for name, line in (("fwd", 67), ("dq", 144), ("dkv", 180))
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,13 +7,15 @@ parameter in another layout (the codec's convs) maps the leaf itself with
 `from_jax(leaf, array) -> (name, array)`. Every leaf is shape- and
 dtype-checked (an integer leaf, such as the int8 `w_q` of a quantized tree,
 only into a parameter of its own dtype; a float leaf only into a float
-parameter), and every parameter of the port's module must receive a leaf.
+parameter, of any float dtype, so fp32 trees load into bf16 or fp32
+parameters), and every parameter of the port's module must receive a leaf.
+`to_jax_tree` goes the other way, for parameters and their gradients.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +73,28 @@ def _load(root: nn.Module, tree: Mapping[str, Any], skip: Callable[[Path], bool]
     missing = sorted(set(params) - loaded)
     if missing:
         raise KeyError(f"port parameters with no JAX leaf: {missing}")
+
+
+def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
+    """The reverse of `load_jax_params` for modules that keep the flax
+    layouts (not the codec): (port name, tensor) pairs, such as
+    `model.named_parameters()` or their gradients, -> a nested dict of numpy
+    arrays under the flax names (`layers.3` -> `layers_3`), fp32 for floats."""
+    tree: Dict[str, Any] = {}
+    for name, tensor in named:
+        parts = name.split(".")
+        path = []
+        for part in parts[:-1]:
+            if part.isdigit() and path and path[-1] in ("layers", "block"):
+                path[-1] = f"{path[-1]}_{part}"
+            else:
+                path.append(part)
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        t = tensor.detach().cpu()
+        node[parts[-1]] = (t.float() if t.is_floating_point() else t).numpy()
+    return tree
 
 
 def load_jax_params(model: nn.Module, params_np: Mapping[str, Any]) -> None:

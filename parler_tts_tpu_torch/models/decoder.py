@@ -9,7 +9,19 @@
     through an additive bias, and the one-token decode step attends through
     kernel K1 (`ops/flash_decode.py`) over the flat (L, B, S, H_kv*Dh) cache,
     read in place at the layer's index;
-  - the LM heads are one stacked (K, D, V) parameter applied as one einsum;
+  - the LM heads are one stacked (K, D, V) parameter applied as one einsum
+    whose products are summed in fp32 and returned in fp32 (bf16 x bf16
+    products are exact in fp32, so an fp32 product of the compute-dtype
+    operands is the JAX einsum with preferred_element_type=float32); serving
+    under `torch.inference_mode` keeps one fp32 copy of the heads;
+  - with no cache the decoder runs the training route: cross k/v projected
+    per layer from the encoder states, self-attention through a dense bias,
+    the online-softmax scan (`ops/chunked_attention.py`) or kernel K4
+    (`ops/flash_attention.py`) when `use_chunked_attention` is True/int or
+    "pallas" and a (B, T) key mask is given; dropout after the embedding,
+    after each sub-block and on the MLP activation; LayerDrop as a select;
+    `remat_layers` recomputes each layer in the backward
+    (`torch.utils.checkpoint`, the JAX package's `remat_policy=None`);
   - `weight_quant=True` (int8 serving) makes every layer's attention
     projections and MLP a `QuantDense` over kernel K2 (`ops/quant_matmul.py`):
     int8 `w_q` (in, out) and fp32 per-output-channel `scale` (out,), the
@@ -24,13 +36,16 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import DecoderConfig
+from ..ops.chunked_attention import chunked_attention
+from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.positions import apply_rope, rope_cos_sin, sinusoidal_embed, sinusoidal_table
 from ..ops.quant_matmul import quant_matmul
 from ..utils.quantize import quantize_kernel_torch
-from .layers import Dense, LayerNorm, new_param
+from .layers import Dense, LayerNorm, bernoulli, dropout, fold_in, new_param
 
 ACT_FNS = {
     "gelu": F.gelu,
@@ -117,7 +132,7 @@ class QuantDense(nn.Module):
 
 
 def make_dense(in_features: int, out_features: int, std: float, device, dtype,
-               weight_quant: Any) -> nn.Module:
+               weight_quant: Any, param_dtype=None) -> nn.Module:
     """The bias-free linear layer of a `weight_quant` setting: `Dense` (False)
     or `QuantDense` (True). The JAX package's `"xla"` form is not ported."""
     if weight_quant == "xla":
@@ -128,20 +143,26 @@ def make_dense(in_features: int, out_features: int, std: float, device, dtype,
     if weight_quant is True:
         return QuantDense(in_features, out_features, std, device, dtype)
     if weight_quant is False:
-        return Dense(in_features, out_features, std=std, device=device, dtype=dtype)
+        return Dense(in_features, out_features, std=std, device=device, dtype=dtype,
+                     param_dtype=param_dtype)
     raise ValueError(f"weight_quant must be False or True, got {weight_quant!r}")
 
 
 class Attention(nn.Module):
-    """Bias-free multi-head attention with GQA/MQA."""
+    """Bias-free multi-head attention with GQA/MQA. `use_chunked_attention`
+    picks the training route of self-attention: False (dense bias), True or
+    an int (online-softmax scan, chunk 512 or that int) or "pallas" (K4)."""
 
     def __init__(self, config: DecoderConfig, num_kv_heads: int, device=None,
-                 dtype=torch.float32, weight_quant: Any = False):
+                 dtype=torch.float32, weight_quant: Any = False, param_dtype=None,
+                 use_chunked_attention: Any = False):
         super().__init__()
         self.config = config
         self.num_kv_heads = num_kv_heads
+        self.use_chunked_attention = use_chunked_attention
         d, dh, std = config.hidden_size, config.head_dim, config.initializer_factor
-        kw = dict(std=std, device=device, dtype=dtype, weight_quant=weight_quant)
+        kw = dict(std=std, device=device, dtype=dtype, weight_quant=weight_quant,
+                  param_dtype=param_dtype)
         self.q_proj = make_dense(d, d, **kw)
         self.k_proj = make_dense(d, num_kv_heads * dh, **kw)
         self.v_proj = make_dense(d, num_kv_heads * dh, **kw)
@@ -163,16 +184,32 @@ class Attention(nn.Module):
             q = apply_rope(q, cos, sin)
         return q
 
-    def self_attention(self, x, bias, cos, sin, cache: DecoderCache, layer_idx: int,
-                       decode_lengths: Optional[Tuple[torch.Tensor, int]] = None):
-        """Writes this step's k/v into the cache at `cache.index`, then attends:
-        through K1 when `decode_lengths` = (starts, limit) is given, else
-        densely over the layer's cache with the additive `bias`."""
+    def self_attention(self, x, bias, cos, sin, cache: Optional[DecoderCache], layer_idx: int,
+                       decode_lengths: Optional[Tuple[torch.Tensor, int]] = None,
+                       mask_1d: Optional[torch.Tensor] = None):
+        """With a cache: writes this step's k/v into it at `cache.index`,
+        then attends through K1 when `decode_lengths` = (starts, limit) is
+        given, else densely over the layer's cache with the additive `bias`.
+        Without one (training): attends over this call's k/v, through the
+        route `use_chunked_attention` picks when `mask_1d` (B, T) is given,
+        else densely with `bias`."""
         b, t, _ = x.shape
         q = self._query(x, cos, sin)
         k, v = self.project_kv(x)
         if cos is not None:
             k = apply_rope(k, cos, sin)
+        if cache is None:
+            k, v = k.to(q.dtype), v.to(q.dtype)
+            route = self.use_chunked_attention
+            if route == "pallas" and mask_1d is not None:
+                out = flash_attention(q, k, v, mask_1d, causal=True)
+            elif route and mask_1d is not None:
+                chunk = 512 if route is True else int(route)
+                out = chunked_attention(q, k, v, mask_1d, causal=True, chunk_q=chunk,
+                                        chunk_k=chunk)
+            else:
+                out = _gqa_attention(q, k, v, bias)
+            return self.out_proj(out.reshape(b, t, -1))
         i = cache.index
         ck, cv = cache.self_k, cache.self_v
         ck[layer_idx, :, i:i + t] = k.reshape(b, t, -1)
@@ -198,51 +235,69 @@ class Attention(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-LN block: self-attn -> cross-attn -> MLP."""
+    """Pre-LN block: self-attn -> cross-attn -> MLP, with dropout after each
+    sub-block and on the MLP activation when given a dropout key."""
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
-                 weight_quant: Any = False):
+                 weight_quant: Any = False, param_dtype=None,
+                 use_chunked_attention: Any = False):
         super().__init__()
         self.config = config
         d, std = config.hidden_size, config.initializer_factor
+        ln = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.self_attn = Attention(config, config.num_key_value_heads, device, dtype,
-                                   weight_quant)
-        self.self_attn_layer_norm = LayerNorm(d, device=device, dtype=dtype)
+                                   weight_quant, param_dtype, use_chunked_attention)
+        self.self_attn_layer_norm = LayerNorm(d, **ln)
         self.encoder_attn = Attention(config, config.num_cross_attention_key_value_heads,
-                                      device, dtype, weight_quant)
-        self.encoder_attn_layer_norm = LayerNorm(d, device=device, dtype=dtype)
-        kw = dict(std=std, device=device, dtype=dtype, weight_quant=weight_quant)
+                                      device, dtype, weight_quant, param_dtype)
+        self.encoder_attn_layer_norm = LayerNorm(d, **ln)
+        kw = dict(std=std, device=device, dtype=dtype, weight_quant=weight_quant,
+                  param_dtype=param_dtype)
         self.fc1 = make_dense(d, config.ffn_dim, **kw)
         self.fc2 = make_dense(config.ffn_dim, d, **kw)
-        self.final_layer_norm = LayerNorm(d, device=device, dtype=dtype)
+        self.final_layer_norm = LayerNorm(d, **ln)
         self.act = ACT_FNS[config.activation_function]
 
     def forward(self, x, *, self_attn_bias, cross_k, cross_v, cross_attn_bias, cos, sin,
-                cache: DecoderCache, layer_idx: int, decode_lengths=None):
-        x = x + self.self_attn.self_attention(
+                cache: Optional[DecoderCache], layer_idx: int, decode_lengths=None,
+                mask_1d=None, key: Optional[int] = None):
+        cfg = self.config
+        h = self.self_attn.self_attention(
             self.self_attn_layer_norm(x), self_attn_bias, cos, sin, cache, layer_idx,
-            decode_lengths,
+            decode_lengths, mask_1d,
         )
-        x = x + self.encoder_attn.cross_attention(
-            self.encoder_attn_layer_norm(x), cross_k, cross_v, cross_attn_bias, cos, sin
-        )
-        return x + self.fc2(self.act(self.fc1(self.final_layer_norm(x))))
-
+        x = x + dropout(h, cfg.dropout, fold_in(key, "self_attn"))
+        if cross_k is not None:
+            h = self.encoder_attn.cross_attention(
+                self.encoder_attn_layer_norm(x), cross_k, cross_v, cross_attn_bias, cos, sin
+            )
+            x = x + dropout(h, cfg.dropout, fold_in(key, "encoder_attn"))
+        h = self.act(self.fc1(self.final_layer_norm(x)))
+        h = self.fc2(dropout(h, cfg.activation_dropout, fold_in(key, "activation")))
+        return x + dropout(h, cfg.dropout, fold_in(key, "fc2"))
 
 class ParlerDecoder(nn.Module):
-    """The decoder stack over a static cache."""
+    """The decoder stack, over a static cache (serving) or without one
+    (training). `remat_layers` recomputes each layer of the training route in
+    the backward instead of keeping its activations."""
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
-                 weight_quant: Any = False):
+                 weight_quant: Any = False, param_dtype=None,
+                 use_chunked_attention: Any = False, remat_layers: bool = False):
         super().__init__()
         self.config = config
+        self.dtype = dtype
+        self.remat_layers = remat_layers
         self.embed_tokens = new_param(config.num_codebooks, config.embed_rows,
-                                      config.hidden_size, device=device, dtype=dtype)
+                                      config.hidden_size, device=device,
+                                      dtype=param_dtype or dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(config, device, dtype, weight_quant)
+            DecoderLayer(config, device, dtype, weight_quant, param_dtype,
+                         use_chunked_attention)
             for _ in range(config.num_hidden_layers)
         )
-        self.layer_norm = LayerNorm(config.hidden_size, device=device, dtype=dtype)
+        self.layer_norm = LayerNorm(config.hidden_size, device=device, dtype=dtype,
+                                    param_dtype=param_dtype)
         if not config.rope_embeddings:
             table = sinusoidal_table(config.max_position_embeddings, config.hidden_size,
                                      dtype, device)
@@ -257,36 +312,65 @@ class ParlerDecoder(nn.Module):
         flat = self.embed_tokens.reshape(-1, cfg.hidden_size)
         offsets = (torch.arange(cfg.num_codebooks, device=input_ids.device)
                    * cfg.embed_rows)[None, :, None]
-        out = F.embedding(input_ids + offsets, flat).sum(dim=1)
+        out = F.embedding(input_ids + offsets, flat).to(self.dtype).sum(dim=1)
         return out * cfg.hidden_size ** 0.5 if cfg.scale_embedding else out
 
     def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):
         """Per-layer cross-attention k/v, stacked (L, B, S_enc, H_ckv, Dh)."""
-        x = encoder_hidden_states.to(self.embed_tokens.dtype)
+        x = encoder_hidden_states.to(self.dtype)
         kvs = [layer.encoder_attn.project_kv(x) for layer in self.layers]
         return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
 
     def forward(self, inputs_embeds: torch.Tensor, position_ids: torch.Tensor, *,
                 self_attn_bias: Optional[torch.Tensor],
                 cross_attn_bias: Optional[torch.Tensor],
-                cache: DecoderCache,
-                decode_lengths: Optional[Tuple[torch.Tensor, int]] = None) -> torch.Tensor:
+                cache: Optional[DecoderCache] = None,
+                decode_lengths: Optional[Tuple[torch.Tensor, int]] = None,
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                mask_1d: Optional[torch.Tensor] = None,
+                dropout_key: Optional[int] = None) -> torch.Tensor:
         """(B, T, D) embeds at absolute positions (B, T) -> hidden (B, T, D).
-        Advances `cache.index` by T."""
+        With a cache: advances `cache.index` by T. Without one: the training
+        route, cross-attending to `encoder_hidden_states` (B, S_enc, D), with
+        dropout and LayerDrop when `dropout_key` is given."""
         cfg = self.config
-        x = inputs_embeds.to(self.embed_tokens.dtype)
+        x = inputs_embeds.to(self.dtype)
         cos = sin = None
         if cfg.rope_embeddings:
             cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, x.dtype)
         else:
             x = x + sinusoidal_embed(self.positions, position_ids)
+        x = dropout(x, cfg.dropout, fold_in(dropout_key, "embed"))
+        layerdrop = dropout_key is not None and cfg.layerdrop > 0.0 and cache is None
+        enc = None if encoder_hidden_states is None else encoder_hidden_states.to(self.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer(
-                x, self_attn_bias=self_attn_bias, cross_k=cache.cross_k[i],
-                cross_v=cache.cross_v[i], cross_attn_bias=cross_attn_bias, cos=cos, sin=sin,
-                cache=cache, layer_idx=i, decode_lengths=decode_lengths,
-            )
-        cache.index += inputs_embeds.shape[1]
+            key = fold_in(dropout_key, "layer", i)
+            if cache is not None:
+                x = layer(
+                    x, self_attn_bias=self_attn_bias, cross_k=cache.cross_k[i],
+                    cross_v=cache.cross_v[i], cross_attn_bias=cross_attn_bias, cos=cos,
+                    sin=sin, cache=cache, layer_idx=i, decode_lengths=decode_lengths, key=key,
+                )
+                continue
+            cross_k = cross_v = None
+            if enc is not None:
+                cross_k, cross_v = layer.encoder_attn.project_kv(enc)
+            kw = dict(self_attn_bias=self_attn_bias, cross_k=cross_k, cross_v=cross_v,
+                      cross_attn_bias=cross_attn_bias, cos=cos, sin=sin, cache=None,
+                      layer_idx=i, mask_1d=mask_1d, key=key)
+            if self.remat_layers and torch.is_grad_enabled():
+                # the layer's dropout masks come from `key`, so the recompute
+                # draws the same ones without restoring any generator state
+                out = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False, **kw)
+            else:
+                out = layer(x, **kw)
+            if layerdrop:
+                dropped = bernoulli(cfg.layerdrop, fold_in(dropout_key, "layerdrop", i),
+                                    x.device)
+                out = torch.where(dropped, x, out)
+            x = out
+        if cache is not None:
+            cache.index += inputs_embeds.shape[1]
         return self.layer_norm(x)
 
 
@@ -294,25 +378,45 @@ class ParlerForCausalLM(nn.Module):
     """Decoder + stacked LM heads (never quantized, as in the JAX package)."""
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
-                 weight_quant: Any = False):
+                 weight_quant: Any = False, param_dtype=None,
+                 use_chunked_attention: Any = False, remat_layers: bool = False):
         super().__init__()
         self.config = config
-        self.decoder = ParlerDecoder(config, device, dtype, weight_quant)
+        self.dtype = dtype
+        self.decoder = ParlerDecoder(config, device, dtype, weight_quant, param_dtype,
+                                     use_chunked_attention, remat_layers)
         self.lm_heads = new_param(config.num_codebooks, config.hidden_size, config.vocab_size,
-                                  device=device, dtype=dtype)
+                                  device=device, dtype=param_dtype or dtype)
+        self._serving_heads: Optional[Tuple[Any, torch.Tensor]] = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.lm_heads.normal_(0.0, self.config.initializer_factor, generator=generator)
 
+    def heads_fp32(self) -> torch.Tensor:
+        """The heads rounded to the compute dtype, as fp32. Under
+        `torch.inference_mode` one copy is kept until the heads change;
+        otherwise the cast is part of the graph, so the gradient reaches
+        `lm_heads`."""
+        if not torch.is_inference_mode_enabled():
+            return self.lm_heads.to(self.dtype).float()
+        tag = (self.lm_heads.data_ptr(), self.lm_heads._version)
+        if self._serving_heads is None or self._serving_heads[0] != tag:
+            self._serving_heads = (tag, self.lm_heads.to(self.dtype).float())
+        return self._serving_heads[1]
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """(B, T, D) -> (B, K, T, V) fp32."""
-        return torch.einsum("btd,kdv->bktv", hidden, self.lm_heads).float()
+        """(B, T, D) -> (B, K, T, V) fp32, summed in fp32 from the
+        compute-dtype hidden states and heads."""
+        return torch.einsum("btd,kdv->bktv", hidden.to(self.dtype).float(), self.heads_fp32())
 
     def forward(self, inputs_embeds, position_ids, *, self_attn_bias, cross_attn_bias,
-                cache: DecoderCache, decode_lengths=None) -> torch.Tensor:
+                cache: Optional[DecoderCache] = None, decode_lengths=None,
+                encoder_hidden_states=None, mask_1d=None, dropout_key=None) -> torch.Tensor:
         hidden = self.decoder(inputs_embeds, position_ids, self_attn_bias=self_attn_bias,
                               cross_attn_bias=cross_attn_bias, cache=cache,
-                              decode_lengths=decode_lengths)
+                              decode_lengths=decode_lengths,
+                              encoder_hidden_states=encoder_hidden_states, mask_1d=mask_1d,
+                              dropout_key=dropout_key)
         return self.logits(hidden)
 
     def embed_ids(self, input_ids: torch.Tensor) -> torch.Tensor:

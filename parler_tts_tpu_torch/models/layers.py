@@ -4,11 +4,22 @@ Parameter names and layouts follow the flax modules of the JAX package
 (`nn.Dense.kernel` (in, out), `nn.LayerNorm.scale`/`bias`,
 `nn.Embed.embedding`), so `convert.py` maps a JAX parameter tree onto a port
 module by name alone. Modules allocate their parameters on the given device
-and dtype; `init_weights` fills them from a `torch.Generator`.
+in `param_dtype` (default: `dtype`) and compute in `dtype`, casting the
+parameters at use as flax's `param_dtype`/`dtype` split does; with the
+default the cast is a no-op. `init_weights` fills them from a
+`torch.Generator`. Parameters are created with `requires_grad=False`;
+a trainer turns it on (`nn.Module.requires_grad_`).
+
+Dropout (flax `nn.Dropout`) draws its mask from a `torch.Generator` seeded
+with an integer key. The models derive one key per call site with `fold_in`
+from a per-step seed, the layer index and the site's name, so a layer run
+again under `torch.utils.checkpoint` draws the same masks: checkpoint's
+`preserve_rng_state` restores only the default generators, never these.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Optional
 
@@ -21,16 +32,45 @@ def new_param(*shape: int, device=None, dtype=torch.float32) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
 
 
+def fold_in(key: Optional[int], *data) -> Optional[int]:
+    """A new dropout key from `key` and `data` (None stays None: deterministic)."""
+    if key is None:
+        return None
+    digest = hashlib.blake2b(repr((key,) + data).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def dropout(x: torch.Tensor, rate: float, key: Optional[int]) -> torch.Tensor:
+    """flax `nn.Dropout`: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). `key=None` is deterministic."""
+    if key is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    gen = torch.Generator(device=x.device).manual_seed(key)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def bernoulli(p: float, key: int, device) -> torch.Tensor:
+    """A () bool tensor, True with probability p, drawn on `device`."""
+    gen = torch.Generator(device=device).manual_seed(key)
+    return torch.rand((), generator=gen, device=device) < p
+
+
 class Dense(nn.Module):
-    """y = x @ kernel (+ bias), kernel (in, out). `std=None` initialises
-    lecun-normal (std 1/sqrt(in)), as flax's default."""
+    """y = x @ kernel (+ bias), kernel (in, out), computed in `dtype`.
+    `std=None` initialises lecun-normal (std 1/sqrt(in)), as flax's default."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = False,
-                 std: Optional[float] = None, device=None, dtype=torch.float32):
+                 std: Optional[float] = None, device=None, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
-        self.kernel = new_param(in_features, out_features, device=device, dtype=dtype)
-        self.bias = new_param(out_features, device=device, dtype=dtype) if bias else None
+        pdt = param_dtype or dtype
+        self.kernel = new_param(in_features, out_features, device=device, dtype=pdt)
+        self.bias = new_param(out_features, device=device, dtype=pdt) if bias else None
         self.std = std if std is not None else 1.0 / math.sqrt(in_features)
+        self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.kernel.normal_(0.0, self.std, generator=generator)
@@ -38,41 +78,51 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        return y + self.bias if self.bias is not None else y
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y + self.bias.to(self.dtype) if self.bias is not None else y
 
 
 class LayerNorm(nn.Module):
-    """flax `nn.LayerNorm`: scale and bias over the last axis."""
+    """flax `nn.LayerNorm`: scale and bias over the last axis. With fp32
+    parameters under a lower compute dtype it normalises in fp32 with the
+    fp32 scale and bias and casts the result, as flax does."""
 
-    def __init__(self, features: int, eps: float = 1e-5, device=None, dtype=torch.float32):
+    def __init__(self, features: int, eps: float = 1e-5, device=None, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
-        self.scale = new_param(features, device=device, dtype=dtype)
-        self.bias = new_param(features, device=device, dtype=dtype)
+        pdt = param_dtype or dtype
+        self.scale = new_param(features, device=device, dtype=pdt)
+        self.bias = new_param(features, device=device, dtype=pdt)
         self.eps = eps
+        self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.scale.fill_(1.0)
         self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.scale, self.bias, self.eps)
+        shape = (x.shape[-1],)
+        if x.dtype == self.scale.dtype:
+            return F.layer_norm(x, shape, self.scale, self.bias, self.eps)
+        return F.layer_norm(x.float(), shape, self.scale.float(), self.bias.float(),
+                            self.eps).to(self.dtype)
 
 
 class Embed(nn.Module):
-    """flax `nn.Embed`: an (num, features) table."""
+    """flax `nn.Embed`: an (num, features) table, rows cast to `dtype`."""
 
     def __init__(self, num: int, features: int, std: float = 1.0, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.embedding = new_param(num, features, device=device, dtype=dtype)
+        self.embedding = new_param(num, features, device=device, dtype=param_dtype or dtype)
         self.std = std
+        self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.embedding.normal_(0.0, self.std, generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.embedding)
+        return F.embedding(ids, self.embedding).to(self.dtype)
 
 
 def init_weights(root: nn.Module, generator: torch.Generator) -> None:

@@ -1,9 +1,10 @@
 """The composite Parler-TTS model: T5 text encoder + codec-token decoder
-(port of `parler_tts_tpu/models/parler.py`, serving side).
+(port of `parler_tts_tpu/models/parler.py`).
 
 The module owns the neural composition: description encoding, prompt
-embedding, the two prompt-conditioning modes and the decoder with its heads.
-The generation loop and the codec live in `runtime/` and `codec/`.
+embedding, the two prompt-conditioning modes, the decoder with its heads,
+and the teacher-forced training forward (`forward`). The generation loop and
+the codec live in `runtime/` and `codec/`, the train step in `training/`.
 
 Prompt conditioning:
   - default: prompt embeddings are prepended to the decoder input embeds;
@@ -19,40 +20,55 @@ import torch
 from torch import nn
 
 from ..config import ParlerTTSConfig
+from ..ops.losses import shift_tokens_right
+from ..ops.masks import dense_self_attention_bias, padding_cross_attention_bias
 from ..ops.positions import sinusoidal_embed, sinusoidal_table
 from .decoder import ParlerForCausalLM
-from .layers import Dense, Embed
+from .layers import Dense, Embed, fold_in
 from .t5_encoder import T5Encoder
 
 
 class ParlerTTS(nn.Module):
-    """`weight_quant=True`: int8 weight-only decoder layers over kernel K2
-    (`models/decoder.py:QuantDense`); the parameters then follow
-    `utils.quantize.quantize_decoder_params`."""
+    """`dtype` is the compute dtype, `param_dtype` (default `dtype`) the
+    parameters' (the training recipe keeps fp32 parameters under bf16
+    compute). `weight_quant=True`: int8 weight-only decoder layers over
+    kernel K2 (`models/decoder.py:QuantDense`); the parameters then follow
+    `utils.quantize.quantize_decoder_params`. `use_chunked_attention`
+    (False | True | int | "pallas") and `remat_layers` shape the training
+    forward as in the JAX package."""
 
     def __init__(self, config: ParlerTTSConfig, device=None, dtype=torch.float32,
-                 weight_quant: Any = False):
+                 weight_quant: Any = False, param_dtype=None,
+                 use_chunked_attention: Any = False, remat_layers: bool = False):
         super().__init__()
         self.config = config
+        self.dtype = dtype
         self.weight_quant = weight_quant
+        self.use_chunked_attention = use_chunked_attention
         dcfg = config.decoder
-        self.text_encoder = T5Encoder(config.text_encoder, device=device, dtype=dtype)
+        self.text_encoder = T5Encoder(config.text_encoder, device=device, dtype=dtype,
+                                      param_dtype=param_dtype)
         self.decoder = ParlerForCausalLM(dcfg, device=device, dtype=dtype,
-                                         weight_quant=weight_quant)
+                                         weight_quant=weight_quant, param_dtype=param_dtype,
+                                         use_chunked_attention=use_chunked_attention,
+                                         remat_layers=remat_layers)
         self.embed_prompts = Embed(config.vocab_size, dcfg.hidden_size,
-                                   std=dcfg.initializer_factor, device=device, dtype=dtype)
+                                   std=dcfg.initializer_factor, device=device, dtype=dtype,
+                                   param_dtype=param_dtype)
         self.needs_proj = (
             config.text_encoder.d_model != dcfg.hidden_size
             and dcfg.cross_attention_hidden_size is None
         )
         if self.needs_proj:
             self.enc_to_dec_proj = Dense(config.text_encoder.d_model, dcfg.hidden_size,
-                                         bias=True, device=device, dtype=dtype)
+                                         bias=True, device=device, dtype=dtype,
+                                         param_dtype=param_dtype)
 
     def encode_description(self, input_ids: torch.Tensor,
-                           attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                           attention_mask: Optional[torch.Tensor],
+                           dropout_key: Optional[int] = None) -> torch.Tensor:
         """T5 -> optional projection -> zero the masked positions."""
-        enc = self.text_encoder(input_ids, attention_mask)
+        enc = self.text_encoder(input_ids, attention_mask, dropout_key)
         if self.needs_proj:
             enc = self.enc_to_dec_proj(enc)
         if attention_mask is not None:
@@ -91,3 +107,69 @@ class ParlerTTS(nn.Module):
             else None
         )
         return states, mask
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,                        # (B, S_desc) description ids
+        attention_mask: Optional[torch.Tensor],         # (B, S_desc)
+        prompt_input_ids: torch.Tensor,                 # (B, S_p)
+        prompt_attention_mask: Optional[torch.Tensor],  # (B, S_p)
+        labels: torch.Tensor,                           # (B, T, K), -100 = padding
+        deterministic: bool = True,
+        return_hidden: bool = False,
+        dropout_key: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced forward: (logits (B, K, T, V) fp32, decoder_input_ids
+        (B, K, T)). With `return_hidden=True` the heads are not applied and the
+        first element is the pre-head hidden states (B, T, D), for the chunked
+        fused-head loss. `deterministic=False` runs dropout and LayerDrop,
+        drawn from `dropout_key` (an int, the step's seed).
+
+        T5-encode, embed the prompt, shift the labels right, decode over
+        [prompt prefix, labels] (default mode) at absolute positions, and drop
+        the prefix from the output."""
+        cfg = self.config
+        dcfg = cfg.decoder
+        if not deterministic and dropout_key is None:
+            raise ValueError("deterministic=False needs a dropout_key")
+        key = None if deterministic else dropout_key
+        enc = self.encode_description(input_ids, attention_mask, fold_in(key, "text_encoder"))
+        prompt = self.prompt_hidden(prompt_input_ids)
+        decoder_input_ids = shift_tokens_right(labels, cfg.pad_token_id,
+                                               cfg.decoder_start_token_id)
+        dec_embeds = self.decoder.embed_ids(decoder_input_ids)
+        b, t, _ = dec_embeds.shape
+        device = dec_embeds.device
+        enc_states, enc_mask = self.build_encoder_states(enc, attention_mask, prompt,
+                                                         prompt_attention_mask)
+        ones = torch.ones((b, t), dtype=torch.int32, device=device)
+        if cfg.prompt_cross_attention:
+            full_embeds, dec_mask, s_p = dec_embeds, ones, 0
+        else:
+            full_embeds = torch.cat([prompt.to(dec_embeds.dtype), dec_embeds], dim=1)
+            if prompt_attention_mask is None:
+                prompt_attention_mask = torch.ones(prompt.shape[:2], dtype=torch.int32,
+                                                   device=device)
+            dec_mask = torch.cat([prompt_attention_mask.to(torch.int32), ones], dim=1)
+            s_p = prompt.shape[1]
+        full_t = full_embeds.shape[1]
+        if full_t > dcfg.max_position_embeddings:
+            raise ValueError(
+                f"decoder sequence (prompt {s_p} + frames {t} = {full_t}) exceeds "
+                f"max_position_embeddings={dcfg.max_position_embeddings}"
+            )
+        # absolute positions in every mode: masked prompt tokens count
+        position_ids = torch.arange(full_t, device=device)[None, :].expand(b, full_t)
+        chunked = bool(self.use_chunked_attention)
+        hidden = self.decoder.decoder(
+            full_embeds, position_ids,
+            self_attn_bias=None if chunked else dense_self_attention_bias(dec_mask),
+            cross_attn_bias=padding_cross_attention_bias(enc_mask, full_t),
+            encoder_hidden_states=enc_states,
+            mask_1d=dec_mask if chunked else None,
+            dropout_key=fold_in(key, "decoder"),
+        )
+        hidden = hidden[:, s_p:]
+        if return_hidden:
+            return hidden, decoder_input_ids
+        return self.decoder.logits(hidden), decoder_input_ids

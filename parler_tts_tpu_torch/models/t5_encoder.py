@@ -4,6 +4,11 @@
 T5 specifics: RMS layer norm (no mean, no bias, eps 1e-6), no 1/sqrt(d)
 score scaling, one relative-position-bias table shared by all layers
 (bidirectional buckets), gated-gelu MLPs for flan variants.
+
+Dropout (`dropout_rate`) runs at the JAX package's five sites: after the
+embedding, after each block's attention, on the gated MLP's hidden state,
+after each block's MLP, and after the final norm. It is off unless
+`forward` gets a dropout key (`models/layers.py:dropout`).
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import T5Config
-from .layers import Dense, new_param
+from .layers import Dense, dropout, fold_in, new_param
 
 _ACTS = {
     "gelu": lambda y: F.gelu(y, approximate="tanh"),  # HF t5 "gelu_new"
@@ -45,9 +50,9 @@ def relative_position_bucket(
 
 
 class T5LayerNorm(nn.Module):
-    def __init__(self, features: int, device=None, dtype=torch.float32):
+    def __init__(self, features: int, device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.weight = new_param(features, device=device, dtype=dtype)
+        self.weight = new_param(features, device=device, dtype=param_dtype or dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.weight.fill_(1.0)
@@ -59,14 +64,15 @@ class T5LayerNorm(nn.Module):
 
 
 class T5SelfAttention(nn.Module):
-    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32):
+    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
         self.cfg = cfg
-        self.q = Dense(cfg.d_model, inner, device=device, dtype=dtype)
-        self.k = Dense(cfg.d_model, inner, device=device, dtype=dtype)
-        self.v = Dense(cfg.d_model, inner, device=device, dtype=dtype)
-        self.o = Dense(inner, cfg.d_model, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.q = Dense(cfg.d_model, inner, **kw)
+        self.k = Dense(cfg.d_model, inner, **kw)
+        self.v = Dense(cfg.d_model, inner, **kw)
+        self.o = Dense(inner, cfg.d_model, **kw)
 
     def forward(self, x, position_bias, mask_bias):
         cfg = self.cfg
@@ -83,62 +89,71 @@ class T5SelfAttention(nn.Module):
 
 
 class T5FeedForward(nn.Module):
-    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32):
+    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.gated = cfg.is_gated_act
         self.act = _ACTS[cfg.dense_act_fn]
+        self.rate = cfg.dropout_rate
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         if self.gated:
-            self.wi_0 = Dense(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
-            self.wi_1 = Dense(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+            self.wi_0 = Dense(cfg.d_model, cfg.d_ff, **kw)
+            self.wi_1 = Dense(cfg.d_model, cfg.d_ff, **kw)
         else:
-            self.wi = Dense(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, device=device, dtype=dtype)
+            self.wi = Dense(cfg.d_model, cfg.d_ff, **kw)
+        self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
 
-    def forward(self, x):
+    def forward(self, x, key: Optional[int] = None):
         if self.gated:
             h = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = self.act(self.wi(x))
-        return self.wo(h)
+        return self.wo(dropout(h, self.rate, key))
 
 
 class T5Block(nn.Module):
-    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32):
+    def __init__(self, cfg: T5Config, device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.ln_attn = T5LayerNorm(cfg.d_model, device=device, dtype=dtype)
-        self.attention = T5SelfAttention(cfg, device=device, dtype=dtype)
-        self.ln_ff = T5LayerNorm(cfg.d_model, device=device, dtype=dtype)
-        self.ff = T5FeedForward(cfg, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.ln_attn = T5LayerNorm(cfg.d_model, **kw)
+        self.attention = T5SelfAttention(cfg, **kw)
+        self.ln_ff = T5LayerNorm(cfg.d_model, **kw)
+        self.ff = T5FeedForward(cfg, **kw)
+        self.rate = cfg.dropout_rate
 
-    def forward(self, x, position_bias, mask_bias):
-        x = x + self.attention(self.ln_attn(x), position_bias, mask_bias)
-        return x + self.ff(self.ln_ff(x))
+    def forward(self, x, position_bias, mask_bias, key: Optional[int] = None):
+        h = self.attention(self.ln_attn(x), position_bias, mask_bias)
+        x = x + dropout(h, self.rate, fold_in(key, "attention"))
+        h = self.ff(self.ln_ff(x), fold_in(key, "ff_hidden"))
+        return x + dropout(h, self.rate, fold_in(key, "ff"))
 
 
 class T5Encoder(nn.Module):
     """input_ids (B, T) -> last_hidden_state (B, T, d_model)."""
 
-    def __init__(self, config: T5Config, device=None, dtype=torch.float32):
+    def __init__(self, config: T5Config, device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.config = config
+        self.dtype = dtype
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.shared_embedding = new_param(config.vocab_size, config.d_model,
-                                          device=device, dtype=dtype)
+                                          device=device, dtype=param_dtype or dtype)
         self.relative_attention_bias = new_param(
             config.relative_attention_num_buckets, config.num_heads,
             device=device, dtype=torch.float32,
         )
-        self.block = nn.ModuleList(
-            T5Block(config, device=device, dtype=dtype) for _ in range(config.num_layers)
-        )
-        self.final_layer_norm = T5LayerNorm(config.d_model, device=device, dtype=dtype)
+        self.block = nn.ModuleList(T5Block(config, **kw) for _ in range(config.num_layers))
+        self.final_layer_norm = T5LayerNorm(config.d_model, **kw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.shared_embedding.normal_(0.0, 1.0, generator=generator)
         self.relative_attention_bias.normal_(0.0, 1.0, generator=generator)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None):
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
+                dropout_key: Optional[int] = None):
+        """`dropout_key=None` runs deterministically (no dropout)."""
         cfg = self.config
-        x = F.embedding(input_ids, self.shared_embedding)
+        x = F.embedding(input_ids, self.shared_embedding).to(self.dtype)
+        x = dropout(x, cfg.dropout_rate, fold_in(dropout_key, "embed"))
         t = input_ids.shape[-1]
         ctx = torch.arange(t, device=input_ids.device)
         rel_pos = ctx[None, :] - ctx[:, None]  # memory - query
@@ -153,8 +168,8 @@ class T5Encoder(nn.Module):
                                     device=input_ids.device)
             mask_bias = mask_bias.masked_fill(~attention_mask.to(torch.bool), fmin)
             mask_bias = mask_bias[:, None, None, :]
-        for block in self.block:
-            x = block(x, position_bias, mask_bias)
-        return self.final_layer_norm(x)
+        for i, block in enumerate(self.block):
+            x = block(x, position_bias, mask_bias, fold_in(dropout_key, "block", i))
+        return dropout(self.final_layer_norm(x), cfg.dropout_rate, fold_in(dropout_key, "final"))
 
 

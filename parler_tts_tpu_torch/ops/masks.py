@@ -1,5 +1,5 @@
-"""Additive attention biases over a static KV cache (port of
-`parler_tts_tpu/ops/masks.py`)."""
+"""Additive attention biases over a static KV cache, and the training path's
+dense causal bias (port of `parler_tts_tpu/ops/masks.py`)."""
 
 from __future__ import annotations
 
@@ -40,3 +40,15 @@ def padding_cross_attention_bias(
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=encoder_mask.device)
     bias = torch.where(encoder_mask.to(torch.bool), zero, neg)
     return bias[:, None, None, :].expand(bias.shape[0], 1, t, bias.shape[-1])
+
+
+def dense_self_attention_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """Training-path bias: causal + padding over the whole decoder sequence
+    (prompt prefix included). attention_mask (B, T) 0/1 -> (B, 1, T, T)."""
+    t = attention_mask.shape[-1]
+    positions = torch.arange(t, device=attention_mask.device)
+    causal = positions[None, :, None] >= positions[None, None, :]
+    ok = causal & attention_mask.to(torch.bool)[:, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=attention_mask.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=attention_mask.device)
+    return torch.where(ok, zero, neg)[:, None, :, :]

@@ -288,7 +288,7 @@ def _fused_step(model: ParlerTTS, fp: FusedParams, cache: DecoderCache, enc_mask
         enc_bias = enc_bias.masked_fill(~enc_mask.to(torch.bool), torch.finfo(torch.float32).min)
     ln = lm.decoder.layer_norm
     ln_scale, ln_bias = ln.scale.float(), ln.bias.float()
-    heads = lm.lm_heads.float()
+    heads = lm.heads_fp32()
 
     def step(t: int) -> torch.Tensor:
         n_rows = s_p + t - 1

@@ -1,0 +1,244 @@
+"""The train step (port of `parler_tts_tpu/training/train_state.py`,
+single device; the mesh-sharded step is not ported).
+
+The optimizer reproduces the JAX package's optax chain, not torch's
+defaults:
+  * `clip_by_global_norm(max_norm)`: the trained gradients are scaled by
+    max_norm / norm when their global norm reaches max_norm (no epsilon);
+  * AdamW: moments mu, nu; bias correction by the incremented count;
+    update mu_hat / (sqrt(nu_hat) + eps) plus weight_decay x param
+    (decoupled), times -lr; every parameter decays;
+  * the learning-rate schedules of `make_optimizer`, evaluated at the count
+    before the increment: with warmup, step 1 runs at lr 0;
+  * with `freeze_text_encoder` the text encoder's parameters get no update
+    and no moments, and the clip sees only the trained parameters, as under
+    optax's `multi_transform`; the `grad_norm` metric still covers every
+    gradient, the text encoder's included, as `optax.global_norm(grads)`
+    does, so autograd computes them.
+
+The loss is the reference's token-sum cross-entropy divided by the number of
+codebooks and by the batch's valid-token count; `microbatch_steps=G` runs G
+forward/backward passes over slices of the batch, sums their raw gradients
+and divides once by the whole batch's count, which is the full-batch step up
+to fp32 summation order. Dropout keys derive from the step's integer seed
+(`models/layers.py:fold_in`), one per micro-batch.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..models.layers import fold_in
+from ..models.parler import ParlerTTS
+from ..ops.losses import chunked_per_codebook_cross_entropy, per_codebook_cross_entropy
+
+Schedule = Callable[[int], float]
+ADAM_EPS = 1e-8  # optax.adamw's eps, added after the square root
+
+
+class Batch(NamedTuple):
+    input_ids: torch.Tensor              # (B, S_desc)
+    attention_mask: torch.Tensor         # (B, S_desc)
+    prompt_input_ids: torch.Tensor       # (B, S_p)
+    prompt_attention_mask: torch.Tensor  # (B, S_p)
+    labels: torch.Tensor                 # (B, T, K), -100 = padding
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    """optax.linear_schedule."""
+    if steps <= 0:
+        return lambda count: init
+    return lambda count: (init - end) * (1.0 - min(max(count, 0), steps) / steps) + end
+
+
+def _join(first: Schedule, then: Schedule, boundary: int) -> Schedule:
+    """optax.join_schedules with one boundary."""
+    return lambda count: first(count) if count < boundary else then(count - boundary)
+
+
+def _cosine(init: float, steps: int) -> Schedule:
+    """optax.cosine_decay_schedule with alpha 0."""
+    if steps <= 0:
+        raise ValueError(f"cosine decay needs positive decay steps, got {steps}")
+    return lambda count: init * 0.5 * (1.0 + math.cos(math.pi * min(count, steps) / steps))
+
+
+@dataclass
+class OptState:
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+@dataclass
+class AdamW:
+    """clip_by_global_norm + adamw under a learning-rate schedule, with the
+    text encoder optionally frozen (see the module docstring)."""
+
+    learning_rate: Schedule
+    b1: float
+    b2: float
+    weight_decay: float
+    max_grad_norm: float
+    freeze_text_encoder: bool
+
+    def trains(self, name: str) -> bool:
+        return not (self.freeze_text_encoder and name.split(".")[0] == "text_encoder")
+
+    def init(self, model: torch.nn.Module) -> OptState:
+        trained = {n: p for n, p in model.named_parameters() if self.trains(n)}
+        return OptState(
+            count=0,
+            mu={n: torch.zeros_like(p) for n, p in trained.items()},
+            nu={n: torch.zeros_like(p) for n, p in trained.items()},
+        )
+
+    @torch.no_grad()
+    def update(self, model: torch.nn.Module, grads: Dict[str, torch.Tensor],
+               state: OptState) -> None:
+        """Apply one step to the model's parameters in place."""
+        names = list(state.mu)
+        params = dict(model.named_parameters())
+        p = [params[n] for n in names]
+        g = [grads[n] for n in names]
+        mu = [state.mu[n] for n in names]
+        nu = [state.nu[n] for n in names]
+        norm = global_norm(g)
+        clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
+                           self.max_grad_norm / norm)
+        g = torch._foreach_mul(g, clip)
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        lr = self.learning_rate(state.count)
+        state.count += 1
+        mu_hat = torch._foreach_div(mu, 1.0 - self.b1 ** state.count)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, 1.0 - self.b2 ** state.count))
+        torch._foreach_add_(denom, ADAM_EPS)
+        upd = torch._foreach_div(mu_hat, denom)
+        torch._foreach_add_(upd, p, alpha=self.weight_decay)
+        torch._foreach_add_(p, upd, alpha=-lr)
+
+
+def make_optimizer(
+    learning_rate: float = 9.5e-4,
+    schedule: str = "constant_with_warmup",
+    warmup_steps: int = 20_000,
+    total_steps: int = 50_000,
+    b1: float = 0.9,
+    b2: float = 0.99,
+    weight_decay: float = 0.01,
+    max_grad_norm: float = 1.0,
+    freeze_text_encoder: bool = True,
+) -> AdamW:
+    """AdamW + clip + schedule, the JAX package's defaults (the reference
+    recipe's). `mu_dtype` is not ported: the moments have the parameters'
+    dtype."""
+    warmup = _linear(0.0, learning_rate, warmup_steps)
+    if schedule == "constant_with_warmup":
+        lr = _join(warmup, lambda count: learning_rate, warmup_steps)
+    elif schedule == "cosine":
+        lr = _join(warmup, _cosine(learning_rate, total_steps - warmup_steps), warmup_steps)
+    elif schedule == "linear":
+        lr = _join(warmup, _linear(learning_rate, 0.0, max(total_steps - warmup_steps, 1)),
+                   warmup_steps)
+    else:
+        raise ValueError(f"unknown schedule {schedule}")
+    return AdamW(lr, b1, b2, weight_decay, max_grad_norm, freeze_text_encoder)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of squares of every element."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+@dataclass
+class TrainState:
+    """The step count, the model (whose parameters are the trained state)
+    and the optimizer's moments."""
+
+    step: int
+    model: ParlerTTS
+    opt_state: OptState = field(repr=False)
+
+    @classmethod
+    def create(cls, model: ParlerTTS, tx: AdamW) -> "TrainState":
+        """Turns on `requires_grad` for every parameter: the frozen text
+        encoder's gradients are computed too, for the `grad_norm` metric."""
+        model.requires_grad_(True)
+        return cls(step=0, model=model, opt_state=tx.init(model))
+
+
+def make_train_step(
+    model: ParlerTTS,
+    tx: AdamW,
+    loss_chunk_size: Optional[int] = None,
+    microbatch_steps: Optional[int] = None,
+) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """`train_step(state, batch, dropout_seed) -> (state, metrics)`, updating
+    the model's parameters in place. Metrics are device tensors: loss,
+    grad_norm, num_items, per_codebook_loss (K,).
+
+    `loss_chunk_size`: fuse the LM heads with the cross-entropy chunk by
+    chunk over T (`ops/losses.py:chunked_per_codebook_cross_entropy`)
+    instead of materialising (B, K, T, V) logits. `microbatch_steps=G`:
+    gradient accumulation over G slices of the batch."""
+    dcfg = model.config.decoder
+
+    def raw_loss(batch: Batch, key: int):
+        out, dec_ids = model(*batch, deterministic=False,
+                             return_hidden=loss_chunk_size is not None, dropout_key=key)
+        kw = dict(bos_token_id=dcfg.bos_token_id, eos_token_id=dcfg.eos_token_id,
+                  codebook_weights=dcfg.codebook_weights)
+        if loss_chunk_size is not None:
+            sums = chunked_per_codebook_cross_entropy(
+                out, model.decoder.lm_heads, batch.labels, dec_ids, chunk_size=loss_chunk_size,
+                head_dtype=model.dtype, **kw)
+        else:
+            sums = per_codebook_cross_entropy(out, batch.labels, dec_ids, **kw)
+        sum_loss, num_items, per_cb_mean, per_cb_count = sums
+        return sum_loss / dcfg.num_codebooks, num_items, per_cb_mean, per_cb_count
+
+    def train_step(state: TrainState, batch: Batch, dropout_seed: int):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        g = microbatch_steps or 1
+        if g > 1:
+            rows = batch.input_ids.shape[0]
+            if rows % g:
+                raise ValueError(f"batch rows {rows} not divisible by microbatch_steps={g}")
+            raw_sum = items = 0.0
+            cb_sum = cb_cnt = 0.0
+            for i in range(g):
+                part = Batch(*(x[i * rows // g:(i + 1) * rows // g] for x in batch))
+                raw, n, cb_mean, cb_c = raw_loss(part, fold_in(dropout_seed, "micro", i))
+                raw.backward()
+                raw_sum, items = raw_sum + raw.detach(), items + n
+                cb_sum, cb_cnt = cb_sum + cb_mean.detach() * cb_c, cb_cnt + cb_c
+            denom = items.clamp_min(1.0)
+            with torch.no_grad():
+                for p in params.values():
+                    if p.grad is not None:
+                        p.grad /= denom
+            loss, num_items = raw_sum / denom, items
+            per_cb = cb_sum / cb_cnt.clamp_min(1.0)
+        else:
+            raw, num_items, per_cb, _ = raw_loss(batch, dropout_seed)
+            loss = raw / num_items.clamp_min(1.0)
+            loss.backward()
+            loss, per_cb = loss.detach(), per_cb.detach()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        metrics = {"loss": loss, "grad_norm": global_norm(list(grads.values())),
+                   "num_items": num_items, "per_codebook_loss": per_cb}
+        tx.update(model, grads, state.opt_state)
+        state.step += 1
+        return state, metrics
+
+    return train_step

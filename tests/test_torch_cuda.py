@@ -1,6 +1,7 @@
 """Port tests that need the card: the CUDA kernels K1 (flash-decode), K2
-(int8 matmul) and K3 (fused decode step) against their plain versions, and
-the pipeline on the GPU in its eager, int8 and fused modes. Marked `cuda`; without a GPU each test
+(int8 matmul), K3 (fused decode step) and K4 (training flash attention)
+against their plain versions, the pipeline on the GPU in its eager, int8 and
+fused modes, and the launch counts of a remat'd train step. Marked `cuda`; without a GPU each test
 skips (a CUDA kernel has no CPU mode). This file imports no JAX, since the
 machine with the card has none. Run there with
 
@@ -19,7 +20,11 @@ by slice (each layer's new k and v rows, then the hidden state), within the
 limits `fused_limits` sets from the noise between its plain version summing
 in fp32 and in float64 over the cases held: in every case 4 x the largest
 noise, and for the median over the cases at layer 1 4 x the median noise,
-both at least 4 x one bf16 step in 1 of 64 entries.
+both at least 4 x one bf16 step in 1 of 64 entries. K4: o, dq, dk and dv,
+norm-relative, each within `k4_limits` (ops/flash_attention.py): 4 x the gap
+between the plain version summing in fp32 and in float64 on the same
+inputs, at least 1e-6 (fp32) or 1e-4 (bf16); a kernel that drops one key
+tile must fail them.
 """
 
 import dataclasses
@@ -38,6 +43,13 @@ from parler_tts_tpu_torch.config import (
 from parler_tts_tpu_torch.config import mini_v1_decoder_config
 from parler_tts_tpu_torch.models.decoder import ParlerDecoder
 from parler_tts_tpu_torch.models.layers import init_weights
+from parler_tts_tpu_torch.ops.flash_attention import (
+    attention_and_grads,
+    flash_attention,
+    flash_attention_plain,
+    k4_gaps,
+    k4_limits,
+)
 from parler_tts_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_plain,
@@ -295,3 +307,87 @@ def test_fused_pipeline_launch_counts(cuda):
     before = fused_decode_layers.launches
     pipe.generate_codes(*tiny_request())  # B=2 takes the eager loop
     assert fused_decode_layers.launches == before
+
+
+# ------------------------------------------------------------------ K4
+# (b, tq, tk, h, h_kv, causal, q_offset, left-padded keys of row 1)
+K4_CASES = {
+    "mini_v1": (2, 1040, 1040, 16, 16, True, 0, 5),
+    "gqa": (2, 256, 256, 8, 2, True, 0, 0),
+    "offset": (2, 128, 384, 4, 4, True, 256, 0),
+    "unaligned": (2, 200, 200, 4, 4, True, 0, 3),
+    "noncausal": (2, 192, 256, 4, 4, False, 0, 0),
+}
+
+
+def k4_inputs(device, dtype, b, tq, tk, h, h_kv, pad, dh=64, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = (torch.randn(b, tq, h, dh, generator=g, device=device) * dh ** -0.5).to(dtype)
+    k, v = (torch.randn(b, tk, h_kv, dh, generator=g, device=device).to(dtype)
+            for _ in range(2))
+    do = torch.randn(b, tq, h, dh, generator=g, device=device).to(dtype)
+    mask = torch.ones(b, tk, dtype=torch.bool, device=device)
+    mask[1, :pad] = False
+    return q, k, v, mask, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(K4_CASES))
+def test_flash_attention_matches_plain(cuda, name, dtype):
+    b, tq, tk, h, h_kv, causal, q_offset, pad = K4_CASES[name]
+    q, k, v, mask, do = k4_inputs(cuda, dtype, b, tq, tk, h, h_kv, pad)
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = dict(flash_attention.launches)
+    got = attention_and_grads(flash_attention, q, k, v, mask, do, **kw)
+    torch.cuda.synchronize()
+    assert {n: flash_attention.launches[n] - before[n] for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    want = attention_and_grads(flash_attention_plain, q, k, v, mask, do, **kw)
+    f64 = attention_and_grads(flash_attention_plain, q, k, v, mask, do,
+                              acc_dtype=torch.float64, **kw)
+    gaps, limits = k4_gaps(got, want), k4_limits(k4_gaps(want, f64), dtype)
+    assert all(g <= lim for g, lim in zip(gaps, limits)), (gaps, limits)
+    if pad and causal and not q_offset:  # rows of row 1 that see no valid key
+        assert not got[0][1, :pad].any() and not got[1][1, :pad].any()
+
+
+def test_flash_attention_dropped_key_tile_fails_the_limits(cuda):
+    b, tq, tk, h, h_kv, causal, q_offset, pad = K4_CASES["mini_v1"]
+    q, k, v, mask, do = k4_inputs(cuda, torch.bfloat16, b, tq, tk, h, h_kv, pad)
+    want = attention_and_grads(flash_attention_plain, q, k, v, mask, do)
+    f64 = attention_and_grads(flash_attention_plain, q, k, v, mask, do, acc_dtype=torch.float64)
+    limits = k4_limits(k4_gaps(want, f64), torch.bfloat16)
+    dropped = mask.clone()
+    dropped[0, 512:576] = False  # what a kernel that skips key tile 8 of row 0 computes
+    got = attention_and_grads(flash_attention, q, k, v, dropped, do)
+    assert any(g > 10 * lim for g, lim in zip(k4_gaps(got, want), limits))
+
+
+def test_train_step_launch_counts(cuda):
+    """One remat'd step of a tiny model over K4: 2 x L forward launches (the
+    forward and its recompute in the backward), L dq and L dkv."""
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.training import Batch, TrainState, make_optimizer, make_train_step
+
+    cfg = tiny_config()
+    model = ParlerTTS(cfg, device=cuda, dtype=torch.bfloat16, param_dtype=torch.float32,
+                      use_chunked_attention="pallas", remat_layers=True)
+    init_weights(model, torch.Generator(device=cuda).manual_seed(0))
+    tx = make_optimizer(warmup_steps=1)
+    state = TrainState.create(model, tx)
+    step = make_train_step(model, tx)
+    g = torch.Generator().manual_seed(1)
+    labels = torch.randint(0, 88, (2, 30, 4), generator=g)
+    labels[1, -5:] = -100
+    prompt_mask = torch.ones(2, 5, dtype=torch.int64)
+    prompt_mask[1, :2] = 0
+    batch = Batch(torch.randint(0, 120, (2, 9), generator=g), torch.ones(2, 9, dtype=torch.int64),
+                  torch.randint(0, 256, (2, 5), generator=g), prompt_mask, labels)
+    batch = Batch(*(x.to(cuda) for x in batch))
+    n = cfg.decoder.num_hidden_layers
+    for i in range(2):
+        for key in flash_attention.launches:
+            flash_attention.launches[key] = 0
+        state, metrics = step(state, batch, i)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == {"fwd": 2 * n, "dq": n, "dkv": n}
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
