@@ -38,28 +38,39 @@ Builds the port's CUDA kernels with nvcc, then:
       and prints steps/s, RTF, kernels per decode step and device idle share
       beside the eager bf16 path on the same request;
   (h) holds kernel K4 (training flash attention: forward, dq, dk/dv) against
-      its plain version, output and gradients, at mini-v1's training
-      attention (B=2, H=16, Dh=64, T = 16 prompt + 1024 frames, causal, row
-      1's prompt left-padded by 5) in bf16 and fp32 and at small GQA 8:2,
-      q_offset 256, unaligned and non-causal cases, within limits set by the
-      plain version's own fp32-vs-float64 noise; checks that a kernel that
-      drops one key tile fails them; times each kernel and its own plain
-      version (the forward, the dq part and the dk/dv part of the plain
-      backward), and `F.scaled_dot_product_attention` forward and backward
-      (a yardstick only; no library call computes dq or dk/dv alone, so its
-      backward is reported once, as the dk/dv entry's `library_backward_ms`);
+      its plain version, output and gradients, on both of its routes: bf16
+      with Dh 64 on the tensor-core kernels (csrc/flash_attention_wgmma.cu),
+      fp32 and bf16 with another head dim on the SIMT kernels
+      (csrc/flash_attention.cu). Cases: mini-v1's training attention (B=2,
+      H=16, Dh=64, T = 16 prompt + 1024 frames, causal, row 1's prompt
+      left-padded by 5) and small GQA 8:2, q_offset 256, unaligned and
+      non-causal cases, each in bf16 and fp32; in bf16 also Tq < Tk with an
+      offset and a left pad that leaves query rows no valid key, Tq > Tk causal
+      and non-causal, and Dh 32 (SIMT). Each within limits set by the plain
+      version's own fp32-vs-float64 noise, on the route `_k4_route` picks (its
+      launch counters), with rows that see no valid key and masked keys
+      exactly 0 in o and every gradient; a kernel that drops one key tile must
+      fail the limits. At the main shape it times both routes' kernels (wgmma,
+      SIMT, wgmma) beside each one's own plain version (the forward, the dq
+      part and the dk/dv part of the plain backward) and
+      `F.scaled_dot_product_attention` forward and backward with the same
+      boolean mask (a yardstick only; no library call computes dq or dk/dv
+      alone, so its backward is reported once, as the dk/dv entry's
+      `library_backward_ms`), with achieved TFLOP/s and the share of the bound;
   (i) trains parler-tts-mini-v1 at full width and depth (fp32 parameters and
       AdamW moments, bf16 compute, K4 attention, every layer rematerialised)
       for 5 steps on one B=2 batch with `make_optimizer(warmup_steps=1)`:
       the loss is finite and falls from step 2 to step 5, step 1 (lr 0)
       changes no parameter, the frozen text encoder never changes, and K4
-      launches exactly 48 forward, 24 dq and 24 dk/dv kernels a step; step
-      1's loss and gradient norm through the plain chunked-attention route
-      (bf16) agree with K4's within the gap between K4's bf16 and fp32 runs
-      of that step, the noise bf16 compute puts on them; and in fp32 the two
-      routes' step-1 loss, gradient norm and every gradient leaf agree
-      within 1e-4 (norm-relative), the CPU tests' gradient tolerance against
-      the JAX package.
+      launches exactly 48 forward, 24 dq and 24 dk/dv kernels a step, all on
+      the tensor-core route; a profiled step gives K4's device time and the
+      step's device busy time; step 1's loss and gradient norm through the
+      plain chunked-attention route (bf16) agree with K4's within the gap
+      between K4's bf16 and fp32 runs of that step, the noise bf16 compute
+      puts on them; K4 in fp32 launches its 48 / 24 / 24 kernels on the SIMT
+      route; and in fp32 the two routes' step-1 loss, gradient norm and every
+      gradient leaf agree within 1e-4 (norm-relative), the CPU tests'
+      gradient tolerance against the JAX package.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
@@ -86,7 +97,8 @@ PROFILE_COLUMNS = 240
 # kernel that drops or repeats one 64-slot tile (~4e-3) fails
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
 LOGITS_TOL = dict(atol=2e-4, rtol=2e-4)
-KERNEL_SOURCES = ("flash_decode", "quant_matmul", "fused_decode_step", "flash_attention")
+KERNEL_SOURCES = ("flash_decode", "quant_matmul", "fused_decode_step", "flash_attention",
+                  "flash_attention_wgmma")
 T_PROMPT_TRAIN, T_FRAMES_TRAIN, TRAIN_STEPS = 16, 1024, 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
@@ -857,51 +869,86 @@ def k4_inputs(dev, dtype, b, tq, tk, h, h_kv, pad, dh=64, seed=0):
     return q, k, v, mask, do
 
 
+K4_ROUTES = ("wgmma", "simt")
+
+
+def k4_case_check(fa, label, dtype, b, tq, tk, h, h_kv, causal, q_offset, pad, dh, dev):
+    """One K4 case against the plain version; returns (route, [max abs err of
+    o, dq, dk, dv], failure or None)."""
+    q, k, v, mask, do = k4_inputs(dev, dtype, b, tq, tk, h, h_kv, pad, dh=dh)
+    kw = dict(causal=causal, q_offset=q_offset)
+    route = fa._k4_route(dtype, dh)
+    before = {n: (fa.flash_attention.launches[n], fa.flash_attention.launches_wgmma[n])
+              for n in fa.flash_attention.launches}
+    got = fa.attention_and_grads(fa.flash_attention, q, k, v, mask, do, **kw)
+    torch.cuda.synchronize()
+    per_route = {n: (fa.flash_attention.launches[n] - a, fa.flash_attention.launches_wgmma[n] - w)
+                 for n, (a, w) in before.items()}
+    want = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do, **kw)
+    f64 = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do,
+                                 acc_dtype=torch.float64, **kw)
+    gaps, limits = fa.k4_gaps(got, want), fa.k4_limits(fa.k4_gaps(want, f64), dtype)
+    abs_err = [float((a - w).abs().max()) for a, w in zip(got, want)]
+    # row 1's first `pad` keys are masked: no gradient reaches them, and when
+    # causal its queries at positions below `pad` see no valid key at all
+    dead = max(0, min(tq, pad - q_offset)) if causal else (tq if pad >= tk else 0)
+    zero = not pad or all(not x.any() for x in (got[0][1, :dead], got[1][1, :dead],
+                                                 got[2][1, :pad], got[3][1, :pad]))
+    routed = all(c == (1, int(route == "wgmma")) for c in per_route.values())
+    print(f"  K4 vs plain, {label} ({str(dtype)[6:]}, Dh={dh}, Tq={tq}, Tk={tk}, H={h}/{h_kv}, "
+          f"{route} route: {routed}): o dq dk dv gaps " + " ".join(f"{x:.2e}" for x in gaps)
+          + " | limits " + " ".join(f"{x:.2e}" for x in limits) + "; max abs "
+          + " ".join(f"{x:.2e}" for x in abs_err)
+          + ("" if not pad else f"; {dead} query rows with no valid key and {pad} masked keys "
+             f"exactly 0 in o and every gradient: {zero}"))
+    bad = any(x > lim for x, lim in zip(gaps, limits))
+    failure = None
+    if bad or not zero or not routed:
+        failure = f"{label} {dtype} Dh={dh} (limits: {not bad}, zeros: {zero}, route: {routed})"
+    return route, abs_err, failure
+
+
 def phase_h(dev, card):
-    """K4 against its plain version; returns {kernel: json fields} for the
-    forward, dq and dk/dv kernels."""
+    """K4 against its plain version on both routes; returns {route: {kernel:
+    json fields}} for the tensor-core ("wgmma") and SIMT kernels, forward, dq
+    and dk/dv."""
     import torch.nn.functional as F
 
     from parler_tts_tpu_torch.ops import flash_attention as fa
 
     t_train = T_PROMPT_TRAIN + T_FRAMES_TRAIN
     bf16, fp32 = torch.bfloat16, torch.float32
-    cases = [("mini-v1 training", 2, t_train, t_train, 16, 16, True, 0, 5)] * 2 + [
-        ("GQA 8:2", 2, 256, 256, 8, 2, True, 0, 0),
-        ("q_offset 256", 2, 128, 384, 4, 4, True, 256, 0),
-        ("unaligned T 200", 2, 200, 200, 4, 4, True, 0, 3),
-        ("non-causal", 2, 192, 256, 4, 4, False, 0, 0),
-    ] * 2
-    dtypes = [bf16, fp32] + [bf16] * 4 + [fp32] * 4
+    # (label, B, Tq, Tk, H, H_kv, causal, q_offset, left-padded keys of row 1, Dh)
+    both = [
+        ("mini-v1 training", 2, t_train, t_train, 16, 16, True, 0, 5, 64),
+        ("GQA 8:2", 2, 256, 256, 8, 2, True, 0, 0, 64),
+        ("q_offset 256", 2, 128, 384, 4, 4, True, 256, 0, 64),
+        ("unaligned T 200", 2, 200, 200, 4, 4, True, 0, 3, 64),
+        ("non-causal", 2, 192, 256, 4, 4, False, 0, 0, 64),
+    ]
+    bf16_only = [
+        ("Tq 136 < Tk 264, q_offset 128, left pad 140", 2, 136, 264, 4, 4, True, 128, 140, 64),
+        ("Tq 264 > Tk 200, causal", 2, 264, 200, 4, 4, True, 0, 7, 64),
+        ("Tq 264 > Tk 200, non-causal", 2, 264, 200, 4, 4, False, 0, 7, 64),
+        ("Dh 32", 2, 200, 200, 4, 4, True, 0, 3, 32),
+    ]
+    cases = ([(c, bf16) for c in both] + [(c, fp32) for c in both]
+             + [(c, bf16) for c in bf16_only])
     print(f"  limit of each of o, dq, dk, dv (norm-relative) = {fa.K4_NOISE_FACTOR:g} x the gap "
           f"between the plain version summing in fp32 and in float64 on the same inputs, at "
-          f"least {fa.K4_FLOOR[fp32]:g} (fp32) / {fa.K4_FLOOR[bf16]:g} (bf16)")
-    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+          f"least {fa.K4_FLOOR[fp32]:g} (fp32) / {fa.K4_FLOOR[bf16]:g} (bf16); route by "
+          f"`_k4_route`: bf16 with Dh 64 on the tensor cores (wgmma), the rest SIMT")
+    errs = {route: {"fwd": 0.0, "dq": 0.0, "dkv": 0.0} for route in K4_ROUTES}
     failed = []
-    for (label, b, tq, tk, h, h_kv, causal, q_offset, pad), dtype in zip(cases, dtypes):
-        q, k, v, mask, do = k4_inputs(dev, dtype, b, tq, tk, h, h_kv, pad)
-        kw = dict(causal=causal, q_offset=q_offset)
-        got = fa.attention_and_grads(fa.flash_attention, q, k, v, mask, do, **kw)
-        torch.cuda.synchronize()
-        want = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do, **kw)
-        f64 = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do,
-                                     acc_dtype=torch.float64, **kw)
-        gaps, limits = fa.k4_gaps(got, want), fa.k4_limits(fa.k4_gaps(want, f64), dtype)
-        abs_err = [float((a - w).abs().max()) for a, w in zip(got, want)]
-        errs["fwd"] = max(errs["fwd"], abs_err[0])
-        errs["dq"] = max(errs["dq"], abs_err[1])
-        errs["dkv"] = max(errs["dkv"], abs_err[2], abs_err[3])
-        zero_rows = not pad or bool(got[0][1, :pad].abs().sum() == 0
-                                    and got[1][1, :pad].abs().sum() == 0)
-        print(f"  K4 vs plain, {label} ({str(dtype)[6:]}, Tq={tq}, Tk={tk}, H={h}/{h_kv}): "
-              f"o dq dk dv gaps " + " ".join(f"{x:.2e}" for x in gaps) + " | limits "
-              + " ".join(f"{x:.2e}" for x in limits) + f"; max abs "
-              + " ".join(f"{x:.2e}" for x in abs_err)
-              + ("" if not pad else f"; rows with no valid key exactly 0: {zero_rows}"))
-        if not zero_rows or any(x > lim for x, lim in zip(gaps, limits)):
-            failed.append(f"{label} {dtype}")
+    for case, dtype in cases:
+        route, abs_err, failure = k4_case_check(fa, case[0], dtype, *case[1:], dev=dev)
+        e = errs[route]
+        e["fwd"], e["dq"] = max(e["fwd"], abs_err[0]), max(e["dq"], abs_err[1])
+        e["dkv"] = max(e["dkv"], abs_err[2], abs_err[3])
+        if failure:
+            failed.append(failure)
 
-    # negative check and timing at the main shape in bf16
+    # negative check at the main shape in bf16, on the tensor-core kernels
     q, k, v, mask, do = k4_inputs(dev, bf16, 2, t_train, t_train, 16, 16, 5)
     want = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do)
     f64 = fa.attention_and_grads(fa.flash_attention_plain, q, k, v, mask, do,
@@ -909,11 +956,14 @@ def phase_h(dev, card):
     limits = fa.k4_limits(fa.k4_gaps(want, f64), bf16)
     dropped = mask.clone()
     dropped[0, 512:576] = False  # what a kernel that skips key tile 8 of row 0 computes
+    before = fa.flash_attention.launches_wgmma["fwd"]
     got = fa.attention_and_grads(fa.flash_attention, q, k, v, dropped, do)
     worst = max(x / lim for x, lim in zip(fa.k4_gaps(got, want), limits))
-    print(f"  negative check, key tile 8 of row 0 dropped: worst gap {worst:.1f} x its limit")
-    if worst <= 1.0:
-        failed.append("the dropped key tile passed the limits")
+    on_wgmma = fa.flash_attention.launches_wgmma["fwd"] == before + 1
+    print(f"  negative check, key tile 8 of row 0 dropped (wgmma route: {on_wgmma}): worst gap "
+          f"{worst:.1f} x its limit")
+    if worst <= 1.0 or not on_wgmma:
+        failed.append("the dropped key tile passed the limits or missed the wgmma route")
     if failed:
         raise AssertionError(f"K4 outside its limits: {failed}")
 
@@ -924,8 +974,8 @@ def phase_h(dev, card):
     dims = (1, b, h, t, t, dh, 1, 0)
     mask_u8 = mask.to(torch.uint8)
     with torch.no_grad():
-        o, lse = fa._launch_fwd(q, k, v, mask_u8, dims)
-        _, delta = fa._launch_dq(q, k, v, mask_u8, o, lse, do, dims)
+        o, lse = fa._launch_fwd(q, k, v, mask_u8, dims, "wgmma")
+        _, delta = fa._launch_dq(q, k, v, mask_u8, o, lse, do, dims, "wgmma")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa_leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
     sdpa_o = F.scaled_dot_product_attention(*sdpa_leaves, attn_mask=ok, scale=1.0)
@@ -939,41 +989,58 @@ def phase_h(dev, card):
     def plain_bwd(part):  # the plain version of one backward kernel, same inputs
         return lambda: fa._plain_backward(q, k, v, ok, o, lse, do, torch.float32, parts=(part,))
 
+    def kernels(route):  # both routes on the same inputs (the SIMT kernels take bf16 at Dh 64)
+        return (lambda: fa._launch_fwd(q, k, v, mask_u8, dims, route),
+                lambda: fa._launch_dq(q, k, v, mask_u8, o, lse, do, dims, route),
+                lambda: fa._launch_dkv(q, k, v, mask_u8, lse, do, delta, dims, route))
+
+    kernel_ms = {}
     with torch.no_grad():
-        fwd_ms = timed(lambda: fa._launch_fwd(q, k, v, mask_u8, dims), 20)
-        dq_ms = timed(lambda: fa._launch_dq(q, k, v, mask_u8, o, lse, do, dims), 20)
-        dkv_ms = timed(lambda: fa._launch_dkv(q, k, v, mask_u8, lse, do, delta, dims), 20)
+        for route in K4_ROUTES:  # the wgmma kernels, the SIMT ones, and the wgmma ones again
+            kernel_ms.setdefault(route, []).append([timed(fn, 20) for fn in kernels(route)])
+        kernel_ms["wgmma"].append([timed(fn, 20) for fn in kernels("wgmma")])
         plain_fwd_ms = timed(lambda: fa.flash_attention_plain(q, k, v, mask), 5)
         plain_dq_ms, plain_dkv_ms = timed(plain_bwd("dq"), 5), timed(plain_bwd("dkv"), 5)
         sdpa_fwd_ms = timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
                                                                    scale=1.0), 20)
     sdpa_bwd_ms = timed(lambda: torch.autograd.grad(sdpa_o, sdpa_leaves, do_t,
                                                     retain_graph=True), 20)
-    out = {}
+    out = {route: {} for route in K4_ROUTES}
     # operations: 2 * Dh per visible pair per matmul (the forward's s and p @ v;
     # dq's s, dp and ds @ k; dk/dv's s, dp, p^T @ do and ds^T @ q); bytes: each
     # input read once and each output written once, bf16 tensors, fp32 lse/delta.
     # No library call computes dq alone or dk/dv alone: SDPA's backward (all
     # three) is reported once, on the dk/dv entry, as library_backward_ms.
-    for name, ms, matmuls, n_in, n_out, n_rows, plain, lib in (
-            ("fwd", fwd_ms, 2, 3, 1, 1, plain_fwd_ms, sdpa_fwd_ms),
-            ("dq", dq_ms, 3, 5, 1, 2, plain_dq_ms, None),
-            ("dkv", dkv_ms, 4, 4, 2, 2, plain_dkv_ms, None)):
-        ops = 2 * dh * pairs * matmuls
-        bytes_moved = 2 * elem * (n_in + n_out) + 4 * b * h * t * n_rows + b * t
-        byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-        bound_ms = max(byte_s, op_s) * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
-                         bound_by="bytes" if byte_s >= op_s else "operations",
-                         max_abs_err=errs[name])
-        print(f"  K4 {name} {ms:.3f} ms, plain {plain:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({ops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.1f} MB) at B={b}, H={h}, T={t}, "
-              f"bf16 ({card})")
-    out["dkv"]["library_backward_ms"] = sdpa_bwd_ms
-    print(f"  device time per call (CUDA events, host pace excluded): K4 forward "
-          f"{fwd_ms:.3f} ms + backward {dq_ms + dkv_ms:.3f} ms (dq {dq_ms:.3f}, dk/dv "
-          f"{dkv_ms:.3f}); plain {plain_fwd_ms:.3f} + {plain_dq_ms + plain_dkv_ms:.3f} ms; SDPA "
-          f"with the boolean mask {sdpa_fwd_ms:.3f} + {sdpa_bwd_ms:.3f} ms ({card})")
+    for route in K4_ROUTES:
+        runs = kernel_ms[route]
+        for i, (name, matmuls, n_in, n_out, n_rows, plain, lib) in enumerate((
+                ("fwd", 2, 3, 1, 1, plain_fwd_ms, sdpa_fwd_ms),
+                ("dq", 3, 5, 1, 2, plain_dq_ms, None),
+                ("dkv", 4, 4, 2, 2, plain_dkv_ms, None))):
+            ms = min(run[i] for run in runs)
+            ops = 2 * dh * pairs * matmuls
+            bytes_moved = 2 * elem * (n_in + n_out) + 4 * b * h * t * n_rows + b * t
+            byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+            bound_ms = max(byte_s, op_s) * 1e3
+            out[route][name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                                    bound_by="bytes" if byte_s >= op_s else "operations",
+                                    max_abs_err=errs[route][name])
+            print(f"  K4 {route} {name} {ms:.4f} ms (runs " + " / ".join(
+                f"{run[i]:.4f}" for run in runs) + f"), {ops / ms / 1e9:.1f} TFLOP/s, "
+                f"{bound_ms / ms:.1%} of its bound {bound_ms:.4f} ms ({out[route][name]['bound_by']}: "
+                f"{ops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.1f} MB); plain {plain:.3f} ms; at "
+                f"B={b}, H={h}, T={t}, bf16 ({card})")
+        out[route]["dkv"]["library_backward_ms"] = sdpa_bwd_ms
+    w, m = out["wgmma"], out["simt"]
+    print(f"  device time per call (CUDA events, host pace excluded), with the same boolean "
+          f"mask: wgmma forward {w['fwd']['ms']:.4f} ms vs SDPA forward {sdpa_fwd_ms:.4f} ms; "
+          f"wgmma backward {w['dq']['ms'] + w['dkv']['ms']:.4f} ms (dq {w['dq']['ms']:.4f}, "
+          f"dk/dv {w['dkv']['ms']:.4f}) vs SDPA backward {sdpa_bwd_ms:.4f} ms; SIMT "
+          f"{m['fwd']['ms']:.4f} + {m['dq']['ms'] + m['dkv']['ms']:.4f} ms; plain "
+          f"{plain_fwd_ms:.3f} + {plain_dq_ms + plain_dkv_ms:.3f} ms ({card})")
+    slow = [name for name in ("fwd", "dq", "dkv") if not w[name]["ms"] < m[name]["ms"]]
+    if slow:
+        raise AssertionError(f"wgmma K4 not faster than the SIMT kernels: {slow}")
     del sdpa_o, sdpa_leaves
     torch.cuda.empty_cache()
     return out
@@ -1014,17 +1081,23 @@ def profile_train_step(step, state, batch, step_ms, card):
             by_name[e.name] += e.time_range.elapsed_us()
             count += 1
     busy_ms = sum(by_name.values()) / 1e3
-    k4_tags = ("::fwd_kernel<", "::dq_kernel<", "::dkv_kernel<")  # csrc/flash_attention.cu
-    k4_ms = sum(us for name, us in by_name.items() if any(t in name for t in k4_tags)) / 1e3
+    k4_tags = ("::fwd_kernel<", "::dq_kernel<", "::dkv_kernel<",  # csrc/flash_attention.cu
+               "k4_fwd_wgmma", "k4_dq_wgmma", "k4_dkv_wgmma")     # csrc/flash_attention_wgmma.cu
+    k4 = {tag: sum(us for name, us in by_name.items() if tag in name) / 1e3 for tag in k4_tags}
+    k4_ms = sum(k4.values())
     print(f"  profile of one train step: {count} kernels, device busy {busy_ms:.1f} ms of "
-          f"{step_ms:.1f} ms (idle {1 - busy_ms / step_ms:.1%}), K4 {k4_ms:.1f} ms "
-          f"({k4_ms / busy_ms:.1%}) ({card})")
+          f"{step_ms:.1f} ms (idle {1 - busy_ms / step_ms:.1%}), K4 {k4_ms:.2f} ms "
+          f"({k4_ms / busy_ms:.1%}): " + ", ".join(f"{tag.strip(':<')} {ms:.2f}"
+                                                    for tag, ms in k4.items() if ms)
+          + f" ({card})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us / 1e3 / busy_ms:6.1%} {us / 1e3:8.2f} ms  {name[:90]}")
 
 
 def phase_i(dev, card):
-    """mini-v1 trained for 5 steps over K4; returns K4's launches by kernel."""
+    """mini-v1 trained for 5 steps over K4; returns K4's launches by route and
+    kernel: the tensor-core kernels' over the 5 bf16 steps, the SIMT kernels'
+    over the fp32 step."""
     from parler_tts_tpu_torch.config import mini_v1_config
     from parler_tts_tpu_torch.models.layers import init_weights
     from parler_tts_tpu_torch.models.parler import ParlerTTS
@@ -1052,14 +1125,14 @@ def phase_i(dev, card):
     initial = {n: p.detach().clone() for n, p in model.named_parameters()}
     batch = train_batch(dev)
     torch.cuda.reset_peak_memory_stats()
-    k4 = flash_attention.launches
-    total = dict.fromkeys(k4, 0)
+    k4, k4_wgmma = flash_attention.launches, flash_attention.launches_wgmma
+    total = {"wgmma": dict.fromkeys(k4, 0), "simt": dict.fromkeys(k4, 0)}
     losses, norms, times = [], [], []
     want = {"fwd": 2 * cfg.decoder.num_hidden_layers, "dq": cfg.decoder.num_hidden_layers,
             "dkv": cfg.decoder.num_hidden_layers}
     for i in range(TRAIN_STEPS):
         for key in k4:
-            k4[key] = 0
+            k4[key] = k4_wgmma[key] = 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         state, metrics = step(state, batch, i)
@@ -1068,16 +1141,17 @@ def phase_i(dev, card):
         times.append(start.elapsed_time(end))
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
-        if dict(k4) != want:
-            raise AssertionError(f"step {i + 1}: K4 launches {dict(k4)}, want {want}")
+        if dict(k4) != want or dict(k4_wgmma) != want:
+            raise AssertionError(f"step {i + 1}: K4 launches {dict(k4)}, on the wgmma route "
+                                 f"{dict(k4_wgmma)}, want {want} on it")
         for key in k4:
-            total[key] += k4[key]
+            total["wgmma"][key] += k4_wgmma[key]
         changed = [n for n, p in model.named_parameters()
                    if (i == 0 or n.startswith("text_encoder.")) and not torch.equal(p, initial[n])]
         if changed:
             raise AssertionError(f"step {i + 1} changed {changed[:3]}")
         print(f"  step {i + 1}: loss {losses[-1]:.6f}, grad_norm {norms[-1]:.6f}, "
-              f"{times[-1]:.1f} ms, K4 launches {dict(k4)}")
+              f"{times[-1]:.1f} ms, K4 launches {dict(k4)}, all on the wgmma route")
     if not all(map(math.isfinite, losses + norms)) or not losses[-1] < losses[1]:
         raise AssertionError(f"losses {losses}")
     step_ms = statistics.median(times[1:])
@@ -1098,8 +1172,17 @@ def phase_i(dev, card):
                                 ("K4 fp32", "pallas", torch.float32),
                                 ("chunked fp32", True, torch.float32)):
         model, state, step = trainer(route, dtype, initial)
+        for key in k4:
+            k4[key] = k4_wgmma[key] = 0
         _, metrics = step(state, batch, 0)
+        torch.cuda.synchronize()
         again[label] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+        if label == "K4 fp32":  # fp32 stays on the SIMT kernels
+            if dict(k4) != want or any(k4_wgmma.values()):
+                raise AssertionError(f"K4 fp32 step: launches {dict(k4)}, on the wgmma route "
+                                     f"{dict(k4_wgmma)}; want {want}, none on it")
+            total["simt"] = dict(k4)
+            print(f"  K4 fp32 step 1: launches {dict(k4)}, all on the SIMT route")
         if dtype == torch.float32:
             grads[label] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
         del model, state, step
@@ -1150,8 +1233,9 @@ def main() -> int:
     print(f"[build] nvcc of {', '.join(KERNEL_SOURCES)}: {time.perf_counter() - t0:.2f} s "
           f"({card})")
     for name, log in zip(KERNEL_SOURCES, logs):
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+        for line in log.splitlines():  # every line of the tensor-core kernels, and warnings
+            if (name == "flash_attention_wgmma" and "Compile time" not in line
+                    or "Used" in line or "spill" in line or "arning" in line):
                 print(f"  ptxas {name}:", line.strip())
 
     t0 = time.perf_counter()
@@ -1198,10 +1282,11 @@ def main() -> int:
              launches=k3_launches, max_abs_err=k3_err, max_norm_rel_err=k3_norm_rel,
              **k3_timing),
     ] + [
-        dict(name=f"flash_attention_{name}", route="cuda",
-             source="parler_tts_tpu_torch/csrc/flash_attention.cu",
+        dict(name=f"flash_attention{tag}_{name}", route="cuda",
+             source=f"parler_tts_tpu_torch/csrc/flash_attention{tag}.cu",
              replaces=f"parler_tts_tpu/ops/pallas/flash_attention.py:{line}",
-             launches=k4_launches[name], **k4_timing[name])
+             launches=k4_launches[route][name], **k4_timing[route][name])
+        for route, tag in (("wgmma", "_wgmma"), ("simt", ""))
         for name, line in (("fwd", 67), ("dq", 144), ("dkv", 180))
     ]
     print(json.dumps({"kernels": kernels}))

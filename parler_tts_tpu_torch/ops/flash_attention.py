@@ -1,10 +1,14 @@
 """Training flash attention, forward and backward (kernel K4).
 
 Port of `parler_tts_tpu/ops/pallas/flash_attention.py:flash_attention`.
-`flash_attention` launches the CUDA kernels of `csrc/flash_attention.cu`
-(forward, dq, dk/dv) through a `torch.autograd.Function` for CUDA tensors
-and runs `flash_attention_plain`, the plain PyTorch version with the same
-semantics and rounding, for CPU tensors; there is no other route.
+`flash_attention` launches three CUDA kernels (forward, dq, dk/dv) through a
+`torch.autograd.Function` for CUDA tensors and runs `flash_attention_plain`,
+the plain PyTorch version with the same semantics and rounding, for CPU
+tensors. On the card `_k4_route` picks the kernels by dtype and head dim:
+bf16 with Dh = 64 (every configuration of the JAX package) runs on the
+tensor cores (`csrc/flash_attention_wgmma.cu`: wgmma, TMA-fed tiles); fp32,
+whose products stay exact in fp32, and bf16 with Dh 16, 32 or 128 run on the
+CUDA cores (`csrc/flash_attention.cu`). Neither falls back to the other.
 
 Semantics (those of the Pallas kernel, not of dense softmax attention):
   * q (B, Tq, H, Dh), already scaled; k/v (B, Tk, H_kv, Dh); mask (B, Tk)
@@ -36,7 +40,20 @@ from ._cuda import load
 NEG_INF = torch.finfo(torch.float32).min
 BLOCK_K = 64  # the CUDA kernels' key tile; the plain version's softmax walks the same tiles
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIM = 64  # the tensor-core kernels' head dim (one 128-byte bf16 row)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCES = {"simt": "flash_attention", "wgmma": "flash_attention_wgmma"}
+
+
+def _k4_route(dtype: torch.dtype, dh: int) -> str:
+    """Which kernels K4 launches for a CUDA tensor: "wgmma" (tensor cores) for
+    bf16 with Dh = 64, "simt" (CUDA cores, exact fp32 products) for fp32 and
+    for bf16 with another supported head dim; raises for anything else."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not supported by the kernel ({HEAD_DIMS})")
+    return "wgmma" if dtype == torch.bfloat16 and dh == WGMMA_HEAD_DIM else "simt"
 
 
 def _shapes(q, k, v, mask):
@@ -155,8 +172,9 @@ def flash_attention_plain(
     return _PlainFlash.apply(q, k, v, _visible(mask, tq, causal, q_offset), acc_dtype, block_k)
 
 
-def _library() -> ctypes.CDLL:
-    lib = load("flash_attention")
+def _library(route: str) -> ctypes.CDLL:
+    """The kernels of `route`; both sources share one C interface."""
+    lib = load(_SOURCES[route])
     if lib.flash_attention_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 8 + [p]
@@ -167,62 +185,66 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(err: int, which: str) -> None:
+def _check(err: int, which: str, route: str) -> None:
     if err != 0:
-        raise RuntimeError(f"flash_attention {which} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention {which} kernel ({route}) launch failed: "
+                           f"cudaError {err}")
     flash_attention.launches[which] += 1
+    if route == "wgmma":
+        flash_attention.launches_wgmma[which] += 1
 
 
-def _launch_fwd(q, k, v, mask_u8, dims):
+def _launch_fwd(q, k, v, mask_u8, dims, route):
     b, tq, h = q.shape[:3]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    _check(_library().flash_attention_fwd(
+    _check(_library(route).flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *dims, torch.cuda.current_stream(q.device).cuda_stream), "fwd")
+        lse.data_ptr(), *dims, torch.cuda.current_stream(q.device).cuda_stream), "fwd", route)
     return o, lse
 
 
-def _launch_dq(q, k, v, mask_u8, o, lse, do, dims):
+def _launch_dq(q, k, v, mask_u8, o, lse, do, dims, route):
     """dq, and delta = rowsum(do . o) (B, H, Tq) for the dk/dv kernel."""
     dq, delta = torch.empty_like(q), torch.empty_like(lse)
-    _check(_library().flash_attention_dq(
+    _check(_library(route).flash_attention_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), delta.data_ptr(), *dims,
-        torch.cuda.current_stream(q.device).cuda_stream), "dq")
+        torch.cuda.current_stream(q.device).cuda_stream), "dq", route)
     return dq, delta
 
 
-def _launch_dkv(q, k, v, mask_u8, lse, do, delta, dims):
+def _launch_dkv(q, k, v, mask_u8, lse, do, delta, dims, route):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _check(_library().flash_attention_dkv(
+    _check(_library(route).flash_attention_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(), lse.data_ptr(),
         do.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims,
-        torch.cuda.current_stream(q.device).cuda_stream), "dkv")
+        torch.cuda.current_stream(q.device).cuda_stream), "dkv", route)
     return dk, dv
 
 
 class _CudaFlash(torch.autograd.Function):
     """K4: the forward kernel; the backward launches the dq kernel (which also
     writes D = rowsum(do . o)) and then the dk/dv kernel, each on the stream
-    that is current when it runs (autograd may run the backward on another)."""
+    that is current when it runs (autograd may run the backward on another),
+    all three from the route `_k4_route` picked."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask_u8, causal, q_offset):
+    def forward(ctx, q, k, v, mask_u8, causal, q_offset, route):
         b, tq, h, dh = q.shape
         dims = (_DTYPE_CODES[q.dtype], b, h, tq, k.shape[1], dh, int(causal), q_offset)
-        o, lse = _launch_fwd(q, k, v, mask_u8, dims)
+        o, lse = _launch_fwd(q, k, v, mask_u8, dims, route)
         ctx.save_for_backward(q, k, v, mask_u8, o, lse)
-        ctx.dims = dims
+        ctx.dims, ctx.route = dims, route
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask_u8, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        dq, delta = _launch_dq(q, k, v, mask_u8, o, lse, do, ctx.dims)
-        dk, dv = _launch_dkv(q, k, v, mask_u8, lse, do, delta, ctx.dims)
-        return dq, dk, dv, None, None, None
+        dq, delta = _launch_dq(q, k, v, mask_u8, o, lse, do, ctx.dims, ctx.route)
+        dk, dv = _launch_dkv(q, k, v, mask_u8, lse, do, delta, ctx.dims, ctx.route)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -236,8 +258,10 @@ def flash_attention(
     """Causal, key-masked attention for training, differentiable; returns
     (B, Tq, H, Dh) in q's dtype.
 
-    CUDA tensors launch K4 (each launch counted in `flash_attention.launches`,
-    by kernel: "fwd", "dq", "dkv"); CPU tensors run `flash_attention_plain`."""
+    CUDA tensors launch K4 on the route `_k4_route` picks (each launch counted
+    in `flash_attention.launches` by kernel, "fwd", "dq", "dkv", and those of
+    the tensor-core route also in `flash_attention.launches_wgmma`); CPU
+    tensors run `flash_attention_plain`."""
     b, tq, h, dh, tk, _ = _shapes(q, k, v, mask)
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
@@ -247,16 +271,14 @@ def flash_attention(
         return flash_attention_plain(q, k, v, mask, causal, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention route for device {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"dtype {q.dtype} not supported (float32, bfloat16)")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not supported by the kernel ({HEAD_DIMS})")
+    route = _k4_route(q.dtype, dh)
     k, v = _repeat_kv(k, v, h)
     return _CudaFlash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                            mask.to(torch.uint8).contiguous(), causal, q_offset)
+                            mask.to(torch.uint8).contiguous(), causal, q_offset, route)
 
 
-flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}        # every route
+flash_attention.launches_wgmma = {"fwd": 0, "dq": 0, "dkv": 0}  # the tensor-core route
 
 
 # ------------------------------------------------ holding K4 to its plain version

@@ -24,7 +24,8 @@ both at least 4 x one bf16 step in 1 of 64 entries. K4: o, dq, dk and dv,
 norm-relative, each within `k4_limits` (ops/flash_attention.py): 4 x the gap
 between the plain version summing in fp32 and in float64 on the same
 inputs, at least 1e-6 (fp32) or 1e-4 (bf16); a kernel that drops one key
-tile must fail them.
+tile must fail them. K4's launch counters show the route: bf16 at head dim
+64 on the tensor-core kernels, fp32 and other head dims on the SIMT ones.
 """
 
 import dataclasses
@@ -310,13 +311,17 @@ def test_fused_pipeline_launch_counts(cuda):
 
 
 # ------------------------------------------------------------------ K4
-# (b, tq, tk, h, h_kv, causal, q_offset, left-padded keys of row 1)
+# (b, tq, tk, h, h_kv, causal, q_offset, left-padded keys of row 1, dh)
 K4_CASES = {
-    "mini_v1": (2, 1040, 1040, 16, 16, True, 0, 5),
-    "gqa": (2, 256, 256, 8, 2, True, 0, 0),
-    "offset": (2, 128, 384, 4, 4, True, 256, 0),
-    "unaligned": (2, 200, 200, 4, 4, True, 0, 3),
-    "noncausal": (2, 192, 256, 4, 4, False, 0, 0),
+    "mini_v1": (2, 1040, 1040, 16, 16, True, 0, 5, 64),
+    "gqa": (2, 256, 256, 8, 2, True, 0, 0, 64),
+    "offset": (2, 128, 384, 4, 4, True, 256, 0, 64),
+    "unaligned": (2, 200, 200, 4, 4, True, 0, 3, 64),
+    "noncausal": (2, 192, 256, 4, 4, False, 0, 0, 64),
+    "tq_lt_tk_no_valid_key": (2, 136, 264, 4, 4, True, 128, 140, 64),
+    "tq_gt_tk": (2, 264, 200, 4, 4, True, 0, 7, 64),
+    "tq_gt_tk_noncausal": (2, 264, 200, 4, 4, False, 0, 7, 64),
+    "dh32": (2, 200, 200, 4, 4, True, 0, 3, 32),
 }
 
 
@@ -334,41 +339,53 @@ def k4_inputs(device, dtype, b, tq, tk, h, h_kv, pad, dh=64, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", list(K4_CASES))
 def test_flash_attention_matches_plain(cuda, name, dtype):
-    b, tq, tk, h, h_kv, causal, q_offset, pad = K4_CASES[name]
-    q, k, v, mask, do = k4_inputs(cuda, dtype, b, tq, tk, h, h_kv, pad)
+    """bf16 at Dh 64 runs the tensor-core kernels, everything else the SIMT ones."""
+    b, tq, tk, h, h_kv, causal, q_offset, pad, dh = K4_CASES[name]
+    q, k, v, mask, do = k4_inputs(cuda, dtype, b, tq, tk, h, h_kv, pad, dh=dh)
     kw = dict(causal=causal, q_offset=q_offset)
     before = dict(flash_attention.launches)
+    before_wgmma = dict(flash_attention.launches_wgmma)
     got = attention_and_grads(flash_attention, q, k, v, mask, do, **kw)
     torch.cuda.synchronize()
     assert {n: flash_attention.launches[n] - before[n] for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    on_wgmma = int(dtype == torch.bfloat16 and dh == 64)
+    assert ({n: flash_attention.launches_wgmma[n] - before_wgmma[n] for n in before_wgmma}
+            == {"fwd": on_wgmma, "dq": on_wgmma, "dkv": on_wgmma})
     want = attention_and_grads(flash_attention_plain, q, k, v, mask, do, **kw)
     f64 = attention_and_grads(flash_attention_plain, q, k, v, mask, do,
                               acc_dtype=torch.float64, **kw)
     gaps, limits = k4_gaps(got, want), k4_limits(k4_gaps(want, f64), dtype)
     assert all(g <= lim for g, lim in zip(gaps, limits)), (gaps, limits)
-    if pad and causal and not q_offset:  # rows of row 1 that see no valid key
-        assert not got[0][1, :pad].any() and not got[1][1, :pad].any()
+    if pad:  # row 1: masked keys get no gradient; causal rows before `pad` see no valid key
+        dead = max(0, min(tq, pad - q_offset)) if causal else 0
+        assert not got[0][1, :dead].any() and not got[1][1, :dead].any()
+        assert not got[2][1, :pad].any() and not got[3][1, :pad].any()
 
 
 def test_flash_attention_dropped_key_tile_fails_the_limits(cuda):
-    b, tq, tk, h, h_kv, causal, q_offset, pad = K4_CASES["mini_v1"]
+    b, tq, tk, h, h_kv, causal, q_offset, pad, _ = K4_CASES["mini_v1"]
     q, k, v, mask, do = k4_inputs(cuda, torch.bfloat16, b, tq, tk, h, h_kv, pad)
     want = attention_and_grads(flash_attention_plain, q, k, v, mask, do)
     f64 = attention_and_grads(flash_attention_plain, q, k, v, mask, do, acc_dtype=torch.float64)
     limits = k4_limits(k4_gaps(want, f64), torch.bfloat16)
     dropped = mask.clone()
     dropped[0, 512:576] = False  # what a kernel that skips key tile 8 of row 0 computes
+    before = flash_attention.launches_wgmma["fwd"]
     got = attention_and_grads(flash_attention, q, k, v, dropped, do)
+    assert flash_attention.launches_wgmma["fwd"] == before + 1  # the tensor-core kernels
     assert any(g > 10 * lim for g, lim in zip(k4_gaps(got, want), limits))
 
 
-def test_train_step_launch_counts(cuda):
-    """One remat'd step of a tiny model over K4: 2 x L forward launches (the
-    forward and its recompute in the backward), L dq and L dkv."""
+@pytest.mark.parametrize("hidden", [64, 256])
+def test_train_step_launch_counts(cuda, hidden):
+    """One remat'd bf16 step of a tiny model over K4: 2 x L forward launches
+    (the forward and its recompute in the backward), L dq and L dkv; with 4
+    heads, hidden 64 (Dh 16) runs the SIMT kernels and hidden 256 (Dh 64) the
+    tensor-core ones."""
     from parler_tts_tpu_torch.models.parler import ParlerTTS
     from parler_tts_tpu_torch.training import Batch, TrainState, make_optimizer, make_train_step
 
-    cfg = tiny_config()
+    cfg = tiny_config(hidden)
     model = ParlerTTS(cfg, device=cuda, dtype=torch.bfloat16, param_dtype=torch.float32,
                       use_chunked_attention="pallas", remat_layers=True)
     init_weights(model, torch.Generator(device=cuda).manual_seed(0))
@@ -386,8 +403,10 @@ def test_train_step_launch_counts(cuda):
     n = cfg.decoder.num_hidden_layers
     for i in range(2):
         for key in flash_attention.launches:
-            flash_attention.launches[key] = 0
+            flash_attention.launches[key] = flash_attention.launches_wgmma[key] = 0
         state, metrics = step(state, batch, i)
         torch.cuda.synchronize()
-        assert flash_attention.launches == {"fwd": 2 * n, "dq": n, "dkv": n}
+        want = {"fwd": 2 * n, "dq": n, "dkv": n}
+        assert flash_attention.launches == want
+        assert flash_attention.launches_wgmma == (want if hidden == 256 else dict.fromkeys(want, 0))
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])

@@ -14,6 +14,9 @@ cases also run with bf16 inputs against the Pallas kernel at the port's key
 tile (block_k 64): each of o, dq, dk, dv within the card check's rule,
 `k4_limits` of the gap between the plain version summing in fp32 and in
 float64 (norm-relative, 4x that gap, at least 1e-4).
+
+`_k4_route`, which picks the CUDA kernels by dtype and head dim, is tested
+here too: the choice needs no card.
 """
 
 import jax
@@ -27,6 +30,7 @@ from parler_tts_tpu.ops.pallas.flash_attention import flash_attention as pallas_
 from parler_tts_tpu_torch.ops.chunked_attention import chunked_attention
 from parler_tts_tpu_torch.ops.flash_attention import (
     BLOCK_K,
+    _k4_route,
     attention_and_grads,
     flash_attention,
     flash_attention_plain,
@@ -136,6 +140,36 @@ def test_plain_tiling_and_float64_agree():
         for g, x in zip(one, other):
             np.testing.assert_allclose(g, x, atol=2e-6, rtol=1e-5)
     assert BLOCK_K == 64
+
+
+@pytest.mark.parametrize("dtype,dh,route", [
+    (torch.bfloat16, 64, "wgmma"),   # every configuration of the JAX package: tensor cores
+    (torch.float32, 64, "simt"),     # fp32 keeps exact fp32 products on the CUDA cores
+    (torch.float32, 16, "simt"),
+    (torch.float32, 128, "simt"),
+    (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 128, "simt"),
+])
+def test_k4_route_by_dtype_and_head_dim(dtype, dh, route):
+    """Which kernels a CUDA tensor launches; the choice needs no card."""
+    assert _k4_route(dtype, dh) == route
+
+
+@pytest.mark.parametrize("dtype,dh,error", [
+    (torch.float16, 64, TypeError),
+    (torch.float64, 64, TypeError),
+    (torch.bfloat16, 48, ValueError),
+    (torch.float32, 256, ValueError),
+])
+def test_k4_route_rejects_what_no_kernel_takes(dtype, dh, error):
+    with pytest.raises(error):
+        _k4_route(dtype, dh)
+
+
+def test_launch_counters_cover_both_routes():
+    assert flash_attention.launches.keys() == flash_attention.launches_wgmma.keys() == {
+        "fwd", "dq", "dkv"}
 
 
 def test_cpu_route_is_the_plain_version():
