@@ -5,11 +5,16 @@
 
 Builds the port's CUDA kernels with nvcc, then:
   (a) holds kernel K1 (flash-decode attention) against its plain PyTorch
-      version on the card at the main path's shapes (H=16, Dh=64,
-      S = 8 prompt slots + 860 frames) over batch, starts, limits, windows,
-      the stacked cache and the empty range, and times K1, its plain version
-      and `F.scaled_dot_product_attention` (a yardstick only: the port never
-      calls it);
+      version at the kernel's split count on the card at the main path's
+      shapes (H=16, Dh=64, S = 8 prompt slots + 860 frames) over batch,
+      starts, limits (share boundaries on slots 63/64 and 127/128, rows whose
+      shares are all or partly empty), windows, the stacked cache and the
+      empty range, each call repeated bit for bit; checks that a result
+      without the first, the last or a share's last slot fails the fp32
+      tolerance; and times K1 (device time from CUDA-graph replays and the
+      profiler, and paced by the host), its plain version and
+      `F.scaled_dot_product_attention` (a yardstick only: the port never
+      calls it) at B=2 over 434 and 868 slots and at B=1 over 868;
   (b) serves parler-tts-mini-v1 (random weights from a seed, initialised on
       the card, bf16 weights and KV cache): `generate_codes` at B=2 over 860
       greedy columns with codebook_guard=1024, then `decode_codes` to 44.1 kHz
@@ -18,9 +23,13 @@ Builds the port's CUDA kernels with nvcc, then:
       attention path on the same cache, and compares the logits;
   (d) holds kernel K2 (int8 weight-only matmul) against its plain version at
       the int8 path's shapes (M in {1, 2, 18, 32}; K x N = 1024 x 1024,
-      1024 x 4096, 4096 x 1024; fp32 and bf16 x), and times K2, its plain
-      version and a bf16 `torch.matmul` on pre-dequantized weights (a
-      yardstick only) at M=2 over 24 layers' weights;
+      1024 x 4096, 4096 x 1024, and 1024 x 1040 for a ragged strip; fp32
+      and bf16 x), each call repeated bit for bit, and checks that a result
+      without the cluster's last K slice fails `k2_close`; times K2, its
+      plain version and a bf16 `torch.matmul` on pre-dequantized weights (a
+      yardstick only) at M=2 over 24 layers' weights, by the profiler's
+      kernel sums and host-paced, and one decode layer's 8 launches over 24
+      layers by CUDA-graph replay;
   (e) serves mini-v1 with `weight_quant=True` (int8 decoder layers quantized
       on the card) at B=2 over (b)'s request, counting K2's launches
       (192 x (decode steps + 1) + 48) and K1's (24 per decode step), profiles
@@ -93,8 +102,9 @@ import torch
 S_PROMPT, MAX_LENGTH, BATCH = 8, 860, 2
 S_CACHE = S_PROMPT + MAX_LENGTH
 PROFILE_COLUMNS = 240
-# bf16: at most 4.9e-4 read on the card (outputs 0.01-0.05 at these lengths), so a
-# kernel that drops or repeats one 64-slot tile (~4e-3) fails
+# bf16: at most 9.8e-4 read on an H100 80GB HBM3 at 700 W (one bf16 step of outputs
+# up to 0.25 at short prefixes), so a kernel that drops or repeats one 64-slot tile
+# (~4e-3) fails; fp32: a result without one slot fails (phase a checks it)
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
 LOGITS_TOL = dict(atol=2e-4, rtol=2e-4)
 KERNEL_SOURCES = ("flash_decode", "quant_matmul", "fused_decode_step", "flash_attention",
@@ -146,6 +156,33 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
                if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
+def graph_ms(fn, n: int, reps: int = 20) -> float:
+    """Device time of one call of `fn`: CUDA events around `reps` replays of
+    a CUDA graph holding fn(0) .. fn(n - 1), so the host's launch pace,
+    which paces back-to-back calls of small kernels, stays out of it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for i in range(n):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps / n
+
+
 def padded_ms(fn, iters: int, warmup: int = 2) -> float:
     """Median device time of one call of `fn`, between CUDA events around it,
     with the stream held by a spin kernel while the host enqueues the call:
@@ -173,6 +210,10 @@ def phase_a(dev, card):
     from parler_tts_tpu_torch.ops.flash_decode import (
         flash_decode_attention,
         flash_decode_attention_plain,
+        flash_decode_attention_shares,
+        slot_range,
+        split_bounds,
+        split_count,
     )
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -192,8 +233,19 @@ def phase_a(dev, card):
             k, v = cache_k[5].reshape(b, S_CACHE, h, dh), cache_v[5].reshape(b, S_CACHE, h, dh)
             zeros = i32([0] * b)
             rows = i32([0, 3, 8, 5][:b])
+            n_split = split_count(b, h, S_CACHE, 1)
             cases = [(f"limit={n}", rand(b, h, dh, dtype=dtype), k, v, zeros, n, None)
                      for n in (1, 63, 64, 65, 128, 640, S_CACHE)]
+            # share boundaries on slots 63/64 and 127/128; rows whose shares
+            # are all or partly empty; short ranges that start late
+            cases += [(f"share edge {e}", rand(b, h, dh, dtype=dtype), k, v, zeros,
+                       e * n_split, None) for e in (64, 128) if e * n_split <= S_CACHE]
+            cases += [
+                ("per-row empty shares", rand(b, h, dh, dtype=dtype), k, v, rows,
+                 i32([S_CACHE, 3, 9, 1][:b]), None),
+                ("starts 3/5 limit=9", rand(b, h, dh, dtype=dtype), k, v, i32([3, 5, 3, 5][:b]),
+                 9, None),
+            ]
             cases += [
                 ("per-row starts", rand(b, h, dh, dtype=dtype), k, v, rows, 500, None),
                 ("per-row limits", rand(b, h, dh, dtype=dtype), k, v, rows,
@@ -209,47 +261,100 @@ def phase_a(dev, card):
             for name, q, kk, vv, starts, limit, layer in cases:
                 got = flash_decode_attention(q, kk, vv, starts, limit, layer=layer)
                 torch.cuda.synchronize()
-                want = flash_decode_attention_plain(q, kk, vv, starts, limit, layer=layer)
+                splits = split_count(b, h, S_CACHE, q.shape[1] if q.dim() == 4 else 1)  # MHA
+                want = flash_decode_attention_plain(q, kk, vv, starts, limit, layer=layer,
+                                                    splits=splits)
                 err = (got.float() - want.float()).abs().max().item()
                 torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
                 if name == "empty range" and torch.count_nonzero(got).item():
                     raise AssertionError("K1 on an empty range must return 0")
+                if not torch.equal(flash_decode_attention(q, kk, vv, starts, limit, layer=layer),
+                                   got):
+                    raise AssertionError(f"K1 {name}: a second call gave other bits")
                 max_err, n_cases = max(max_err, err), n_cases + 1
-                print(f"  K1 vs plain {str(dtype)[6:]:8s} B={b} {name:18s} "
+                print(f"  K1 vs plain {str(dtype)[6:]:8s} B={b} {name:20s} splits={splits} "
                       f"max_abs_err={err:.3e}")
             del cache_k, cache_v
-    print(f"  {n_cases} cases within fp32 atol 2e-5 rtol 1e-4, bf16 atol 2e-3 rtol 1e-2")
+    print(f"  {n_cases} cases within fp32 atol 2e-5 rtol 1e-4, bf16 atol 2e-3 rtol 1e-2, "
+          f"each against the plain version at the kernel's split count, a second call "
+          f"bit-identical")
 
-    # timing at the main path's shapes: B=2, bf16 q and cache, 434 slots (the
-    # mean decode step of the 860-column run) and 868 (the last); each launch
-    # reads another layer of the stacked cache (170 MB, over the 50 MB L2), as
-    # the decode loop does
-    b = BATCH
-    cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
-    cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
-    q = rand(b, h, dh, dtype=torch.bfloat16)
-    starts = i32([0] * b)
-    q4 = q.view(b, h, 1, dh)
-    for limit in (S_CACHE // 2, S_CACHE):
+    # a result that leaves out one slot must fail the fp32 tolerance: the
+    # first (start + 1), the last (limit - 1), the last slot of share 3
+    b, limit, layer = BATCH, 700, 23
+    cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.float32)
+    cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.float32)
+    q, starts = rand(b, h, dh, dtype=torch.float32), i32([0, 3])
+    n_split = split_count(b, h, S_CACHE, 1)
+    got = flash_decode_attention(q, cache_k, cache_v, starts, limit, layer=layer)
+    edges = split_bounds(*slot_range(starts, limit, 1, S_CACHE), n_split)
+    cut = edges[:, 1:].clone()
+    cut[:, 3] -= 1
+    dropped = {
+        "first slot": flash_decode_attention_plain(q, cache_k, cache_v, starts + 1, limit,
+                                                   layer=layer, splits=n_split),
+        "last slot": flash_decode_attention_plain(q, cache_k, cache_v, starts, limit - 1,
+                                                  layer=layer, splits=n_split),
+        "share 3's last slot": flash_decode_attention_shares(
+            q, cache_k, cache_v, starts, limit, edges[:, :-1], cut, layer=layer),
+    }
+    for name, wrong in dropped.items():
+        gap = (got - wrong).abs().max().item()
+        caught = not torch.allclose(got, wrong, **TOL[torch.float32])
+        print(f"  K1 vs a result without the {name}: max_abs_err={gap:.3e}, fails fp32 TOL: "
+              f"{caught}")
+        if not caught:
+            raise AssertionError(f"fp32 TOL does not see the {name} left out")
+    del cache_k, cache_v
+
+    # timing at the main path's shapes: bf16 q and cache, B=2 at 434 slots (the
+    # mean decode step of the 860-column run) and 868 (the last), and B=1 at
+    # 868; each launch reads another layer of the stacked cache (170 MB, over
+    # the 50 MB L2), as the decode loop does. Device time from CUDA-graph
+    # replays of 24 launches (and the profiler's kernel sums); the host-paced
+    # time of back-to-back calls beside it
+    timing = {}
+    for b, limit in ((BATCH, S_CACHE // 2), (1, S_CACHE), (BATCH, S_CACHE)):
+        cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
+        cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
+        q = rand(b, h, dh, dtype=torch.bfloat16)
+        starts = i32([0] * b)
+        q4 = q.view(b, h, 1, dh)
         k_views = [cache_k[i].view(b, S_CACHE, h, dh)[:, :limit].transpose(1, 2)
                    for i in range(n_layers)]
         v_views = [cache_v[i].view(b, S_CACHE, h, dh)[:, :limit].transpose(1, 2)
                    for i in range(n_layers)]
-        kernel_ms = cuda_ms(lambda i: flash_decode_attention(
-            q, cache_k, cache_v, starts, limit, layer=i % n_layers), iters=480)
+
+        def k1(i):
+            return flash_decode_attention(q, cache_k, cache_v, starts, limit,
+                                          layer=i % n_layers)
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(q4, k_views[i % n_layers],
+                                                  v_views[i % n_layers], scale=1.0)
+
+        kernel_ms, sdpa_ms = graph_ms(k1, n_layers), graph_ms(sdpa, n_layers)
+        kernel_dev, sdpa_dev = device_ms(k1, iters=240), device_ms(sdpa, iters=240)
+        kernel_paced, sdpa_paced = cuda_ms(k1, iters=480), cuda_ms(sdpa, iters=480)
         plain_ms = cuda_ms(lambda i: flash_decode_attention_plain(
-            q, cache_k, cache_v, starts, limit, layer=i % n_layers), iters=96)
-        sdpa_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-            q4, k_views[i % n_layers], v_views[i % n_layers], scale=1.0), iters=480)
+            q, cache_k, cache_v, starts, limit, layer=i % n_layers,
+            splits=split_count(b, h, S_CACHE, 1)), iters=96)
         bytes_moved = 2 * (b * h * dh) * 2 + 2 * b * limit * h * dh * 2  # q, out; k, v
         ops = 4 * b * h * limit * dh
         byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
         bound_ms, bound_by = max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else "operations"
-        print(f"  K1 {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, SDPA "
-              f"{sdpa_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
-              f"{bytes_moved / 1e6:.2f} MB) per call at B={b}, bf16, {limit} slots ({card})")
-    return max_err, dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  K1 {kernel_ms * 1e3:.2f} us device time (graph replay; profiler "
+              f"{kernel_dev * 1e3:.2f}; {kernel_paced * 1e3:.2f} paced by the host), SDPA "
+              f"{sdpa_ms * 1e3:.2f} us ({sdpa_dev * 1e3:.2f}; {sdpa_paced * 1e3:.2f}), K1 faster "
+              f"than SDPA: {kernel_ms < sdpa_ms}; plain {plain_ms * 1e3:.2f} us; bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}: {bytes_moved / 1e6:.2f} MB, "
+              f"{bound_ms / kernel_ms:.1%} of it) per call at B={b}, bf16, {limit} slots, "
+              f"{split_count(b, h, S_CACHE, 1)} splits ({card})")
+        timing = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, device_ms=kernel_dev, library_device_ms=sdpa_dev,
+                      paced_ms=kernel_paced, library_paced_ms=sdpa_paced)
+        del cache_k, cache_v, k_views, v_views
+    return max_err, timing  # the last row: B=2, 868 slots
 
 
 def mini_v1_pipeline(dev, dtype, seed, gen):
@@ -420,7 +525,12 @@ INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak, NVIDIA data sheet
 
 def phase_d(dev, card):
     """K2 against its plain version; times it over 24 layers' weights per shape."""
-    from parler_tts_tpu_torch.ops.quant_matmul import k2_close, quant_matmul, quant_matmul_plain
+    from parler_tts_tpu_torch.ops.quant_matmul import (
+        k2_close,
+        k2_grid,
+        quant_matmul,
+        quant_matmul_plain,
+    )
 
     g = torch.Generator(device=dev).manual_seed(4)
 
@@ -433,8 +543,10 @@ def phase_d(dev, card):
 
     max_err, n_cases = 0.0, 0
     for m in (1, BATCH, 18, 32):  # decode, B=2 decode, prefill B*(8+1), cross kv B*16
-        for k, n in K2_SHAPES:
+        # N = 1040: a multiple of 16 that leaves the last 64-column strip ragged
+        for k, n in K2_SHAPES + ((1024, 1040),):
             w, s = int8(k, n), scales(n)
+            slices, slice_ = k2_grid(m, k, n)
             for dtype in (torch.float32, torch.bfloat16):
                 x = (torch.randn(m, k, generator=g, device=dev) * 0.3).to(dtype)
                 got = quant_matmul(x, w, s)
@@ -443,10 +555,20 @@ def phase_d(dev, card):
                 err = (got.float() - want.float()).abs().max().item()
                 if got.dtype != dtype or not k2_close(got, want):
                     raise AssertionError(f"K2 {dtype} M={m} K={k} N={n}: error {err:.3e}")
+                if not torch.equal(quant_matmul(x, w, s), got):
+                    raise AssertionError(f"K2 {dtype} M={m} K={k} N={n}: a second call gave "
+                                         f"other bits")
+                # a result that left out the cluster's last K slice must fail
+                dropped = x.clone()
+                dropped[:, (slices - 1) * slice_:] = 0
+                if k2_close(quant_matmul_plain(dropped, w, s), want):
+                    raise AssertionError(f"K2 M={m} K={k} N={n}: k2_close misses a dropped slice")
                 max_err, n_cases = max(max_err, err), n_cases + 1
                 print(f"  K2 vs plain {str(dtype)[6:]:8s} M={m:2d} K={k} N={n} "
-                      f"max_abs_err={err:.3e} (max |y| {want.float().abs().max().item():.1f})")
-    print(f"  {n_cases} cases within 1e-6 x max|y| + 1e-5 x |y| (bf16: or one bf16 ulp)")
+                      f"{slices} x {slice_}-row slices max_abs_err={err:.3e} "
+                      f"(max |y| {want.float().abs().max().item():.1f})")
+    print(f"  {n_cases} cases within 1e-6 x max|y| + 1e-5 x |y| (bf16: or one bf16 ulp), a "
+          f"second call bit-identical, a dropped K slice outside it")
 
     # timing at the decode shapes (M=2, bf16 x): each launch reads another
     # layer's weights (24 layers, 352 MB in all, beyond the 50 MB L2)
@@ -477,10 +599,36 @@ def phase_d(dev, card):
     timing = dict(ms=totals["ms"], plain_ms=totals["plain_ms"], library_ms=totals["library_ms"],
                   bound_ms=max(byte_s, op_s) * 1e3,
                   bound_by="bytes" if byte_s >= op_s else "operations")
+
+    # the second way: one decode layer's 8 launches over 24 layers' own
+    # weights (336 MB of int8) in a CUDA graph, events around its replays
+    layers = [[(int8(k, n), scales(n)) for (k, n), per in zip(K2_SHAPES, K2_PER_LAYER)
+               for _ in range(per)] for _ in range(24)]
+    xs = {k: torch.randn(BATCH, k, generator=g, device=dev).to(torch.bfloat16)
+          for k in (1024, 4096)}
+
+    def k2_layer(i):
+        for w, s in layers[i]:
+            quant_matmul(xs[w.shape[0]], w, s)
+
+    timing["graph_ms"] = graph_ms(k2_layer, 24)
+    deq = [[w.to(torch.bfloat16) for w, _ in layer] for layer in layers]
+    del layers
+
+    def mm_layer(i):
+        for w in deq[i]:
+            torch.matmul(xs[w.shape[0]], w)
+
+    timing["library_graph_ms"] = graph_ms(mm_layer, 24)
+    del deq
     print(f"  K2, one decode layer's 8 launches at M={BATCH}: {timing['ms'] * 1e3:.2f} us device "
-          f"time, plain "
-          f"{timing['plain_ms'] * 1e3:.2f} us, bf16 matmul {timing['library_ms'] * 1e3:.2f} us, "
-          f"bound {timing['bound_ms'] * 1e3:.2f} us ({card})")
+          f"time (profiler), {timing['graph_ms'] * 1e3:.2f} us (graph replay over 24 layers); "
+          f"bf16 matmul {timing['library_ms'] * 1e3:.2f} / "
+          f"{timing['library_graph_ms'] * 1e3:.2f} us; K2 faster: "
+          f"{timing['ms'] < timing['library_ms']} / "
+          f"{timing['graph_ms'] < timing['library_graph_ms']}; plain "
+          f"{timing['plain_ms'] * 1e3:.2f} us, bound {timing['bound_ms'] * 1e3:.2f} us "
+          f"({timing['bound_ms'] / timing['ms']:.1%} of it) ({card})")
     return max_err, timing
 
 
@@ -576,12 +724,13 @@ def phase_e(dev, card):
     if k2 != want_k2 or k1 != n_layers * decode_steps:
         raise AssertionError(f"launches: K2 {k2} (want {want_k2}), K1 {k1}")
     per_step, busy_ms, by_name = profile_steps(pipe, request, PROFILE_COLUMNS)
-    k2_ms = sum(v for k, v in by_name.items() if "quant_matmul_kernel" in k) / (
-        PROFILE_COLUMNS - 2) / 1e3
+    k2_ms, k1_ms = (sum(v for k, v in by_name.items() if name in k) / (PROFILE_COLUMNS - 2) / 1e3
+                    for name in ("quant_matmul_kernel", "flash_decode_kernel"))
     wall_ms = gen_s / decode_steps * 1e3
     print(f"  int8 profile over {PROFILE_COLUMNS} columns: {per_step:.0f} kernels per decode "
-          f"step, device busy {busy_ms:.3f} ms per step (K2 {k2_ms:.3f} ms), unprofiled wall "
-          f"{wall_ms:.3f} ms per step: device idle {1 - busy_ms / wall_ms:.1%} ({card})")
+          f"step, device busy {busy_ms:.3f} ms per step (K2 {k2_ms:.3f} ms, K1 {k1_ms:.3f} ms), "
+          f"unprofiled wall {wall_ms:.3f} ms per step: device idle {1 - busy_ms / wall_ms:.1%} "
+          f"({card})")
     del pipe, warm
     torch.cuda.empty_cache()
     int8_decode_step_logits(dev, card)

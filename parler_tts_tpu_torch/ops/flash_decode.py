@@ -15,12 +15,19 @@ Semantics (those of the Pallas kernel, not of its XLA oracle):
   * q is rounded to the cache dtype, the softmax runs in fp32, P is cast to
     the cache dtype before the P . V product, and the output is in q's dtype;
   * an empty range returns 0 (the XLA oracle returns the mean of V there).
+
+The kernel cuts each row's range [start, limit + W - 1) into `split_count`
+contiguous shares by `split_bounds`, one block of a thread-block cluster
+each, and merges the shares' softmax states in rank order. The plain
+version's `splits=n` form computes the same shares and merges them the same
+way, so the merge is testable where the kernel cannot run.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+import functools
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -29,6 +36,12 @@ from ._cuda import load
 NEG_INF = torch.finfo(torch.float32).min
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
+# the grid: clusters of up to MAX_SPLITS blocks (the portable cluster size),
+# enough of them for about two 128-thread blocks per SM of an H100 (132 SMs)
+MAX_SPLITS = 8
+_TARGET_BLOCKS = 264
+_MIN_SHARE = 16      # cache slots a share should hold at S, at the least
+_MAX_ROW_BYTES = 512  # Dh * itemsize: one 16-byte vector per lane of a 32-lane group
 
 Limit = Union[int, torch.Tensor]
 
@@ -75,6 +88,52 @@ def _shapes(q, k, v, starts, limit, layer):
     return b, w, h, dh, h_kv, s
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def row_tile(rows: int) -> int:
+    """Query rows one block holds: 1, 2, 4 or 8; a kv head with more rows
+    gets several blocks (mirrors `row_tile` in csrc/flash_decode.cu)."""
+    return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
+
+
+def split_count(b: int, h_kv: int, s: int, rows: int) -> int:
+    """Blocks of one cluster, each taking one share of a row's slots: a power
+    of two up to MAX_SPLITS, so that the grid holds about _TARGET_BLOCKS
+    blocks, with at least _MIN_SHARE slots per share at the cache's length S.
+    It depends on shapes only, never on `limit`, so a captured launch stays
+    valid as the cache fills."""
+    tiles = b * h_kv * _cdiv(rows, row_tile(rows))
+    n = 1
+    while n < MAX_SPLITS and 2 * n * tiles <= _TARGET_BLOCKS and 2 * n * _MIN_SHARE <= s:
+        n *= 2
+    return n
+
+
+def split_bounds(begin, end, n_split: int) -> torch.Tensor:
+    """Edges (..., n_split + 1) of the shares of the slots [begin, end): share
+    i is [edges[i], edges[i + 1]), ceil(len / n_split) slots each, the last
+    ones fewer or none (len = max(end - begin, 0)). The kernel cuts its
+    shares by the same rule (`share_of` in csrc/flash_decode.cu)."""
+    begin = torch.as_tensor(begin, dtype=torch.int64)
+    end = torch.as_tensor(end, dtype=torch.int64)
+    n = (end - begin).clamp_min(0)
+    chunk = (n + n_split - 1) // n_split
+    i = torch.arange(n_split + 1, device=begin.device)
+    return begin[..., None] + torch.minimum(i * chunk[..., None], n[..., None])
+
+
+def slot_range(starts: torch.Tensor, limit: Limit, w: int, s: int) -> Tuple[torch.Tensor, ...]:
+    """(begin, end) per row of the range the kernel cuts into shares:
+    [0, min(limit + W - 1, S)), the slots below any column's limit. It starts
+    at slot 0, not at the row's start, so that the kernel's first loads need
+    no value read on the device; slots below start are masked."""
+    lim = torch.as_tensor(limit, dtype=torch.int64, device=starts.device).expand(starts.shape)
+    end = (lim + w - 1).clamp_max(s)
+    return torch.zeros_like(end), end
+
+
 def flash_decode_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -82,8 +141,39 @@ def flash_decode_attention_plain(
     starts: torch.Tensor,
     limit: Limit,
     layer: Optional[int] = None,
+    splits: int = 1,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, same semantics and rounding points."""
+    """Plain PyTorch version of the kernel, same semantics and rounding points.
+
+    The range is cut by `split_bounds` into `splits` shares, each with its
+    own max, sum and accumulator (P rounded to the cache dtype relative to
+    the share's max), merged in rank order (`flash_decode_attention_shares`).
+    `splits=1`, the default, is one softmax over the whole range, the form
+    the CPU tests hold against the Pallas kernel; `splits=split_count(...)`
+    is the kernel's form.
+    """
+    b, w, h, dh, h_kv, s = _shapes(q, k, v, starts, limit, layer)
+    edges = split_bounds(*slot_range(starts, limit, w, s), splits)
+    return flash_decode_attention_shares(q, k, v, starts, limit, edges[:, :-1], edges[:, 1:],
+                                         layer)
+
+
+def flash_decode_attention_shares(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    starts: torch.Tensor,
+    limit: Limit,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """The plain split form over explicit shares: share i of row b holds the
+    slots [lo[b, i], hi[b, i]) that column w also sees ([starts[b],
+    limit_b + w)); its max m_i, sum l_i and P . V accumulator a_i are its
+    own, and the shares merge in rank order as the kernel's cluster does:
+    out = sum_i a_i e^(m_i - M) / max(sum_i l_i e^(m_i - M), 1e-30), M the
+    largest m_i. A share with no slot keeps m_i = finfo.min and weighs 0."""
     b, w, h, dh, h_kv, s = _shapes(q, k, v, starts, limit, layer)
     if layer is not None:
         k, v = k[layer], v[layer]
@@ -97,15 +187,38 @@ def flash_decode_attention_plain(
     valid = (pos[None, None, :] >= starts.to(device)[:, None, None]) & (
         pos[None, None, :] < lim_w[:, :, None]
     )                                                                         # (B, W, S)
-    valid = valid[:, :, None, None, :]
     qg = q4.to(k.dtype).float().reshape(b, w, h_kv, h // h_kv, dh)
     scores = torch.einsum("bwkgd,bskd->bwkgs", qg, k.float())
-    scores = scores.masked_fill(~valid, NEG_INF)
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)).masked_fill(~valid, 0.0)
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    ctx = torch.einsum("bwkgs,bskd->bwkgd", p.to(v.dtype).float(), v.float())
-    out = (ctx / denom).reshape(b, w, h, dh).to(q.dtype)
+    lo, hi = lo.to(device), hi.to(device)
+    m_all = torch.full((b, w, h_kv, h // h_kv, 1), NEG_INF, device=device)
+    parts = []
+    for i in range(lo.shape[1]):
+        share = (pos[None, :] >= lo[:, i, None]) & (pos[None, :] < hi[:, i, None])     # (B, S)
+        mask = (valid & share[:, None, :])[:, :, None, None, :]               # (B, W, 1, 1, S)
+        si = scores.masked_fill(~mask, NEG_INF)
+        m = si.amax(dim=-1, keepdim=True)
+        p = torch.exp(si - m).masked_fill(~mask, 0.0)
+        acc = torch.einsum("bwkgs,bskd->bwkgd", p.to(v.dtype).float(), v.float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+        m_all = torch.maximum(m_all, m)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:  # rank order
+        wgt = torch.exp(m - m_all)
+        num = num + acc * wgt
+        den = den + l * wgt
+    out = (num / den.clamp_min(1e-30)).reshape(b, w, h, dh).to(q.dtype)
     return out if q.dim() == 4 else out[:, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(rows: int, dh: int, elem: int, b: int, h_kv: int, s: int) -> int:
+    """The split count of a launch; raises for what the kernel does not take.
+    Cached per shape, so a launch makes one foreign call."""
+    if dh * elem > _MAX_ROW_BYTES:
+        raise ValueError(f"Dh={dh} at {elem} bytes an element exceeds the kernel's "
+                         f"{_MAX_ROW_BYTES}-byte head row (32 lanes of 16 bytes)")
+    return split_count(b, h_kv, s, rows)
 
 
 def _launch(q, k, v, starts, limit, layer, shapes) -> torch.Tensor:
@@ -135,16 +248,13 @@ def _launch(q, k, v, starts, limit, layer, shapes) -> torch.Tensor:
     stride_l = b * stride_b
     if stride_l > _INT32_MAX:
         raise ValueError("cache layer exceeds 2**31 elements")
-    lib = _library()
-    rows = (h // h_kv) * w
-    if lib.flash_decode_smem_bytes(rows, dh) > lib.flash_decode_max_smem_bytes():
-        raise ValueError(f"{rows} query rows of Dh={dh} exceed one block's shared memory")
+    n_split = _plan((h // h_kv) * w, dh, elem, b, h_kv, s)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = lib.flash_decode_attention_launch(
+    err = _launch_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(), limits_ptr,
         limit_scalar, out.data_ptr(), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
         b, w, h, h_kv, dh, s, 0 if layer is None else layer, stride_l, stride_b, stride_s,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        n_split, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {err}")
@@ -152,18 +262,14 @@ def _launch(q, k, v, starts, limit, layer, shapes) -> torch.Tensor:
     return out
 
 
-def _library() -> ctypes.CDLL:
-    lib = load("flash_decode")
-    fn = lib.flash_decode_attention_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, p] + [i] * 12 + [p]
-        fn.restype = i
-        lib.flash_decode_smem_bytes.argtypes = [i, i]
-        lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
-        lib.flash_decode_max_smem_bytes.argtypes = []
-        lib.flash_decode_max_smem_bytes.restype = ctypes.c_longlong
-    return lib
+@functools.lru_cache(maxsize=None)
+def _launch_fn():
+    """The kernel's C entry point, its argument types set once."""
+    fn = load("flash_decode").flash_decode_attention_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, p] + [i] * 13 + [p]
+    fn.restype = i
+    return fn
 
 
 def flash_decode_attention(

@@ -9,26 +9,61 @@ Semantics (those of `_qmm_kernel`): x (M, K) is rounded to bf16, the int8
 weights w_q (K, N) convert exactly to bf16, products accumulate in fp32, the
 fp32 per-output-channel scale (N,) multiplies the sums, and the output (M, N)
 is in x's dtype (fp32 or bf16).
+
+The kernel cuts K into the slices of `k2_grid`, one block of a thread-block
+cluster each, and sums the slices' partial products on chip in rank order:
+one launch, no workspace, and the output is the only allocation of a call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from ._cuda import load
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# blocks a launch aims for: two per SM of an H100 (132 SMs)
-_TARGET_BLOCKS = 264
-_counters: Dict[int, torch.Tensor] = {}
+# the grid (mirrors csrc/quant_matmul.cu): a block owns a STRIP-column strip
+# of N, a row tile of x and one slice of K; the slices of a strip are the
+# blocks of one thread-block cluster, at most MAX_SLICES (the portable
+# cluster size), enough for about one 256-thread block per SM of an H100
+# (132 SMs; a second wave of blocks costs more than it brings), each slice
+# at least _MIN_SLICE rows
+STRIP = 64
+MAX_SLICES = 8
+MAX_SLICE = 8192  # K rows of one slice: x's slice sits in shared memory as bf16
+_TARGET_BLOCKS = 132
+_MIN_SLICE = 64
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def row_tile(m: int) -> int:
+    """Rows of x one block takes (mirrors the kernel's row tile R)."""
+    return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+
+
+@functools.lru_cache(maxsize=None)
+def k2_grid(m: int, k: int, n: int) -> Tuple[int, int]:
+    """(slices, slice): the cluster size, a power of two up to MAX_SLICES,
+    and the K rows of each slice, a multiple of 16; slice r of a strip holds
+    K rows [r * slice, min((r + 1) * slice, K)), the last ones fewer or none.
+    Looked up once per (M, K, N)."""
+    tiles = _cdiv(n, STRIP) * _cdiv(m, row_tile(m))
+    slices = 1
+    while (slices < MAX_SLICES and 2 * slices * tiles <= _TARGET_BLOCKS
+           and 2 * slices * _MIN_SLICE <= k):
+        slices *= 2
+    slice_ = _cdiv(_cdiv(k, slices), 16) * 16
+    if slice_ > MAX_SLICE:
+        raise ValueError(f"K={k} needs slices of {slice_} rows; the kernel takes at most "
+                         f"{MAX_SLICES} x {MAX_SLICE}")
+    return slices, slice_
 
 
 def _check(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int, int]:
@@ -83,55 +118,21 @@ def k2_close(got: torch.Tensor, want: torch.Tensor) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(m: int, k: int, n: int):
-    """(splits, slice, tiles): K cut into slices of at most the kernel's
-    `max_slice` rows, a multiple of 16, so that the grid holds about
-    `_TARGET_BLOCKS` blocks of one 128-column strip and row tile each."""
-    lib = _library()
-    row_tile, strip = lib.quant_matmul_row_tile(m), lib.quant_matmul_strip()
-    max_slice = lib.quant_matmul_max_slice()
-    tiles = _cdiv(n, strip) * _cdiv(m, row_tile)
-    splits = max(_cdiv(k, max_slice), _cdiv(_TARGET_BLOCKS, tiles))
-    slice_ = min(max_slice, _cdiv(_cdiv(k, splits), 16) * 16)
-    return _cdiv(k, slice_), slice_, tiles
-
-
-def _library() -> ctypes.CDLL:
-    lib = load("quant_matmul")
-    fn = lib.quant_matmul_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 6 + [p]
-        fn.restype = i
-        for name in ("quant_matmul_strip", "quant_matmul_max_slice"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        lib.quant_matmul_row_tile.argtypes = [i]
-        lib.quant_matmul_row_tile.restype = i
-    return lib
-
-
-def _counter_buffer(device: torch.device, tiles: int) -> torch.Tensor:
-    """Zeroed per-(strip, row tile) arrival counters; the kernel's last block
-    of each tile resets its counter, so the buffer stays zero between launches."""
-    buf = _counters.get(device.index)
-    if buf is None or buf.numel() < tiles:
-        buf = _counters[device.index] = torch.zeros(max(tiles, 1024), dtype=torch.int32,
-                                                    device=device)
-    return buf
+def _launch_fn():
+    """The kernel's C entry point, its argument types set once."""
+    fn = load("quant_matmul").quant_matmul_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 4 + [i] * 6 + [p]
+    fn.restype = i
+    return fn
 
 
 def _launch(x, w_q, scale, m, k, n) -> torch.Tensor:
-    lib = _library()
-    splits, slice_, tiles = _grid(m, k, n)
+    slices, slice_ = k2_grid(m, k, n)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    work = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=torch.float32,
-                       device=x.device)
-    counters = _counter_buffer(x.device, tiles)
-    err = lib.quant_matmul_launch(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        work.data_ptr() if splits > 1 else None, counters.data_ptr(), _DTYPE_CODES[x.dtype],
-        m, k, n, splits, slice_, torch.cuda.current_stream(x.device).cuda_stream,
+    err = _launch_fn()(
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype],
+        m, k, n, slices, slice_, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: cudaError {err}")

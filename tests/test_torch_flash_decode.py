@@ -16,8 +16,13 @@ import torch
 
 from parler_tts_tpu.ops.pallas.flash_decode import flash_decode_attention as pallas_decode
 from parler_tts_tpu_torch.ops.flash_decode import (
+    MAX_SPLITS,
     flash_decode_attention,
     flash_decode_attention_plain,
+    flash_decode_attention_shares,
+    slot_range,
+    split_bounds,
+    split_count,
 )
 
 F32_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -33,8 +38,9 @@ def make_case(seed=0, b=2, h=8, h_kv=8, dh=64, s=512, w=None):
     return q, k, v
 
 
-def both(q, k, v, starts, limit, block_s=256, layer=None, dtype=np.float32):
-    """(Pallas interpret output, port plain output) as fp32 numpy."""
+def both(q, k, v, starts, limit, block_s=256, layer=None, dtype=np.float32, splits=1):
+    """(Pallas interpret output, port plain output) as fp32 numpy; the port's
+    plain version cut into `splits` shares."""
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     starts = np.asarray(starts, np.int32)
@@ -47,7 +53,7 @@ def both(q, k, v, starts, limit, block_s=256, layer=None, dtype=np.float32):
     t_limit = int(limit) if limit_np.ndim == 0 else torch.from_numpy(limit_np)
     port = flash_decode_attention_plain(
         torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt),
-        torch.from_numpy(starts), t_limit, layer=layer,
+        torch.from_numpy(starts), t_limit, layer=layer, splits=splits,
     )
     return np.asarray(got, np.float32), port.float().numpy()
 
@@ -192,3 +198,94 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k, v = k[:1], v[:1]
     with pytest.raises(ValueError):
         flash_decode_attention(q, k, v, starts, 10, layer=layer)
+
+
+# ------------------------------------------------ the kernel's split form
+def split_case(kind):
+    """(q, k, v, starts, limit, dtype) of one split-form case."""
+    if kind == "short_prefix":  # limit 3: with 8 shares, shares 3-7 own no slot
+        return (*make_case(seed=40), np.zeros(2), 3, np.float32)
+    if kind == "per_row":
+        rng = np.random.default_rng(41)
+        return (*make_case(seed=41, b=8), rng.integers(0, 50, (8,)), rng.integers(60, 512, (8,)),
+                np.float32)
+    if kind == "window":
+        return (*make_case(seed=42, w=4), np.array([0, 17]), 130, np.float32)
+    if kind == "gqa":
+        return (*make_case(seed=43, h=8, h_kv=2), np.array([0, 33]), 200, np.float32)
+    if kind == "bf16":
+        return (*make_case(seed=44), np.array([0, 5]), 400, "bf16")
+    assert kind == "empty"
+    return (*make_case(seed=45), np.array([40, 0]), np.array([40, 0]), np.float32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, MAX_SPLITS])
+@pytest.mark.parametrize("kind", ["short_prefix", "per_row", "window", "gqa", "bf16", "empty"])
+def test_plain_split_form_matches_pallas(kind, splits):
+    """The kernel's form: each share its own max, sum and accumulator, merged
+    in rank order; shares that own no slot weigh exactly nothing."""
+    q, k, v, starts, limit, dtype = split_case(kind)
+    want, got = both(q, k, v, starts, limit, block_s=128, dtype=dtype, splits=splits)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got, want, **(BF16_TOL if dtype == "bf16" else F32_TOL))
+    if kind == "empty":
+        np.testing.assert_array_equal(got, 0.0)
+
+
+@pytest.mark.parametrize("begin,end,n", [
+    (0, 0, 8), (5, 3, 4), (0, 1, 8), (0, 3, 8), (3, 9, 8), (3, 12, 8), (0, 868, 8),
+    (7, 500, 4), (0, 127, 2), (10, 11, 1), (1, 512, 8), (0, 513, 8),
+])
+def test_split_bounds_tile_the_range(begin, end, n):
+    """Shares are contiguous, in order, cover [begin, end) once and hold
+    ceil(len / n) slots each but the last ones; the kernel's `share_of`
+    rule gives the same edges."""
+    edges = split_bounds(begin, end, n).tolist()
+    length = max(end - begin, 0)
+    chunk = -(-length // n)
+    assert len(edges) == n + 1 and edges[0] == begin and edges[-1] == begin + length
+    sizes = [hi - lo for lo, hi in zip(edges, edges[1:])]
+    assert all(0 <= size <= chunk for size in sizes) and sum(sizes) == length
+    assert sizes == sorted(sizes, reverse=True)
+    for rank in range(n):  # csrc/flash_decode.cu:share_of
+        lo = begin + min(rank * chunk, length)
+        hi = begin + min((rank + 1) * chunk, length)
+        assert (edges[rank], edges[rank + 1]) == (lo, hi)
+
+
+def test_split_bounds_per_row():
+    begin, end = torch.tensor([0, 3, 40, 9]), torch.tensor([868, 9, 40, 8])
+    edges = split_bounds(begin, end, 8)
+    for row in range(4):
+        assert edges[row].tolist() == split_bounds(int(begin[row]), int(end[row]), 8).tolist()
+
+
+@pytest.mark.parametrize("b,h_kv,s,rows,want", [
+    (1, 16, 868, 1, 8), (2, 16, 868, 1, 8), (4, 16, 868, 1, 4), (8, 16, 868, 1, 2),
+    (32, 16, 868, 1, 1), (2, 16, 20, 1, 1), (2, 16, 100, 1, 4), (2, 4, 868, 16, 8),
+])
+def test_split_count_fills_the_card_from_shapes_alone(b, h_kv, s, rows, want):
+    """About two blocks per SM at decode sizes (mini-v1 B=2: 256 blocks in
+    place of 32), never below 16 slots per share at the cache length."""
+    n = split_count(b, h_kv, s, rows)
+    assert n == want and n & (n - 1) == 0 and 1 <= n <= MAX_SPLITS
+
+
+@pytest.mark.parametrize("drop", ["first", "last", "boundary"])
+def test_a_dropped_slot_fails_the_fp32_tolerance(drop):
+    """The fp32 tolerance the kernel is held to sees one cache slot left
+    out: the first (start + 1), the last (limit - 1), or the last slot of a
+    share (its end cut by one, the next share unchanged)."""
+    q, k, v = (torch.from_numpy(x) for x in make_case(seed=46, b=2, s=868))
+    starts, limit, n = torch.tensor([0, 3], dtype=torch.int32), 700, 8
+    want = flash_decode_attention_plain(q, k, v, starts, limit, splits=n)
+    if drop == "first":
+        got = flash_decode_attention_plain(q, k, v, starts + 1, limit, splits=n)
+    elif drop == "last":
+        got = flash_decode_attention_plain(q, k, v, starts, limit - 1, splits=n)
+    else:
+        edges = split_bounds(*slot_range(starts, limit, 1, 868), n)
+        lo, hi = edges[:, :-1], edges[:, 1:].clone()
+        hi[:, 3] -= 1
+        got = flash_decode_attention_shares(q, k, v, starts, limit, lo, hi)
+    assert not torch.allclose(got, want, **F32_TOL)

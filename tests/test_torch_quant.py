@@ -31,7 +31,13 @@ from parler_tts_tpu_torch.convert import load_jax_dac_params, load_jax_params
 from parler_tts_tpu_torch.models.decoder import DecoderCache, ParlerForCausalLM, QuantDense
 from parler_tts_tpu_torch.models.parler import ParlerTTS
 from parler_tts_tpu_torch.ops import masks as tmasks
-from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+from parler_tts_tpu_torch.ops.quant_matmul import (
+    MAX_SLICES,
+    k2_close,
+    k2_grid,
+    quant_matmul,
+    quant_matmul_plain,
+)
 from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
 from parler_tts_tpu_torch.utils import quantize as tq
 from test_torch_models import dec_config, host, port_config, t
@@ -128,6 +134,40 @@ def test_quant_matmul_rejects_what_the_kernel_does_not_take():
         quant_matmul(x, torch.zeros(32, 64, dtype=torch.int8).t(), s)
     with pytest.raises(ValueError, match=r"\(M, K\)"):
         quant_matmul(x[None], w, s)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (2, 1024, 1024, (8, 128)), (2, 1024, 4096, (2, 512)), (2, 4096, 1024, (8, 512)),
+    (1, 1024, 1024, (8, 128)), (18, 1024, 1024, (2, 512)), (32, 1024, 1024, (2, 512)),
+    (2, 1024, 1040, (4, 256)), (2, 64, 32, (1, 64)), (5, 512, 256, (8, 64)),
+    (32, 4096, 4096, (1, 4096)),
+])
+def test_k2_grid_fills_the_card_in_one_cluster(m, k, n, want):
+    """The slices of a 64-column strip are one cluster (a power of two up to
+    8): about one block per SM (mini-v1's 1024 x 1024 at M=2: 16 strips x 8
+    slices of 128 rows), every slice a multiple of 16 rows, K covered."""
+    slices, slice_ = k2_grid(m, k, n)
+    assert (slices, slice_) == want
+    assert slices & (slices - 1) == 0 and 1 <= slices <= MAX_SLICES
+    assert slice_ % 16 == 0 and slices * slice_ >= k > (slices - 1) * slice_ - slice_
+
+
+@pytest.mark.parametrize("m,k,n", [(2, 1024, 1024), (2, 4096, 1024), (18, 1024, 4096),
+                                   (2, 1024, 1040)])
+def test_a_dropped_k_slice_fails_k2_close(m, k, n):
+    """`k2_close`, the kernel's check, sees one slice of the cluster left
+    out: the plain version with that slice's rows of x zeroed."""
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g) * 0.3
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    s = torch.rand(n, generator=g) * 0.009 + 1e-3
+    want = quant_matmul_plain(x, w, s)
+    assert k2_close(want, want)
+    slices, slice_ = k2_grid(m, k, n)
+    for rank in (0, slices - 1):
+        dropped = x.clone()
+        dropped[:, rank * slice_:(rank + 1) * slice_] = 0.0
+        assert not k2_close(quant_matmul_plain(dropped, w, s), want)
 
 
 def test_weight_quant_xla_is_not_ported():
