@@ -38,10 +38,16 @@ Builds the port's CUDA kernels with nvcc, then:
   (f) holds kernel K3 (the fused 24-layer decode step) against its plain
       version at the kernel's tiling, at mini-v1 shapes (cache 868 rows,
       S_enc 16 with 4 masked, n_rows in {1, 64, 65, 434, 867}, start in
-      {0, 3}), layer by layer within limits set by the plain version's own
-      fp32-vs-float64 noise in this run (`fused_limits`), checks that a K3
-      that drops the first or last cache row (at n_rows 8, 434 and 867) or a
-      layer's fc2 fails them, and times K3 and its plain version;
+      {0, 3}; the chunk edges, n_rows = start + 1, the self-attention items'
+      ownership edge; S_enc 33), layer by layer within limits set by the plain
+      version's own fp32-vs-float64 noise in this run (`fused_limits`),
+      checks that a K3 that drops the first or last cache row (at n_rows 8,
+      434 and 867) or a layer's fc2 fails them, that 200 launches give the
+      same bits and that bounds given as device tensors give the bits of int
+      bounds, and times K3 and its two stripped variants (the weight stream
+      without the dependency waits, the waits without the weight bytes) by
+      CUDA-graph replay (the profiler's kernel sums beside) and its plain
+      version;
   (g) serves mini-v1 at B=1 with `fused_decode=True` (row 1 of (b)'s request,
       left-padded) over 860 columns, counting one K3 launch per decode step,
       and prints steps/s, RTF, kernels per decode step and device idle share
@@ -815,8 +821,12 @@ def int8_decode_step_logits(dev, card):
 # -------------------------------------------------------------- fused side
 def phase_f(dev, card):
     """K3 against its plain version at mini-v1 shapes, slice by slice within
-    the limits `fused_limits` sets from this run's fp32-vs-float64 noise;
-    returns (max abs error, largest norm-relative gap, timing)."""
+    the limits `fused_limits` sets from this run's fp32-vs-float64 noise, at
+    the main cases, the chunk and ownership edges and S_enc 33; dropped-row
+    and dropped-fc2 negative checks; 200 repeats bit for bit; bounds as
+    device tensors; K3, its stripped variants (stream only, chain only) and
+    its plain version timed. Returns (max abs error, largest norm-relative
+    gap, timing)."""
     import dataclasses
 
     from parler_tts_tpu_torch.config import mini_v1_decoder_config
@@ -829,9 +839,10 @@ def phase_f(dev, card):
         fused_close,
         fused_decode_layers,
         fused_decode_layers_plain,
+        fused_decode_variant,
         fused_gaps,
         fused_limits,
-        grid_blocks,
+        launch_plan,
         prepare_fused_params,
     )
 
@@ -850,58 +861,90 @@ def phase_f(dev, card):
     cross_k, cross_v, x = bf16(n_layers, s_enc, d), bf16(n_layers, s_enc, d), bf16(1, d)
     enc_bias = torch.zeros(1, s_enc, device=dev)
     enc_bias[0, 12:] = torch.finfo(torch.float32).min  # 4 masked encoder positions
-    print(f"  cooperative grid: {grid_blocks(cfg)} blocks of 256 threads")
+    cross = (cross_k, cross_v, enc_bias)
+    # S_enc 33: two groups of 32 encoder rows, the second of one row; 5 masked
+    bias33 = torch.zeros(1, 33, device=dev)
+    bias33[0, 28:] = torch.finfo(torch.float32).min
+    cross33 = (bf16(n_layers, 33, d), bf16(n_layers, 33, d), bias33)
+    plan = launch_plan(cfg)
+    print(f"  launch: {plan['blocks']} persistent blocks of {plan['threads']} threads (consumer "
+          f"warps and a producer warp), a weight ring of {plan['stages']} x "
+          f"{plan['stage_bytes']} B stages, {plan['chunk']}-row self-attention chunks")
+    if plan["chunk"] != CUDA_CHUNK:
+        raise AssertionError(f"kernel chunk {plan['chunk']} != CUDA_CHUNK {CUDA_CHUNK}")
 
-    def args(start, n_rows, params=fp):
-        return (cfg, params, x, cache_k, cache_v, cross_k, cross_v, enc_bias, start, n_rows)
+    def args(start, n_rows, params=fp, enc=cross):
+        return (cfg, params, x, cache_k, cache_v, *enc, start, n_rows)
 
-    def plain(start, n_rows, **kw):  # at the kernel's tiling
-        return fused_decode_layers_plain(*args(start, n_rows), block_s=CUDA_CHUNK,
+    def plain(start, n_rows, enc=cross, **kw):  # at the kernel's tiling
+        return fused_decode_layers_plain(*args(start, n_rows, enc=enc), block_s=CUDA_CHUNK,
                                          tiling="cuda", **kw)
 
     def show(gaps):  # layers 0-3, the largest of layers 4 .. L-1, the hidden state
         return (" ".join(f"{v:.2e}" for v in gaps[:4].tolist())
                 + f" | {gaps[4:-1].max().item():.2e} | {gaps[-1].item():.2e}")
 
-    cases = [(start, n_rows) for start in (0, 3) for n_rows in (1, 64, 65, 434, 867)]
-    got, want, noise = {}, {}, []
-    for case in cases:
-        got[case] = fused_decode_layers(*args(*case))
-        torch.cuda.synchronize()
-        want[case] = plain(*case)
-        noise.append(fused_gaps(plain(*case, dtype=torch.float64), want[case]))
-    noise = torch.stack(noise)
-    limits = fused_limits(noise)
-    per_case, median_limit = limits
-
-    def verdict(gaps):  # (worst slice / its limit, median at slice 1 / its limit)
+    def verdict(gaps, limits):  # (worst slice / its limit, median at slice 1 / its limit)
         gaps = gaps.reshape(-1, gaps.shape[-1])
-        return ((gaps / per_case).max().item(), gaps[:, 1].median().item() / median_limit)
+        return ((gaps / limits[0]).max().item(), gaps[:, 1].median().item() / limits[1])
 
-    print(f"  slices: layer 0-3 | largest of layers 4-{n_layers - 1} | hidden; norm-relative")
+    def run(cases):
+        """K3, its plain version and the plain version's fp32-vs-float64
+        noise over `cases`, each (start, n_rows, cross inputs)."""
+        got, want, noise = {}, {}, {}
+        for start, n_rows, enc in cases:
+            case = (start, n_rows, len(enc[2][0]))
+            got[case] = fused_decode_layers(*args(start, n_rows, enc=enc))
+            torch.cuda.synchronize()
+            want[case] = plain(start, n_rows, enc=enc)
+            noise[case] = fused_gaps(plain(start, n_rows, enc=enc, dtype=torch.float64),
+                                     want[case])
+        return got, want, noise
+
+    main = [(start, n_rows, cross) for start in (0, 3) for n_rows in (1, 64, 65, 434, 867)]
+    # chunk edges (32 and 33 rows from start), n_rows = start + 1, and the
+    # self-attention items' ownership edge: 16 heads x 8 chunks fill fewer
+    # than 132 blocks' first warps, 16 x 9 wrap onto second warps; then 33
+    # encoder rows (a second group of one row)
+    edges = [(s, n, cross) for s, n in ((0, 32), (0, 33), (3, 35), (3, 36), (3, 4), (0, 256),
+                                          (0, 257))]
+    edges += [(s, n, cross33) for s, n in ((0, 1), (3, 65), (0, 434), (3, 867))]
+    got, want, noise = run(main + edges)
+    # one set of limits from the noise over every case held, as in the CPU tests
+    all_noise = torch.stack(list(noise.values()))
+    limits = fused_limits(all_noise)
+    print(f"  slices: layer 0-3 | largest of layers 4-{n_layers - 1} | hidden; norm-relative; "
+          f"case (start, n_rows, S_enc)")
     print(f"  limit in every case = {K3_NOISE_FACTOR:g} x max(largest plain fp32 vs float64 "
-          f"noise over the cases, {K3_FLOOR:.2e}): {show(per_case)}")
+          f"noise over the {len(noise)} cases, {K3_FLOOR:.2e}): {show(limits[0])}")
     print(f"  limit of the median over the cases at layer 1 = {K3_NOISE_FACTOR:g} x max(median "
-          f"noise there {noise[:, 1].median().item():.2e}, {K3_FLOOR:.2e}) = {median_limit:.2e}")
+          f"noise there {all_noise[:, 1].median().item():.2e}, {K3_FLOOR:.2e}) = {limits[1]:.2e}")
     max_abs, gaps = 0.0, []
-    for case, noise_gaps in zip(cases, noise):
+    for case in got:
         gaps.append(fused_gaps(got[case], want[case]))
-        tiling = fused_gaps(fused_decode_layers_plain(*args(*case), block_s=64), want[case])
         abs_err = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(got[case], want[case]))
         max_abs = max(max_abs, abs_err)
-        print(f"  K3 vs plain start={case[0]} n_rows={case[1]:3d}: {show(gaps[-1])}; max abs "
-              f"{abs_err:.3e}\n    plain fp32 vs float64: {show(noise_gaps)}\n"
-              f"    plain at the Pallas tiling (block_s=64): {show(tiling)}")
+        line = (f"  K3 vs plain {case}: {show(gaps[-1])}; max abs {abs_err:.3e}\n"
+                f"    plain fp32 vs float64: {show(noise[case])}")
+        if case[2] == s_enc and case[:2] in {c[:2] for c in main}:
+            tiling = fused_gaps(fused_decode_layers_plain(*args(*case[:2]), block_s=64),
+                                want[case])
+            line += f"\n    plain at the Pallas tiling (block_s=64): {show(tiling)}"
+        print(line)
     gaps = torch.stack(gaps)
-    worst, median = verdict(gaps)
+    worst, median = verdict(gaps, limits)
     print(f"  K3: worst slice {worst:.2f} x its limit, median at layer 1 {median:.2f} x its limit")
+    if not fused_close(gaps, limits):
+        raise AssertionError(f"K3 exceeds its limits: worst slice {worst:.2f} x, median at "
+                             f"layer 1 {median:.2f} x")
+    want = {case[:2]: out for case, out in want.items() if case[2] == s_enc}
     # negative checks: a kernel that dropped a cache row at either end of the
-    # range, or a layer's fc2, must fail the limits
+    # range, or a layer's fc2, must fail the main cases' limits
     no_fc2 = dataclasses.replace(fp, sfc2=fp.sfc2.clone())
     no_fc2.sfc2[12] = 0.0
     want[(0, 8)] = plain(0, 8)
-    long = [case for case in cases if case[1] >= 434]
+    long = [(s, n) for s, n, _ in main if n >= 434]
     broken = {
         "row 0 dropped at n_rows=8": [(fused_decode_layers(*args(1, 8)), want[(0, 8)])],
         "row 7 dropped at n_rows=8": [(fused_decode_layers(*args(0, 7)), want[(0, 8)])],
@@ -915,20 +958,55 @@ def phase_f(dev, card):
     passed_broken = []
     for label, pairs in broken.items():
         broken_gaps = torch.stack([fused_gaps(out, ref) for out, ref in pairs])
-        worst_b, median_b = verdict(broken_gaps)
+        worst_b, median_b = verdict(broken_gaps, limits)
         print(f"  negative check, {label}: worst slice {worst_b:.2f} x its limit, median at "
               f"layer 1 {median_b:.2f} x its limit")
         if fused_close(broken_gaps, limits):
             passed_broken.append(label)
-    if not fused_close(gaps, limits):
-        raise AssertionError(f"K3 exceeds its limits: worst slice {worst:.2f} x, median at "
-                             f"layer 1 {median:.2f} x")
     if passed_broken:
         raise AssertionError(f"a broken K3 passes the limits: {passed_broken}")
 
-    timing = {}
+    # 200 back-to-back launches give the first one's bits (a missing fence or
+    # a counter left behind shows here); bounds as () int32 device tensors
+    # give the bits of the same bounds as ints
+    first = fused_decode_layers(*args(3, 867))
+    differ = [i for i in range(1, 200)
+              if not all(torch.equal(a, b) for a, b in zip(fused_decode_layers(*args(3, 867)),
+                                                           first))]
+    print(f"  200 launches at start=3 n_rows=867: {200 - len(differ)} bit-identical to the first")
+    if differ:
+        raise AssertionError(f"K3 repeats differ from the first launch at {differ[:10]}")
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    for case in ((3, 867), (0, 65), (3, 4), (0, 1)):
+        by_int = fused_decode_layers(*args(*case))
+        by_tensor = fused_decode_layers(*args(i32(case[0]), i32(case[1])))
+        if not all(torch.equal(a, b) for a, b in zip(by_int, by_tensor)):
+            raise AssertionError(f"K3 with device bounds {case} differs from int bounds")
+    print("  bounds as () int32 device tensors: the bits of int bounds at (3, 867), (0, 65), "
+          "(3, 4), (0, 1)")
+
+    # K3 and its variants by CUDA-graph replay (bounds on the device), as K1
+    # is timed, and by the profiler's kernel sums beside; the plain version by
+    # the profiler
+    timing, graph_error = {}, None
     for n_rows in (434, 867):  # the mean and the last decode step of 860 columns
-        kernel_ms = device_ms(lambda i: fused_decode_layers(*args(3, n_rows)), iters=50)
+        bounds = (i32(3), i32(n_rows))
+        runs = {"": lambda i: fused_decode_layers(*args(*bounds)),
+                "stream_only_": lambda i: fused_decode_variant("stream", *args(*bounds)),
+                "chain_only_": lambda i: fused_decode_variant("chain", *args(*bounds))}
+        t = {}
+        for key, fn in runs.items():
+            t[f"{key}device_ms"] = device_ms(fn, iters=50)
+            if graph_error is None:
+                try:
+                    t[f"{key}ms"] = graph_ms(fn, n=10)
+                except Exception as e:  # noqa: BLE001 - the capture error is the finding
+                    graph_error = f"{type(e).__name__}: {e}"[:300]
+                    torch.cuda.synchronize()
+            t.setdefault(f"{key}ms", t[f"{key}device_ms"])
         plain_ms = device_ms(lambda i: plain(3, n_rows), iters=3, warmup=1)
         weights = fp.w_attn.numel() + fp.wfc1.numel() + fp.wfc2.numel()
         small = 4 * (fp.s_attn.numel() + fp.sfc1.numel() + fp.sfc2.numel() + 6 * n_layers * d)
@@ -937,16 +1015,24 @@ def phase_f(dev, card):
                        + s_enc * 4 + d * 2 * 2 + 2 * n_layers * d * 2)
         ops = 2 * weights + 4 * n_layers * (rows + 1 + s_enc) * d
         byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-        timing[n_rows] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+        timing[n_rows] = dict(t, plain_ms=plain_ms, library_ms=None,
                               bound_ms=max(byte_s, op_s) * 1e3,
                               bound_by="bytes" if byte_s >= op_s else "operations")
         t = timing[n_rows]
-        print(f"  K3 24 layers, {n_rows} cache rows: {kernel_ms:.4f} ms device time, plain "
-              f"{plain_ms:.2f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-              f"{bytes_moved / 1e6:.1f} MB) ({card})")
+        how = "CUDA-graph replay of 10 launches" if graph_error is None else "the profiler"
+        print(f"  K3 24 layers, {n_rows} cache rows, by {how}: {t['ms']:.4f} ms; stream only "
+              f"{t['stream_only_ms']:.4f} ms, chain only {t['chain_only_ms']:.4f} ms; by the "
+              f"profiler's kernel sums {t['device_ms']:.4f} / {t['stream_only_device_ms']:.4f} / "
+              f"{t['chain_only_device_ms']:.4f} ms; plain {plain_ms:.2f} ms; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {bytes_moved / 1e6:.1f} MB) ({card})")
+    if graph_error:
+        print(f"  K3 does not capture into a CUDA graph: {graph_error}")
     del fp, cache_k, cache_v
     torch.cuda.empty_cache()
-    return max_abs, gaps.max().item(), timing[434]  # the mean decode step of 860 columns
+    out = dict(timing[434], graph_error=graph_error)  # the mean decode step of 860 columns
+    out.update({f"{k}_867": v for k, v in timing[867].items()
+                if k.endswith("ms") and k != "library_ms"})
+    return max_abs, gaps.max().item(), out
 
 
 def phase_g(dev, card):

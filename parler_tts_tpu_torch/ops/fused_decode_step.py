@@ -18,6 +18,11 @@ The plain version repeats the Pallas kernel's rounding at a given `block_s`,
 the TPU layout's artifacts included (bf16 k*q products, the bf16 rescale
 factor on the accumulator, the bf16 cross denominator).
 
+`start` and `n_rows` are ints or () int32 tensors on the operands' device:
+a tensor bound stays on the device (the kernel reads it there, clamping
+start to >= 0 and n_rows to [0, S]), so a step that advances it in place
+needs no host value.
+
 Scope: B=1, MHA (H == H_kv, self and cross), sinusoidal positions; the CUDA
 kernel also needs head_dim 64.
 """
@@ -26,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -36,8 +41,12 @@ from ._cuda import load
 
 NEG_INF = torch.finfo(torch.float32).min
 _ACT_CODES = {"gelu": 0, "gelu_new": 0, "relu": 1}  # anything else: silu (2)
-_counters: Dict[int, torch.Tensor] = {}
 CUDA_CHUNK = 32  # kChunk of csrc/fused_decode_step.cu: cache rows per work item
+_VARIANTS = {"stream": 1, "chain": 2}  # the kernel's timing variants (`Mode`)
+Bound = Union[int, torch.Tensor]  # an int or a () int32 tensor on the operands' device
+# (device index, D, F, H, S) -> (scratch, counters), allocated and zeroed once:
+# every launch leaves the counters at 0 but the launch epoch, which it advances
+_state: Dict[Tuple[int, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 # How close the kernel must come to its plain version at the kernel's tiling
 # (`tiling="cuda", block_s=CUDA_CHUNK`, fp32 sums). Every projection rounds
@@ -144,9 +153,16 @@ def _check(config, fp, x_emb, cache_k, cache_v, cross_k, cross_v, enc_bias, star
         raise ValueError("k and v must have one shape")
     if enc_bias.numel() != cross_k.shape[1]:
         raise ValueError(f"enc_bias must have S_enc={cross_k.shape[1]} entries")
-    if start < 0 or not 0 <= n_rows <= cache_k.shape[1]:
-        raise ValueError(f"need 0 <= start ({start}) and 0 <= n_rows ({n_rows}) <= S "
-                         f"({cache_k.shape[1]})")
+    for name, bound in (("start", start), ("n_rows", n_rows)):
+        if isinstance(bound, torch.Tensor) and (
+                bound.dtype != torch.int32 or bound.dim() != 0 or bound.device != x_emb.device):
+            raise TypeError(f"a tensor {name} must be a () int32 tensor on {x_emb.device}, got "
+                            f"{tuple(bound.shape)} {bound.dtype} on {bound.device}")
+    # a tensor bound is not read on the host (that would wait for the device)
+    if not isinstance(start, torch.Tensor) and start < 0:
+        raise ValueError(f"need 0 <= start, got {start}")
+    if not isinstance(n_rows, torch.Tensor) and not 0 <= n_rows <= cache_k.shape[1]:
+        raise ValueError(f"need 0 <= n_rows ({n_rows}) <= S ({cache_k.shape[1]})")
     for t in (cache_k, cache_v, cross_k, cross_v, enc_bias, fp.w_attn):
         if t.device != x_emb.device:
             raise ValueError(f"operands on {t.device} and {x_emb.device}")
@@ -176,8 +192,8 @@ def fused_decode_layers_plain(
     cross_k: torch.Tensor,   # (L, S_enc, D) bf16
     cross_v: torch.Tensor,
     enc_bias: torch.Tensor,  # (1, S_enc) fp32 additive (0 / NEG_INF)
-    start: int,
-    n_rows: int,
+    start: Bound,
+    n_rows: Bound,
     block_s: int = 64,
     tiling: str = "pallas",
     dtype: torch.dtype = torch.float32,
@@ -192,10 +208,15 @@ def fused_decode_layers_plain(
     kernel); "cuda", `block_s`-row chunks from `start`, each with its own
     max and sum, merged after the last with the current token, and the
     encoder rows online over `block_s`-row groups (the CUDA kernel, at
-    block_s=CUDA_CHUNK)."""
+    block_s=CUDA_CHUNK). Tensor bounds are read as the kernel reads them
+    (start clamped to >= 0, n_rows to [0, S])."""
     if tiling not in ("pallas", "cuda"):
         raise ValueError(f"tiling must be 'pallas' or 'cuda', got {tiling!r}")
     _check(config, fp, x_emb, cache_k, cache_v, cross_k, cross_v, enc_bias, start, n_rows)
+    if isinstance(start, torch.Tensor):
+        start = max(int(start), 0)
+    if isinstance(n_rows, torch.Tensor):
+        n_rows = min(max(int(n_rows), 0), cache_k.shape[1])
     d, h = config.hidden_size, config.num_attention_heads
     dh = d // h
     inv_sqrt_dh = float(dh) ** -0.5
@@ -337,28 +358,44 @@ def _library() -> ctypes.CDLL:
     fn = lib.fused_decode_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 23 + [i] * 9 + [p]
+        fn.argtypes = [p] * 25 + [i] * 10 + [p]
         fn.restype = i
         lib.fused_decode_scratch_floats.argtypes = [i, i, i, i]
         lib.fused_decode_scratch_floats.restype = ctypes.c_longlong
-        lib.fused_decode_head_dim.argtypes = []
-        lib.fused_decode_head_dim.restype = i
-        lib.fused_decode_grid_blocks.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
-        lib.fused_decode_grid_blocks.restype = i
+        lib.fused_decode_counter_ints.argtypes = [i]
+        lib.fused_decode_counter_ints.restype = i
+        for name in ("fused_decode_head_dim", "fused_decode_chunk"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        lib.fused_decode_plan.argtypes = [i, i] + [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.fused_decode_plan.restype = i
     return lib
 
 
-def grid_blocks(config: DecoderConfig) -> int:
-    """Blocks of the kernel's cooperative grid on the current CUDA device."""
-    blocks = ctypes.c_int(0)
-    err = _library().fused_decode_grid_blocks(config.hidden_size, config.ffn_dim,
-                                              ctypes.byref(blocks))
+def launch_plan(config: DecoderConfig) -> Dict[str, int]:
+    """The kernel's launch on the current CUDA device: persistent blocks (one
+    per SM), threads per block (consumer warps and the producer warp), the
+    weight ring's stages and bytes per stage, and the cache rows per
+    self-attention chunk (the plain version's `block_s` at tiling="cuda")."""
+    lib = _library()
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.fused_decode_plan(config.hidden_size, config.ffn_dim,
+                                *(ctypes.byref(v) for v in out))
     if err != 0:
-        raise RuntimeError(f"fused decode step: no cooperative grid (cudaError {err})")
-    return blocks.value
+        raise RuntimeError(f"fused decode step: no cooperative launch (cudaError {err})")
+    plan = dict(zip(("blocks", "threads", "stages", "stage_bytes"), (v.value for v in out)))
+    return dict(plan, chunk=lib.fused_decode_chunk())
 
 
-def _launch(config, fp, x_emb, cache_k, cache_v, cross_k, cross_v, enc_bias, start, n_rows):
+def _bound(value: Bound) -> Tuple[int, int]:
+    """(device pointer or 0, host value or 0) of a bound."""
+    if isinstance(value, torch.Tensor):
+        return value.data_ptr(), 0
+    return 0, int(value)
+
+
+def _launch(config, fp, x_emb, cache_k, cache_v, cross_k, cross_v, enc_bias, start, n_rows,
+            mode=0):
     d, f, h = config.hidden_size, config.ffn_dim, config.num_attention_heads
     n_layers, s_cache, s_enc = config.num_hidden_layers, cache_k.shape[1], cross_k.shape[1]
     lib = _library()
@@ -383,11 +420,15 @@ def _launch(config, fp, x_emb, cache_k, cache_v, cross_k, cross_v, enc_bias, sta
     hidden = torch.empty((1, d), dtype=torch.bfloat16, device=dev)
     new_k = torch.empty((n_layers, 1, d), dtype=torch.bfloat16, device=dev)
     new_v = torch.empty_like(new_k)
-    scratch = torch.empty(lib.fused_decode_scratch_floats(d, f, h, s_cache),
-                          dtype=torch.float32, device=dev)
-    counters = _counters.get(dev.index)
-    if counters is None or counters.numel() < h:
-        counters = _counters[dev.index] = torch.zeros(max(h, 64), dtype=torch.int32, device=dev)
+    key = (dev.index, d, f, h, s_cache)
+    if key not in _state:  # zeroed once: no word of the scratch carries a tag yet
+        _state[key] = (
+            torch.zeros(lib.fused_decode_scratch_floats(d, f, h, s_cache), dtype=torch.float32,
+                        device=dev),
+            torch.zeros(lib.fused_decode_counter_ints(h), dtype=torch.int32, device=dev),
+        )
+    scratch, counters = _state[key]
+    (start_ptr, start_value), (rows_ptr, rows_value) = _bound(start), _bound(n_rows)
     act = _ACT_CODES.get(config.activation_function, 2)
     err = lib.fused_decode_launch(
         x_emb.data_ptr(), fp.ln1_scale.data_ptr(), fp.ln1_bias.data_ptr(),
@@ -396,14 +437,28 @@ def _launch(config, fp, x_emb, cache_k, cache_v, cross_k, cross_v, enc_bias, sta
         fp.wfc1.data_ptr(), fp.sfc1.data_ptr(), fp.wfc2.data_ptr(), fp.sfc2.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
         enc_bias.data_ptr(), hidden.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-        scratch.data_ptr(), counters.data_ptr(),
-        n_layers, d, h, f, s_cache, s_enc, int(start), int(n_rows), act,
+        scratch.data_ptr(), counters.data_ptr(), start_ptr, rows_ptr,
+        n_layers, d, h, f, s_cache, s_enc, start_value, rows_value, act, mode,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused decode step launch failed: cudaError {err}")
-    fused_decode_layers.launches += 1
     return hidden, new_k, new_v
+
+
+def fused_decode_variant(variant: str, *args) -> None:
+    """Launch a stripped timing variant of the kernel on CUDA tensors, with
+    `fused_decode_layers`' arguments: "stream", the weight ring and the
+    consumers' work without the dependency waits; "chain", the dependency
+    waits and the consumers' work without the weight bytes. Their results
+    mean nothing, so none is returned, and they do not count as launches of
+    the kernel. Only the card's checks time them."""
+    if variant not in _VARIANTS:
+        raise ValueError(f"variant must be one of {sorted(_VARIANTS)}, got {variant!r}")
+    _check(*args)
+    if args[2].device.type != "cuda":
+        raise ValueError("the timing variants run on CUDA tensors only")
+    _launch(*args, mode=_VARIANTS[variant])
 
 
 def fused_decode_layers(
@@ -415,19 +470,25 @@ def fused_decode_layers(
     cross_k: torch.Tensor,
     cross_v: torch.Tensor,
     enc_bias: torch.Tensor,
-    start: int,
-    n_rows: int,
+    start: Bound,
+    n_rows: Bound,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All decoder layers of one B=1 token: (hidden (1, D) bf16 before the
-    final LN, new_k (L, 1, D), new_v (L, 1, D)).
+    final LN, new_k (L, 1, D), new_v (L, 1, D)). `start` and `n_rows` are
+    ints or () int32 tensors on the operands' device.
 
     CUDA tensors launch the kernel (and count the launch in
-    `fused_decode_layers.launches`); CPU tensors run the plain version.
+    `fused_decode_layers.launches`); CPU tensors run the plain version. The
+    kernel's scratch and dependency counters are allocated at the first
+    launch for a device and shape and reused by every later one, so launches
+    of one shape go on one stream.
     """
     args = (config, fp, x_emb, cache_k, cache_v, cross_k, cross_v, enc_bias, start, n_rows)
     _check(*args)
     if x_emb.device.type == "cuda":
-        return _launch(*args)
+        out = _launch(*args)
+        fused_decode_layers.launches += 1
+        return out
     if x_emb.device.type == "cpu":
         return fused_decode_layers_plain(*args)
     raise ValueError(f"no fused decode route for device {x_emb.device}")

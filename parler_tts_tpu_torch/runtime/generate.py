@@ -245,8 +245,8 @@ def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generato
                 decode_lengths=(flash_starts, s_p + t),
             )[:, :, -1, :]
     else:
-        decode_step = _fused_step(model, fused, cache, enc_mask, out_ids, s_p,
-                                  int(flash_starts[0]))
+        decode_step = _fused_step(model, fused, cache, enc_mask, out_ids, s_p, s0,
+                                  flash_starts[0])
     # all_done[t]: every codebook of every row had emitted EOS before column t
     all_done = torch.zeros((max_len + 2,), dtype=torch.bool, device=device)
     t = s0 + 1
@@ -271,9 +271,12 @@ def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generato
 
 
 def _fused_step(model: ParlerTTS, fp: FusedParams, cache: DecoderCache, enc_mask, out_ids,
-                s_p: int, start: int):
-    """The B=1 decode step over K3: column t -> logits (1, K, V) in fp32. The
-    kernel returns the new k/v rows, written here into the cache at n_rows."""
+                s_p: int, s0: int, start: torch.Tensor):
+    """The B=1 decode step over K3: column t -> logits (1, K, V) in fp32, for
+    t = s0 + 1, s0 + 2, ... in turn. The kernel returns the new k/v rows,
+    written here into the cache at n_rows. `start` (the first valid cache
+    row, a () int32 tensor) and n_rows stay on the device: n_rows starts at
+    s_p + s0, the prefill's length, and each step advances it there."""
     dcfg = model.config.decoder
     n_layers, d = dcfg.num_hidden_layers, dcfg.hidden_size
     lm = model.decoder
@@ -289,16 +292,18 @@ def _fused_step(model: ParlerTTS, fp: FusedParams, cache: DecoderCache, enc_mask
     ln = lm.decoder.layer_norm
     ln_scale, ln_bias = ln.scale.float(), ln.bias.float()
     heads = lm.heads_fp32()
+    n_rows = torch.full((), s_p + s0, dtype=torch.int32, device=device)
 
     def step(t: int) -> torch.Tensor:
-        n_rows = s_p + t - 1
-        emb = lm.embed_ids(out_ids[:, :, t - 1: t]).float()[0] + table[n_rows]
+        row = n_rows.long().view(1)
+        emb = lm.embed_ids(out_ids[:, :, t - 1: t]).float()[0] + table.index_select(0, row)
         hidden, new_k, new_v = fused_decode_layers(
             dcfg, fp, emb.to(torch.bfloat16), self_k, self_v, cross_k, cross_v, enc_bias,
             start, n_rows,
         )
-        self_k[:, n_rows] = new_k[:, 0]
-        self_v[:, n_rows] = new_v[:, 0]
+        self_k.index_copy_(1, row, new_k)
+        self_v.index_copy_(1, row, new_v)
+        n_rows.add_(1)
         hf = torch.nn.functional.layer_norm(hidden.float(), (d,), ln_scale, ln_bias, 1e-5)
         return torch.einsum("td,kdv->tkv", hf, heads)
 

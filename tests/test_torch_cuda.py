@@ -24,7 +24,10 @@ ulp; a result without one K slice of the cluster must fail it. K3:
 `fused_limits` sets from the noise between its plain version summing
 in fp32 and in float64 over the cases held: in every case 4 x the largest
 noise, and for the median over the cases at layer 1 4 x the median noise,
-both at least 4 x one bf16 step in 1 of 64 entries. K4: o, dq, dk and dv,
+both at least 4 x one bf16 step in 1 of 64 entries; also at the chunk edges,
+n_rows = start + 1, the self-attention items' ownership edge and S_enc 33,
+200 launches bit for bit, bounds as device tensors bit for bit, and the two
+stripped timing variants leaving the counters as they found them. K4: o, dq, dk and dv,
 norm-relative, each within `k4_limits` (ops/flash_attention.py): 4 x the gap
 between the plain version summing in fp32 and in float64 on the same
 inputs, at least 1e-6 (fp32) or 1e-4 (bf16); a kernel that drops one key
@@ -68,8 +71,10 @@ from parler_tts_tpu_torch.ops.fused_decode_step import (
     fused_close,
     fused_decode_layers,
     fused_decode_layers_plain,
+    fused_decode_variant,
     fused_gaps,
     fused_limits,
+    launch_plan,
     prepare_fused_params,
 )
 from parler_tts_tpu_torch.ops.quant_matmul import (
@@ -321,15 +326,21 @@ def mini_v1_fused():
     tensors = (bf16(1, d), bf16(n_layers, 868, d), bf16(n_layers, 868, d),
                bf16(n_layers, s_enc, d), bf16(n_layers, s_enc, d), bias)
     fp = prepare_fused_params(decoder)
+    want, limits = plain_wants(cfg, fp, tensors, K3_CASES)
+    return cfg, fp, tensors, want, limits
 
-    def plain(start, n_rows, **kw):  # at the kernel's tiling
+
+def plain_wants(cfg, fp, tensors, cases):
+    """The plain version at the kernel's tiling over `cases`, and the limits
+    `fused_limits` sets from its fp32-vs-float64 noise over them."""
+    def plain(start, n_rows, **kw):
         return fused_decode_layers_plain(cfg, fp, *tensors, start, n_rows,
                                          block_s=CUDA_CHUNK, tiling="cuda", **kw)
 
-    want = {case: plain(*case) for case in K3_CASES}
+    want = {case: plain(*case) for case in cases}
     noise = torch.stack([fused_gaps(plain(*case, dtype=torch.float64), want[case])
-                         for case in K3_CASES])
-    return cfg, fp, tensors, want, fused_limits(noise)
+                         for case in cases])
+    return want, fused_limits(noise)
 
 
 @pytest.mark.parametrize("start,n_rows", K3_CASES)
@@ -363,6 +374,69 @@ def test_fused_decode_median_gap_at_mini_v1(cuda, mini_v1_fused):
                                            n_rows + shift[1]), wants[(start, n_rows)])
             for start, n_rows in long])
         assert not fused_close(broken, limits), shift
+
+
+# chunk edges (32 and 33 rows from start), n_rows = start + 1, and the
+# self-attention items' ownership edge (16 heads x 8 chunks fill fewer than
+# 132 blocks' first warps, 16 x 9 wrap onto second warps)
+K3_EDGES = [(0, 32), (0, 33), (3, 35), (3, 36), (3, 4), (0, 256), (0, 257)]
+
+
+def test_fused_decode_at_the_edges(cuda, mini_v1_fused):
+    cfg, fp, tensors, _, _ = mini_v1_fused
+    assert launch_plan(cfg)["chunk"] == CUDA_CHUNK
+    # one set of limits from the noise over the main cases and the edges
+    want, limits = plain_wants(cfg, fp, tensors, K3_CASES + K3_EDGES)
+    gaps = torch.stack([fused_gaps(fused_decode_layers(cfg, fp, *tensors, *case), want[case])
+                        for case in K3_CASES + K3_EDGES])
+    assert fused_close(gaps, limits)
+
+
+def test_fused_decode_with_33_encoder_rows(cuda, mini_v1_fused):
+    cfg, fp, tensors, _, _ = mini_v1_fused
+    g = torch.Generator(device=tensors[0].device).manual_seed(7)
+    n_layers, d = cfg.num_hidden_layers, cfg.hidden_size
+    cross = [(torch.randn(n_layers, 33, d, generator=g, device=g.device) * 0.5).to(torch.bfloat16)
+             for _ in range(2)]
+    bias = torch.zeros(1, 33, device=g.device)
+    bias[0, 28:] = torch.finfo(torch.float32).min
+    tensors33 = (tensors[0], tensors[1], tensors[2], *cross, bias)
+    want, limits = plain_wants(cfg, fp, tensors33, K3_CASES)
+    gaps = torch.stack([fused_gaps(fused_decode_layers(cfg, fp, *tensors33, *case), want[case])
+                        for case in K3_CASES])
+    assert fused_close(gaps, limits)
+
+
+def test_fused_decode_repeats_bit_for_bit(cuda, mini_v1_fused):
+    cfg, fp, tensors, _, _ = mini_v1_fused
+    first = fused_decode_layers(cfg, fp, *tensors, 3, 867)
+    for _ in range(199):
+        out = fused_decode_layers(cfg, fp, *tensors, 3, 867)
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
+
+
+@pytest.mark.parametrize("start,n_rows", K3_CASES + [(3, 4)])
+def test_fused_decode_device_bounds_give_the_bits_of_int_bounds(cuda, mini_v1_fused, start,
+                                                                n_rows):
+    cfg, fp, tensors, _, _ = mini_v1_fused
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=cuda)  # noqa: E731
+    want = fused_decode_layers(cfg, fp, *tensors, start, n_rows)
+    got = fused_decode_layers(cfg, fp, *tensors, i32(start), i32(n_rows))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_fused_decode_variants_leave_the_counters_as_they_found_them(cuda, mini_v1_fused):
+    cfg, fp, tensors, _, _ = mini_v1_fused
+    want = fused_decode_layers(cfg, fp, *tensors, 3, 434)
+    before = fused_decode_layers.launches
+    for variant in ("stream", "chain", "stream", "chain"):
+        fused_decode_variant(variant, cfg, fp, *tensors, 3, 434)
+    torch.cuda.synchronize()
+    assert fused_decode_layers.launches == before  # timing variants are not K3 launches
+    got = fused_decode_layers(cfg, fp, *tensors, 3, 434)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="variant"):
+        fused_decode_variant("weights", cfg, fp, *tensors, 3, 434)
 
 
 # ------------------------------------------------------- int8 and fused

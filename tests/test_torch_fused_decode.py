@@ -2,8 +2,9 @@
 on the CPU: `prepare_fused_params` field by field, `fused_decode_layers_plain`
 against the Pallas kernel in interpret mode at the Pallas kernel's tiling and
 at the CUDA kernel's, the limits that hold the CUDA kernel to its plain
-version, and greedy generation through `generate_tokens_fused` against
-`make_generate_fused`.
+version, bounds given as () int32 tensors against the same bounds as ints
+(bit for bit), and greedy generation through `generate_tokens_fused`
+against `make_generate_fused`, with n_rows kept on the device.
 
 Errors are norm-relative, ||got - want|| / ||want||, over the bf16 hidden
 state and the new k and v rows: a bf16 rounding that moves by one step in a
@@ -35,6 +36,8 @@ package's seed 0 this happens once, at column 7 of codebook 3 (logits
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -172,6 +175,38 @@ def test_plain_at_the_cuda_tiling_matches_pallas(step_setup, start, n_rows):
                                     block_s=CUDA_CHUNK, tiling="cuda")
     assert all(g.dtype == torch.bfloat16 for g in got)
     assert rel3(got, want) <= PALLAS_TOL
+
+
+def test_cuda_chunk_is_the_kernels():
+    src = (Path(__file__).resolve().parent.parent / "parler_tts_tpu_torch" / "csrc"
+           / "fused_decode_step.cu").read_text()
+    assert int(re.search(r"constexpr int kChunk = (\d+);", src).group(1)) == CUDA_CHUNK
+
+
+@pytest.mark.parametrize("start,n_rows", CASES + [(3, 4), (0, 32), (0, 33), (5, 4)])
+def test_tensor_bounds_match_int_bounds(step_setup, start, n_rows):
+    _, port, arrays, bias = step_setup
+    args = port_args(port, arrays, bias, start, n_rows)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    for kw in ({}, dict(block_s=CUDA_CHUNK, tiling="cuda")):
+        want = fused_decode_layers_plain(*args, **kw)
+        for bounds in ((i32(start), i32(n_rows)), (start, i32(n_rows)), (i32(start), n_rows)):
+            got = fused_decode_layers_plain(*args[:8], *bounds, **kw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (kw, bounds)
+    got = fused_decode_layers(*args[:8], i32(start), i32(n_rows))
+    assert all(torch.equal(g, w) for g, w in zip(got, fused_decode_layers_plain(*args)))
+
+
+def test_tensor_bounds_are_clamped_as_the_kernel_clamps(step_setup):
+    _, port, arrays, bias = step_setup
+    args = port_args(port, arrays, bias, 0, S_CACHE)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    want = fused_decode_layers_plain(*args)
+    got = fused_decode_layers_plain(*args[:8], i32(-2), i32(S_CACHE + 5))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for bad in (torch.tensor(3), torch.tensor([3], dtype=torch.int32)):
+        with pytest.raises(TypeError, match="int32"):
+            fused_decode_layers(*args[:8], 0, bad)
 
 
 def test_fused_gaps_and_limits():
@@ -314,6 +349,27 @@ def test_generate_tokens_fused_matches_jax(gen_setup, case, monkeypatch):
     assert [f[:2] for f in forced] == ([(7, 3)] if case == "seed0" else []), forced
     if voice is not None:
         np.testing.assert_array_equal(got.codes[:, :, :3].numpy(), voice)
+
+
+def test_fused_step_keeps_its_bounds_on_the_device(gen_setup, monkeypatch):
+    *_, port = gen_setup
+    seen = []
+    real = tgen.fused_decode_layers
+
+    def spy(*args):
+        start, n_rows = args[-2:]
+        assert isinstance(start, torch.Tensor) and isinstance(n_rows, torch.Tensor)
+        seen.append((int(start), int(n_rows)))
+        return real(*args)
+
+    monkeypatch.setattr(tgen, "fused_decode_layers", spy)
+    desc, dm, prompt, pm = (torch.from_numpy(x) for x in fused_inputs(5, left_pad=True))
+    out = generate_tokens_fused(port, tc.GenerationConfig(**dataclasses.asdict(GEN)),
+                                prepare_fused_params(port.decoder.decoder), desc, dm, prompt, pm)
+    s_p = 0 if GEN_CFG.prompt_cross_attention else prompt.shape[1]
+    start = 0 if GEN_CFG.prompt_cross_attention else 2  # two left-padded prompt slots
+    # one call per decode step, n_rows from the prefill's length (s_p + 1) up
+    assert seen == [(start, s_p + 1 + i) for i in range(out.steps - 2)]
 
 
 def test_generate_tokens_fused_needs_batch_one(gen_setup):
