@@ -85,7 +85,26 @@ Builds the port's CUDA kernels with nvcc, then:
       puts on them; K4 in fp32 launches its 48 / 24 / 24 kernels on the SIMT
       route; and in fp32 the two routes' step-1 loss, gradient norm and every
       gradient leaf agree within 1e-4 (norm-relative), the CPU tests'
-      gradient tolerance against the JAX package.
+      gradient tolerance against the JAX package;
+  (j) serves phase (b)'s pipeline from disk: `save_pretrained` (the native
+      layout) and the port's HF exporters through `write_safetensors` (two
+      shards, BF16 model tensors, F32 codec in the weight_g / weight_v form
+      with v_scale 1.7), each loaded by `from_pretrained` in bf16; every model
+      parameter `torch.equal` to the source's and the folded codec kernels
+      within 1e-6 of their scale, a transposed decoder kernel and an unfolded
+      conv failing that check; the loaded pipelines give phase (b)'s 860
+      columns (K1 24 a decode step), phase (g)'s B=1 stream over K3 and phase
+      (e)'s int8 stream with its K2 count; weight_quant="xla" (a decode
+      step within 4 x K2's own float64-summation gap of K2, 256 columns
+      timed); fused_qkv (prefill and 8 decode steps' logits within half the
+      bf16 model's gap to its fp32 copy, the 860 columns equal to phase (b)'s
+      but at near-ties of phase (b), 2e-4); the bf16 codec (fp32 audio equal
+      to the fp32 codec over bf16-rounded weights, relative RMS below 0.12
+      with conv_out in the unit range); the sliding-window cache over 512
+      columns in fp32 (a window spanning the cache gives the static path's
+      stream but at its near-ties, a 256 window the same columns before it
+      can drop a slot and then parts; no K1 launch, no NaN); text through a
+      stub tokenizer equal to the same ids.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
@@ -98,6 +117,7 @@ any check fails.
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -121,6 +141,38 @@ BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
 # phase (i), fp32: the chunked route against K4, loss, gradient norm and each
 # gradient leaf, relative; the CPU tests hold each leaf to the JAX package so
 TRAIN_FP32_LIMIT = 1e-4
+
+
+SAFETENSORS_CODES = {
+    torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+    torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8",
+    torch.uint8: "U8", torch.bool: "BOOL",
+}
+
+
+def write_safetensors(filename, tensors) -> int:
+    """A small numpy writer of the `.safetensors` format: an 8-byte
+    little-endian header length, a JSON header (name -> dtype, shape,
+    data_offsets), padded with spaces to 8 bytes, then each tensor's bytes
+    in order; BF16 written as its raw 16-bit words. Tensors may live on the
+    card; each is copied to the host and written in turn. Returns the bytes
+    written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_CODES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(filename, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu()
+            f.write((host.view(torch.int16) if host.dtype == torch.bfloat16 else host)
+                    .numpy().tobytes())
+    return 8 + len(head) + offset
 
 
 def card_line() -> str:
@@ -385,7 +437,8 @@ def request_ids(seed):
 
 
 def phase_b(dev, card):
-    """mini-v1 served end to end; returns K1's launches on the main path."""
+    """mini-v1 served end to end; returns K1's launches on the main path, the
+    pipeline and its 860-column output (phase j serves them from disk)."""
     import dataclasses
 
     import numpy as np
@@ -441,9 +494,9 @@ def phase_b(dev, card):
         raise AssertionError(f"bad lengths {lengths}")
     profile_decode(pipe, gen, dev, card, (desc, desc_mask, prompt, prompt_mask), t1 - t0,
                    decode_steps)
-    del pipe, warm
+    del warm
     torch.cuda.empty_cache()
-    return launches
+    return launches, pipe, out
 
 
 def profile_decode(pipe, gen, dev, card, request, wall_s, decode_steps):
@@ -695,7 +748,8 @@ def profile_steps(pipe, request, columns):
 
 
 def phase_e(dev, card):
-    """mini-v1 with int8 weights over K2, B=2; returns K2's launches."""
+    """mini-v1 with int8 weights over K2, B=2; returns K2's launches and the
+    delayed ids."""
     import dataclasses
 
     from parler_tts_tpu_torch.config import GenerationConfig, mini_v1_config
@@ -740,7 +794,7 @@ def phase_e(dev, card):
     del pipe, warm
     torch.cuda.empty_cache()
     int8_decode_step_logits(dev, card)
-    return k2
+    return k2, out.delayed_ids
 
 
 def norm_rel(got, want) -> float:
@@ -1037,7 +1091,7 @@ def phase_f(dev, card):
 
 def phase_g(dev, card):
     """mini-v1 served at B=1 through K3 (fused_decode=True), beside the eager
-    bf16 path on the same request; returns K3's launches."""
+    bf16 path on the same request; returns K3's launches and the delayed ids."""
     import dataclasses
 
     from parler_tts_tpu_torch.config import GenerationConfig, mini_v1_config
@@ -1091,7 +1145,7 @@ def phase_g(dev, card):
           f"{rows['eager bf16']:.3f} ms; fused {rows['fused']:.3f} ms ({card})")
     del fused, eager
     torch.cuda.empty_cache()
-    return k3
+    return k3, out.delayed_ids
 
 
 def k4_inputs(dev, dtype, b, tq, tk, h, h_kv, pad, dh=64, seed=0):
@@ -1450,6 +1504,500 @@ def phase_i(dev, card):
     return total
 
 
+# ------------------------------------------------------- checkpoint side
+TIE = 2e-4           # decoder-logit bound (COMPONENTS.md row 5): a near-tie
+FOLD_REL = 1e-6      # folded DAC kernels: max |diff| / max |w| per tensor
+CODEC_REL_RMS = 0.12  # bf16 codec: the JAX package's bound for random weights
+WINDOW, WINDOW_COLUMNS, TEXT_COLUMNS, XLA_COLUMNS = 256, 512, 64, 256
+
+
+class SampleHook:
+    """Wraps `runtime.generate._sample_column` for the generate calls made
+    inside it (a check instrument: it syncs each step). It keeps the raw
+    logits of the first `keep` sampling events, the top two processed logits
+    at the columns `top2_at`, and whether any logits held a NaN. Given
+    `want` (B, K, L) ids, each column before `follow_until` that parts from
+    them is recorded as (column, row, codebook, own token, wanted token, gap
+    of the two in this run's logits) and the wanted token is forced, so the
+    rest of the stream stays comparable; from `follow_until` on, the first
+    column that parts is recorded and nothing is forced."""
+
+    def __init__(self, want=None, follow_until=None, keep=0, top2_at=()):
+        self.want, self.follow_until, self.keep = want, follow_until, keep
+        self.top2_at = set(top2_at)
+        self.kept, self.top2, self.partings = [], {}, []
+        self.first_free_parting, self.nan = None, False
+
+    def __enter__(self):
+        import parler_tts_tpu_torch.runtime.generate as tgen
+
+        self.tgen, self.real = tgen, tgen._sample_column
+        tgen._sample_column = self._sample
+        return self
+
+    def __exit__(self, *exc):
+        self.tgen._sample_column = self.real
+
+    def _sample(self, logits, t, eos_state, pattern, gen, k, prompt_cols=1, generator=None):
+        kw = dict(prompt_cols=prompt_cols, generator=generator)
+        self.nan |= bool(torch.isnan(logits).any())
+        if len(self.kept) < self.keep:
+            self.kept.append(logits.clone())
+        if t in self.top2_at:
+            x, _ = self.tgen._process_column(logits, t, eos_state, gen, k, prompt_cols)
+            self.top2[t] = x.topk(2, dim=-1)
+        col, state = self.real(logits, t, eos_state, pattern, gen, k, **kw)
+        if self.want is None or torch.equal(col, self.want[:, :, t]):
+            return col, state
+        if self.follow_until is not None and t >= self.follow_until:
+            if self.first_free_parting is None:
+                self.first_free_parting = t
+            return col, state
+        ref, forced = self.want[:, :, t], logits.clone()
+        for b, kk in torch.nonzero(col != ref).tolist():
+            mine, theirs = int(col[b, kk]), int(ref[b, kk])
+            self.partings.append((t, b, kk, mine, theirs,
+                                  float(logits[b, kk, mine] - logits[b, kk, theirs])))
+            forced[b, kk, theirs] = logits[b, kk, mine] + 1.0
+        return self.real(forced, t, eos_state, pattern, gen, k, **kw)
+
+
+def param_mismatches(model, dac, src_model, src_dac):
+    """(names that differ, worst folded-kernel deviation): every model
+    parameter `torch.equal` to the source's; the codec's conv weights and
+    out-projections (folded from weight_g / weight_v) within FOLD_REL of each
+    tensor's scale, its other parameters equal."""
+    bad = []
+    want = dict(src_model.named_parameters())
+    for name, p in model.named_parameters():
+        if name not in want or p.dtype != want[name].dtype or not torch.equal(p, want[name]):
+            bad.append(name)
+    worst, want = 0.0, dict(src_dac.named_parameters())
+    for name, p in dac.named_parameters():
+        w = want[name]
+        if name.split(".")[-1] in ("weight", "out_proj_kernel"):
+            rel = ((p.double() - w.double()).abs().max() / w.double().abs().max()).item()
+            worst = max(worst, rel)
+            if rel > FOLD_REL:
+                bad.append(name)
+        elif not torch.equal(p, w):
+            bad.append(name)
+    return bad + sorted(set(want) - {n for n, _ in dac.named_parameters()}), worst
+
+
+def near_ties(label, partings, pipe, request, want, need):
+    """Each parting of a stream held to `want` (SampleHook.partings) must
+    fall where `want`'s own run had the two tokens as its top two logits
+    within TIE: `pipe`, the run that gave `want`, is replayed recording them
+    (its replay must give `want` again)."""
+    cols = sorted({x[0] for x in partings})
+    if not cols:
+        return
+    with SampleHook(want=want, top2_at=cols) as hook:
+        replay = pipe.generate_codes(*request, seed=0)
+    need(torch.equal(replay.delayed_ids, want), f"{label}: the replay gave another stream")
+    for t, b, k, mine, theirs, own_gap in partings:
+        vals, idx = hook.top2[t]
+        top = {int(idx[b, k, 0]), int(idx[b, k, 1])}
+        gap = float(vals[b, k, 0] - vals[b, k, 1])
+        print(f"    {label}: column {t} row {b} codebook {k}: token {mine} for {theirs}; its "
+              f"own gap {own_gap:.2e}; the reference's top two {sorted(top)}, {gap:.2e} apart")
+        need(top == {mine, theirs} and gap <= TIE,
+             f"{label}: column {t} row {b} codebook {k} is not a near-tie")
+
+
+def dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def check_disk(path, need: int) -> None:
+    import shutil
+
+    free = shutil.disk_usage(path).free
+    if free < need * 1.25:
+        raise AssertionError(f"{path}: {free / 1e9:.2f} GB free, the checkpoint needs "
+                             f"{need / 1e9:.2f} GB (x1.25): not writing it")
+
+
+def hf_config_json(cfg) -> dict:
+    """The HF layout's config.json for `cfg` (nested sections, DAC tagged
+    `dac_on_the_hub`)."""
+    import dataclasses
+
+    return {
+        "text_encoder": dataclasses.asdict(cfg.text_encoder),
+        "audio_encoder": dict(dataclasses.asdict(cfg.audio_encoder),
+                              model_type="dac_on_the_hub"),
+        "decoder": dataclasses.asdict(cfg.decoder),
+        **{k: getattr(cfg, k) for k in ("vocab_size", "prompt_cross_attention",
+                                        "pad_token_id", "decoder_start_token_id")},
+    }
+
+
+def serve_checked(pipe, request, want, label, card, need):
+    """`generate_codes` of `request`, timed; its delayed ids must equal
+    `want` and K1 must launch once per layer and decode step."""
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+
+    n_layers = pipe.config.decoder.num_hidden_layers
+    flash_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    out = pipe.generate_codes(*request, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps, k1 = out.steps - 2, flash_decode_attention.launches
+    same = torch.equal(out.delayed_ids, want)
+    print(f"  {label}: {out.steps} columns, {steps / wall:.1f} decode steps/s, delayed ids "
+          f"equal to the source's: {same}; K1 launches {k1} = {n_layers} x {steps}: "
+          f"{k1 == n_layers * steps} ({card})")
+    need(same and k1 == n_layers * steps, f"{label}: ids equal {same}, K1 launches {k1}")
+
+
+def decode_step_logits(model, dev, dtype):
+    """Logits of one mini-v1 decode step at position S_PROMPT + 430 after a
+    prefill of random columns (phase e's int8 step, at `dtype`)."""
+    from parler_tts_tpu_torch.models.decoder import DecoderCache
+    from parler_tts_tpu_torch.ops.masks import causal_self_attention_bias
+
+    dcfg = model.config.decoder
+    desc, desc_mask, prompt, prompt_mask = (torch.as_tensor(x, device=dev)
+                                            for x in request_ids(1))
+    g = torch.Generator(device=dev).manual_seed(1)
+    n_pre = MAX_LENGTH // 2
+    cols = torch.randint(0, 1024, (BATCH, dcfg.num_codebooks, n_pre + 1), generator=g,
+                         device=dev)
+    kv_valid = torch.cat([prompt_mask.bool(),
+                          torch.ones(BATCH, MAX_LENGTH, dtype=torch.bool, device=dev)], 1)
+    pos = torch.arange(S_CACHE, device=dev)[None].expand(BATCH, -1)
+    starts = (S_PROMPT - prompt_mask.sum(1)).to(torch.int32)
+    t = S_PROMPT + n_pre
+    with torch.inference_mode():
+        enc = model.encode_description(desc, desc_mask)
+        cache = DecoderCache.zeros(dcfg, BATCH, S_CACHE, enc.shape[1], dtype, dev)
+        cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc)
+        pre = torch.cat([model.prompt_hidden(prompt),
+                         model.decoder.embed_ids(cols[:, :, :n_pre])], dim=1)
+        model.decoder(pre, pos[:, :t], self_attn_bias=causal_self_attention_bias(
+            pos[:, :t], kv_valid), cross_attn_bias=None, cache=cache)
+        return model.decoder(model.decoder.embed_ids(cols[:, :, n_pre:]), pos[:, t:t + 1],
+                             self_attn_bias=None, cross_attn_bias=None, cache=cache,
+                             decode_lengths=(starts, t + 1))
+
+
+def phase_j(dev, card, source, out_b, stream_e, stream_g):
+    """Phase (b)'s mini-v1 pipeline saved in the native and the HF layout and
+    served from disk: parameters equal to the source's, phases (b), (e) and
+    (g)'s streams through K1, K2 and K3 with their launch counts, the
+    negative checks, then fused_qkv, weight_quant="xla", the bf16 codec, the
+    sliding-window cache and text input on the same weights."""
+    import copy
+    import dataclasses
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from parler_tts_tpu_torch.codec.convert import convert_dac_params, export_dac_params
+    from parler_tts_tpu_torch.codec.dac_model import DACModel
+    from parler_tts_tpu_torch.convert import load_jax_dac_params, load_jax_params, tensor_tree
+    from parler_tts_tpu_torch.models.parler import ParlerTTS, convert_composite_params
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.ops.fused_decode_step import fused_decode_layers
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul
+    from parler_tts_tpu_torch.runtime.checkpoint import load_safetensors_dir
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.utils.hf_export import export_composite_to_hf_tensors
+
+    import parler_tts_tpu_torch.models.decoder as decoder_module
+
+    failed = []
+
+    def need(ok, what):
+        """Record a failed check and go on, so one run reports every check;
+        the phase raises at its end if any failed."""
+        if not ok:
+            failed.append(what)
+            print(f"  FAILED: {what}")
+
+    cfg, gen = source.config, source.generation_config
+    request = request_ids(0)
+    want_b = out_b.delayed_ids
+    bf16 = dict(device=dev, dtype=torch.bfloat16, cache_dtype=torch.bfloat16)
+    model_bytes = sum(p.numel() * 4 for p in source.model.parameters())
+    dac_bytes = sum(p.numel() * 4 for p in source.dac.parameters())
+    tmp_root = tempfile.gettempdir()
+
+    # ---- native layout: config.json, generation_config.json, params.pkl, dac_params.pkl
+    with tempfile.TemporaryDirectory() as path:
+        check_disk(tmp_root, model_bytes + dac_bytes)
+        t0 = time.perf_counter()
+        source.save_pretrained(path)
+        t1 = time.perf_counter()
+        native = ParlerTTSPipeline.from_pretrained(path, **bf16)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"  native layout: {dir_bytes(path) / 1e9:.3f} GB written in {t1 - t0:.2f} s, "
+              f"loaded onto the card in {t2 - t1:.2f} s ({card})")
+    bad, worst = param_mismatches(native.model, native.dac, source.model, source.dac)
+    print(f"  native: parameters equal to the source's: {not bad} (codec worst {worst:.1e}); "
+          f"generation_config honoured: {native.generation_config == gen}")
+    need(not bad and native.generation_config == gen,
+         f"native layout: parameters differ: {bad[:5]}")
+    serve_checked(native, request, want_b, "native-loaded B=2 serve", card, need)
+    del native
+
+    # ---- HF layout: the port's exporters, two shards, BF16 model / F32 codec, weight_g/v
+    tensors = export_composite_to_hf_tensors(tensor_tree(source.model), cfg)
+    tensors.update(export_dac_params(tensor_tree(source.dac), cfg.audio_encoder,
+                                     prefix="audio_encoder.model.", v_scale=1.7))
+    names = list(tensors)
+    hf_dir = tempfile.TemporaryDirectory()
+    path = hf_dir.name
+    try:
+        check_disk(tmp_root, sum(t.numel() * t.element_size() for t in tensors.values()))
+        t0 = time.perf_counter()
+        written = sum(write_safetensors(os.path.join(path, f"model-{i + 1:05d}-of-00002"
+                                                     ".safetensors"),
+                                        {k: tensors[k] for k in part})
+                      for i, part in enumerate((names[: len(names) // 2],
+                                                names[len(names) // 2:])))
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(hf_config_json(cfg), f)
+        with open(os.path.join(path, "generation_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(gen), f)
+        t1 = time.perf_counter()
+        hf = ParlerTTSPipeline.from_pretrained(path, **bf16)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del tensors
+        print(f"  HF layout: {written / 1e9:.3f} GB in 2 shards written in {t1 - t0:.2f} s, "
+              f"loaded onto the card in {t2 - t1:.2f} s ({card})")
+        bad, worst = param_mismatches(hf.model, hf.dac, source.model, source.dac)
+        print(f"  HF: parameters equal to the source's: {not bad}; folded codec kernels "
+              f"within {worst:.2e} of their scale (limit {FOLD_REL:.0e})")
+        need(not bad and worst > 0.0, f"HF layout: parameters differ: {bad[:5]}, fold {worst}")
+
+        # negative checks: one decoder kernel transposed, one DAC g left unfolded
+        on_disk = load_safetensors_dir(path)
+        tree = convert_composite_params(on_disk, cfg)
+        q = tree["decoder"]["decoder"]["layers_0"]["self_attn"]["q_proj"]
+        q["kernel"] = q["kernel"].t()
+        broken = ParlerTTS(cfg, device=dev, dtype=torch.bfloat16)
+        load_jax_params(broken, tree)
+        unfolded = dict(on_disk)
+        conv = "audio_encoder.model.decoder.model.0"
+        unfolded[f"{conv}.weight"] = unfolded.pop(f"{conv}.weight_v")
+        del unfolded[f"{conv}.weight_g"]
+        broken_dac = DACModel(cfg.audio_encoder, device=dev)
+        load_jax_dac_params(broken_dac, convert_dac_params(unfolded, cfg.audio_encoder,
+                                                           prefix="audio_encoder.model."))
+        caught = (param_mismatches(broken, hf.dac, source.model, source.dac)[0],
+                  param_mismatches(hf.model, broken_dac, source.model, source.dac)[0])
+        print(f"  negative checks: a transposed q_proj kernel fails the check: {caught[0]}; "
+              f"an unfolded conv_in weight fails it: {caught[1]}")
+        need(caught == (["decoder.decoder.layers.0.self_attn.q_proj.kernel"],
+                        ["decoder.conv_in.weight"]), f"negative checks: {caught}")
+        del broken, broken_dac, tree, on_disk, unfolded
+
+        serve_checked(hf, request, want_b, "HF-loaded B=2 serve", card, need)
+        # K3: phase (g)'s row, B=1
+        fused = ParlerTTSPipeline(hf.model, hf.dac, gen, device=dev, fused_decode=True)
+        row = tuple(x[1:2] for x in request)
+        fused_decode_layers.launches = 0
+        out = fused.generate_codes(*row, seed=0)
+        k3, same = fused_decode_layers.launches, torch.equal(out.delayed_ids, stream_g)
+        print(f"  HF-loaded fused B=1 serve: ids equal to phase (g)'s: {same}; K3 launches "
+              f"{k3} = {out.steps - 2} decode steps: {k3 == out.steps - 2}")
+        need(same and k3 == out.steps - 2, f"HF fused B=1: ids equal {same}, K3 launches {k3}")
+        del fused
+        # K2: phase (e)'s stream
+        int8 = ParlerTTSPipeline.from_pretrained(path, weight_quant=True, **bf16)
+        quant_matmul.launches = 0
+        out = int8.generate_codes(*request, seed=0)
+        steps, k2, n_layers = out.steps - 2, quant_matmul.launches, cfg.decoder.num_hidden_layers
+        want_k2 = 8 * n_layers * (steps + 1) + 2 * n_layers
+        same = torch.equal(out.delayed_ids, stream_e)
+        print(f"  HF-loaded int8 B=2 serve: ids equal to phase (e)'s: {same}; K2 launches "
+              f"{k2} = {8 * n_layers} x ({steps} + 1) + {2 * n_layers}: {k2 == want_k2}")
+        need(same and k2 == want_k2, f"HF int8: ids equal {same}, K2 launches {k2}")
+
+        # ---- weight_quant="xla", B=2: one decode step against K2, then 256 columns
+        xla = ParlerTTSPipeline.from_pretrained(path, weight_quant="xla", **bf16)
+    finally:
+        hf_dir.cleanup()
+    del hf
+    step_xla = decode_step_logits(xla.model, dev, torch.bfloat16)
+    step_k2 = decode_step_logits(int8.model, dev, torch.bfloat16)
+    kernel = decoder_module.quant_matmul
+    try:
+        decoder_module.quant_matmul = plain_f64
+        step_f64 = decode_step_logits(int8.model, dev, torch.bfloat16)
+    finally:
+        decoder_module.quant_matmul = kernel
+    err, noise = norm_rel(step_xla, step_k2), norm_rel(step_f64, step_k2)
+    print(f"  weight_quant='xla' bf16 decode step vs K2: norm-rel {err:.3e}; K2 vs its plain "
+          f"version summing in float64 {noise:.3e}; tolerance 4 x that ({card})")
+    need(err <= 4 * noise, f"xla decode step: {err:.3e} > 4 x {noise:.3e}")
+    quant_matmul.launches = 0
+    pipe_kw = {k: v for k, v in bf16.items() if k != "dtype"}
+    warm = dataclasses.replace(gen, max_length=24, min_new_tokens=24)
+    ParlerTTSPipeline(xla.model, xla.dac, warm, **pipe_kw).generate_codes(*request, seed=0)
+    short = dataclasses.replace(gen, max_length=XLA_COLUMNS, min_new_tokens=XLA_COLUMNS)
+    xla_pipe = ParlerTTSPipeline(xla.model, xla.dac, short, **pipe_kw)
+    t0 = time.perf_counter()
+    out = xla_pipe.generate_codes(*request, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"  weight_quant='xla' B=2 serve: {out.steps} columns, "
+          f"{(out.steps - 2) / wall:.1f} decode steps/s; K2 launches {quant_matmul.launches} "
+          f"({card})")
+    need(quant_matmul.launches == 0, "the xla route launched K2")
+    del xla, xla_pipe, int8
+    torch.cuda.empty_cache()
+
+    # ---- fused_qkv: logits of the prefill and 8 decode steps, then 860 columns
+    fqkv = ParlerTTSPipeline(source.model, source.dac, gen, fused_qkv=True, **pipe_kw)
+    fp32_model = ParlerTTS(cfg, device=dev, dtype=torch.float32)
+    load_jax_params(fp32_model, tensor_tree(source.model))
+    first = dataclasses.replace(gen, max_length=20, min_new_tokens=20)
+    logits = {}
+    for label, model in (("source", source.model), ("fused_qkv", fqkv.model),
+                         ("fp32", fp32_model)):
+        p = ParlerTTSPipeline(model, source.dac, first, device=dev,
+                              cache_dtype=torch.float32 if label == "fp32" else torch.bfloat16)
+        with SampleHook(want=want_b, follow_until=10, keep=9) as hook:
+            p.generate_codes(*request, seed=0)
+        logits[label] = torch.stack(hook.kept).float()
+    del fp32_model
+    err, gap = (norm_rel(logits["fused_qkv"], logits["source"]),
+                norm_rel(logits["source"], logits["fp32"]))
+    print(f"  fused_qkv logits of the prefill and 8 decode steps vs the source: norm-rel "
+          f"{err:.3e}; the bf16 model vs its fp32 copy {gap:.3e}; limit half of that")
+    need(err <= 0.5 * gap, f"fused_qkv logits: {err:.3e} > 0.5 x {gap:.3e}")
+    t0 = time.perf_counter()
+    out = fqkv.generate_codes(*request, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if torch.equal(out.delayed_ids, want_b):
+        print(f"  fused_qkv B=2 serve: {(out.steps - 2) / wall:.1f} decode steps/s, the 860 "
+              f"columns equal phase (b)'s ({card})")
+    else:
+        with SampleHook(want=want_b) as hook:
+            fqkv.generate_codes(*request, seed=0)
+        print(f"  fused_qkv B=2 serve: {(out.steps - 2) / wall:.1f} decode steps/s, parts "
+              f"from phase (b) at columns {sorted({p[0] for p in hook.partings})} ({card})")
+        near_ties("fused_qkv", hook.partings, source, request, want_b, need)
+    del fqkv
+
+    # ---- bf16 codec: decode_codes of phase (b)'s codes. It computes in fp32
+    # over bf16-rounded weights (the JAX codec's semantics): the same audio as
+    # the fp32 codec given those weights. Random full-size DAC weights drive
+    # conv_out to about +-33 before the tanh, where rounding flips saturated
+    # samples, so the relative-RMS bound is held on a copy whose conv_out is
+    # scaled into the unit range, as tests/test_torch_models.py does for a
+    # random codec (`output_in_unit_range`); the raw figure is printed too.
+    def decode(dac, **kw):
+        p = ParlerTTSPipeline(source.model, dac, gen, **pipe_kw, **kw)
+        p.decode_codes(out_b.codes, out_b.lengths)  # warm-up
+        t0 = time.perf_counter()
+        audio = p.decode_codes(out_b.codes, out_b.lengths)[0]
+        return audio, time.perf_counter() - t0
+
+    def rel_rms(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2)) / (np.sqrt(np.mean(b ** 2)) + 1e-9))
+
+    a32, s32 = decode(source.dac)
+    a16, s16 = decode(source.dac, codec_dtype=torch.bfloat16)
+    rounded, _ = decode(copy.deepcopy(source.dac).to(torch.bfloat16).float())
+    unit = copy.deepcopy(source.dac)
+    with torch.no_grad():
+        unit.decoder.conv_out.weight /= 32.0
+    u32, _ = decode(unit)
+    u16, _ = decode(unit, codec_dtype=torch.bfloat16)
+    exact, rel_raw, rel_unit = float(np.abs(a16 - rounded).max()), rel_rms(a16, a32), \
+        rel_rms(u16, u32)
+    print(f"  codec_dtype=bf16: audio {a16.dtype} {a16.shape}; max |diff| from the fp32 codec "
+          f"over bf16-rounded weights {exact:.1e}; relative RMS vs the fp32 codec {rel_raw:.4f} "
+          f"(saturated output), {rel_unit:.4f} with conv_out in the unit range (limit "
+          f"{CODEC_REL_RMS}); decode_codes {s32:.3f} s fp32, {s16:.3f} s bf16 ({card})")
+    need(a16.dtype == np.float32 and exact <= 1e-5 and rel_unit < CODEC_REL_RMS,
+         f"bf16 codec: dtype {a16.dtype}, {exact}, {rel_unit}")
+    del unit
+
+    # ---- sliding window over the static cache, 512 columns: the dense bias
+    # path with the window in the mask. Held in fp32, against the static path
+    # (K1) in fp32: in bf16 the two attention paths' rounding moves the logits
+    # by more than the 2e-4 tie bound, in fp32 by far less.
+    span = S_PROMPT + WINDOW_COLUMNS
+    static_gen = dataclasses.replace(gen, max_length=WINDOW_COLUMNS,
+                                     min_new_tokens=WINDOW_COLUMNS)
+    windowed = dataclasses.replace(static_gen, cache_implementation="sliding_window")
+    fp32 = dict(device=dev, cache_dtype=torch.float32)
+
+    def fp32_pipe(window, gen_):
+        wcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                    sliding_window=window))
+        model = ParlerTTS(wcfg, device=dev, dtype=torch.float32)
+        load_jax_params(model, tensor_tree(source.model))
+        return ParlerTTSPipeline(model, source.dac, gen_, **fp32)
+
+    static = fp32_pipe(None, static_gen)
+    want_s = static.generate_codes(*request, seed=0).delayed_ids
+    free_from = WINDOW_COLUMNS - cfg.decoder.num_codebooks + 1  # the pattern's PAD tail
+    streams = {}
+    for w in (span, WINDOW):
+        p = fp32_pipe(w, windowed)
+        # the window first drops a slot at column w - S_PROMPT + 1 (slot 0 of row 0)
+        until = min(free_from, w - S_PROMPT + 1)
+        flash_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        with SampleHook(want=want_s, follow_until=until) as hook:
+            out = p.generate_codes(*request, seed=0)
+        wall = time.perf_counter() - t0
+        k1 = flash_decode_attention.launches
+        streams[w] = out.delayed_ids
+        print(f"  sliding window {w}, fp32: {out.steps} columns ({(out.steps - 2) / wall:.1f} "
+              f"decode steps/s, synced each step), K1 launches {k1}, NaN in the logits "
+              f"{hook.nan}; columns < {until} part from the static path at "
+              f"{sorted({x[0] for x in hook.partings})}; first parting from {until} on: "
+              f"{hook.first_free_parting} ({card})")
+        need(not k1 and not hook.nan and out.steps == WINDOW_COLUMNS,
+             f"sliding window {w}: K1 {k1}, NaN {hook.nan}")
+        near_ties(f"window {w}", hook.partings, static, request, want_s, need)
+        if w == WINDOW:
+            first = WINDOW - S_PROMPT + 1
+            same_before = torch.equal(streams[w][:, :, :first], streams[span][:, :, :first])
+            parted = hook.first_free_parting
+            print(f"  window {WINDOW} vs window {span}: columns < {first} equal: {same_before}; "
+                  f"parts from the static path at column {parted}")
+            need(same_before and parted is not None and parted < free_from,
+                 f"window {WINDOW}: equal before {first} {same_before}, parts at {parted}")
+        del p
+    del static
+
+    # ---- text input through a stub tokenizer: bytes mod 32000
+    def tokenizer(texts):
+        return {"input_ids": [[b % 32000 for b in t.encode()] for t in texts]}
+
+    text_gen = dataclasses.replace(gen, max_length=TEXT_COLUMNS, min_new_tokens=TEXT_COLUMNS)
+    p = ParlerTTSPipeline(source.model, source.dac, text_gen, tokenizer=tokenizer, **pipe_kw)
+    descs = ["A calm female voice, close to the microphone.", "A fast, bright male voice."]
+    prompts = ["Hello from the card.", "Served from a saved checkpoint, through a tokenizer."]
+    a_text, l_text = p.generate(descs, prompts)
+    desc_ids, desc_mask = p._encode_text(descs, left_pad=False)
+    prompt_ids, prompt_mask = p._encode_text(prompts, left_pad=True)
+    a_ids, l_ids = p.generate(desc_ids, prompt_ids, desc_mask=desc_mask, prompt_mask=prompt_mask)
+    same = np.array_equal(a_text, a_ids) and np.array_equal(l_text, l_ids)
+    print(f"  text input: ids {desc_ids.shape} / {prompt_ids.shape} (padded to 16), "
+          f"{TEXT_COLUMNS} columns, audio {a_text.shape} equal to generate on the ids: {same}")
+    need(same and bool(np.isfinite(a_text).all()), "text input: generate(text) != generate(ids)")
+    if failed:
+        raise AssertionError(f"phase (j): {len(failed)} checks failed: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1477,7 +2025,7 @@ def main() -> int:
     max_err, timing = phase_a(dev, card)
     print(f"[phase a] K1 vs plain: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
-    launches = phase_b(dev, card)
+    launches, source, out_b = phase_b(dev, card)
     print(f"[phase b] mini-v1 pipeline: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
     phase_c(dev, card)
@@ -1486,14 +2034,20 @@ def main() -> int:
     k2_err, k2_timing = phase_d(dev, card)
     print(f"[phase d] K2 vs plain: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
-    k2_launches = phase_e(dev, card)
+    k2_launches, stream_e = phase_e(dev, card)
     print(f"[phase e] mini-v1 int8 pipeline: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
     k3_err, k3_norm_rel, k3_timing = phase_f(dev, card)
     print(f"[phase f] K3 vs plain: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
-    k3_launches = phase_g(dev, card)
+    k3_launches, stream_g = phase_g(dev, card)
     print(f"[phase g] mini-v1 fused B=1 pipeline: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    phase_j(dev, card, source, out_b, stream_e, stream_g)
+    del source, out_b, stream_e, stream_g
+    torch.cuda.empty_cache()
+    print(f"[phase j] a saved mini-v1 served from disk: {time.perf_counter() - t0:.2f} s "
+          f"({card})")
 
     t0 = time.perf_counter()
     k4_timing = phase_h(dev, card)

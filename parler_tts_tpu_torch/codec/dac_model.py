@@ -3,8 +3,14 @@
 Public functions keep the JAX package's (B, T, C) layout; inside, the conv
 stack runs channels-first (B, C, T) as PyTorch's convolutions want. Weights
 are stored in PyTorch's layouts; each module's `from_jax` maps a JAX leaf
-(conv kernels (K, C_in, C_out), snake alpha (1, 1, C)) onto its parameter.
-Weight norm is folded into the kernels, as in the JAX package.
+(conv kernels (K, C_in, C_out), snake alpha (1, 1, C)) onto its parameter,
+and `to_jax` maps it back. Weight norm is folded into the kernels, as in the
+JAX package.
+
+The activations take the dtype of the latents, which is fp32: a codec whose
+parameters were cast to bf16 (the pipeline's `codec_dtype`) computes in fp32
+with bf16-rounded weights, as the JAX codec does after `cast_floating`
+(its `from_codes` einsum returns fp32).
 
 JAX runs ConvTranspose1d as an input-dilated conv with a flipped kernel; that
 is exactly `conv_transpose1d` with weight[c_in, c_out, k] = kernel[k, c_in, c_out].
@@ -15,7 +21,6 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,11 +42,14 @@ class Snake1d(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.alpha.fill_(1.0)
 
-    def from_jax(self, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    def from_jax(self, leaf: str, arr: torch.Tensor) -> Tuple[str, torch.Tensor]:
         return leaf, arr.reshape(1, -1, 1)
 
+    def to_jax(self, name: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
+        return name, t.reshape(1, 1, -1)
+
     def forward(self, x):  # (B, C, T)
-        return snake(x, self.alpha)
+        return snake(x, self.alpha.to(x.dtype))
 
 
 class Conv1d(nn.Module):
@@ -59,11 +67,15 @@ class Conv1d(nn.Module):
         self.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
         self.bias.zero_()
 
-    def from_jax(self, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
-        return ("weight", arr.transpose(2, 1, 0)) if leaf == "kernel" else (leaf, arr)
+    def from_jax(self, leaf: str, arr: torch.Tensor) -> Tuple[str, torch.Tensor]:
+        return ("weight", arr.permute(2, 1, 0)) if leaf == "kernel" else (leaf, arr)
+
+    def to_jax(self, name: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
+        return ("kernel", t.permute(2, 1, 0)) if name == "weight" else (name, t)
 
     def forward(self, x):
-        return F.conv1d(x, self.weight, self.bias, self.stride, self.padding, self.dilation)
+        return F.conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
+                        self.padding, self.dilation)
 
 
 class ConvTranspose1d(nn.Module):
@@ -82,11 +94,15 @@ class ConvTranspose1d(nn.Module):
         self.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
         self.bias.zero_()
 
-    def from_jax(self, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
-        return ("weight", arr.transpose(1, 2, 0)) if leaf == "kernel" else (leaf, arr)
+    def from_jax(self, leaf: str, arr: torch.Tensor) -> Tuple[str, torch.Tensor]:
+        return ("weight", arr.permute(1, 2, 0)) if leaf == "kernel" else (leaf, arr)
+
+    def to_jax(self, name: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
+        return ("kernel", t.permute(2, 0, 1)) if name == "weight" else (name, t)
 
     def forward(self, x):
-        return F.conv_transpose1d(x, self.weight, self.bias, self.stride, self.padding)
+        return F.conv_transpose1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                                  self.stride, self.padding)
 
 
 class ResidualUnit(nn.Module):
@@ -157,13 +173,13 @@ class ResidualVQ(nn.Module):
         self.out_proj_bias.zero_()
 
     def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
-        """codes (B, K, T') -> latents (B, T', latent_dim):
-        sum_k out_proj_k(codebook_k[codes_k])."""
+        """codes (B, K, T') -> fp32 latents (B, T', latent_dim):
+        sum_k out_proj_k(codebook_k[codes_k]), the products summed in fp32."""
         k = self.codebooks.shape[0]
         offsets = (torch.arange(k, device=codes.device) * self.codebooks.shape[1])[None, :, None]
         z_p = F.embedding(codes + offsets, self.codebooks.reshape(-1, self.codebooks.shape[2]))
-        z_q = torch.einsum("bktc,kcd->btd", z_p, self.out_proj_kernel)
-        return z_q + self.out_proj_bias.sum(dim=0)[None, None, :]
+        z_q = torch.einsum("bktc,kcd->btd", z_p.float(), self.out_proj_kernel.float())
+        return z_q + self.out_proj_bias.float().sum(dim=0)[None, None, :]
 
 
 class DACModel(nn.Module):

@@ -9,6 +9,8 @@ vocab_size + 1 rows so the bos id (1025) is addressable.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
@@ -139,6 +141,31 @@ class ParlerTTSConfig:
     def sampling_rate(self) -> int:
         return self.audio_encoder.sampling_rate
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "ParlerTTSConfig":
+        """The inverse of `to_json`, lists back to tuples; reads the JSON the
+        JAX package's `ParlerTTSConfig.to_json` writes too."""
+        raw = json.loads(text)
+        ae_raw = _tuples(raw["audio_encoder"])
+        if ae_raw.get("codec_type", "dac") == "encodec":
+            raise NotImplementedError(
+                "an Encodec codec is not ported yet (ROADMAP.md, item 17)"
+            )
+        return cls(
+            text_encoder=T5Config(**raw["text_encoder"]),
+            audio_encoder=DACConfig(**ae_raw),
+            decoder=DecoderConfig(**_tuples(raw["decoder"])),
+            **{k: v for k, v in raw.items()
+               if k not in ("text_encoder", "audio_encoder", "decoder")},
+        )
+
+
+def _tuples(fields: dict) -> dict:
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()}
+
 
 @dataclass(frozen=True)
 class GenerationConfig:
@@ -156,7 +183,8 @@ class GenerationConfig:
     # When set, only ids < codebook_guard (plus EOS) can be sampled, so every
     # emitted frame is codec-decodable (random weights need it).
     codebook_guard: Optional[int] = None
-    # "static" or "sliding_window"; the port serves "static" only so far
+    # "static" or "sliding_window": with "sliding_window" the decoder's
+    # self-attention sees only the last `decoder.sliding_window` positions
     cache_implementation: str = "static"
     # samples per input row; inputs are repeated at the pipeline boundary
     num_return_sequences: int = 1

@@ -1,15 +1,19 @@
-"""Carry parameter trees of the JAX package, as numpy, into the port's modules.
+"""Carry parameter trees of the JAX package into the port's modules, and back.
 
-The port's modules use the flax parameter names, so a JAX leaf
-`decoder/decoder/layers_3/self_attn/q_proj/kernel` lands in
-`decoder.decoder.layers.3.self_attn.q_proj.kernel`. A module that stores a
-parameter in another layout (the codec's convs) maps the leaf itself with
-`from_jax(leaf, array) -> (name, array)`. Every leaf is shape- and
+A tree is a nested dict under the flax names whose leaves are numpy arrays
+(the JAX package's trees) or tensors (the HF name maps' output, which views
+the checkpoint's own bf16 or fp32 tensors). The port's modules use the flax
+parameter names, so a JAX leaf `decoder/decoder/layers_3/self_attn/q_proj/kernel`
+lands in `decoder.decoder.layers.3.self_attn.q_proj.kernel`. A module that
+stores a parameter in another layout (the codec's convs) maps the leaf
+itself with `from_jax(leaf, tensor) -> (name, tensor)`, and back with
+`to_jax(name, tensor) -> (leaf, tensor)`. Every leaf is shape- and
 dtype-checked (an integer leaf, such as the int8 `w_q` of a quantized tree,
 only into a parameter of its own dtype; a float leaf only into a float
 parameter, of any float dtype, so fp32 trees load into bf16 or fp32
 parameters), and every parameter of the port's module must receive a leaf.
-`to_jax_tree` goes the other way, for parameters and their gradients.
+`to_jax_tree` goes the other way, for parameters and their gradients;
+`tensor_tree` gives a module's own tensors under the flax names and layouts.
 """
 
 from __future__ import annotations
@@ -26,14 +30,23 @@ _INDEXED = re.compile(r"^(layers|block)_(\d+)$")
 Path = Tuple[str, ...]
 
 
-def _flatten(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, np.ndarray]:
+def as_tensor(leaf) -> torch.Tensor:
+    """A tree leaf as a tensor: tensors as they are, writable arrays without
+    a copy (a read-only array, such as one that views a JAX array, is copied)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.asarray(leaf)
+    return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
     flat = {}
     for key, value in tree.items():
         path = prefix + (str(key),)
         if isinstance(value, Mapping):
             flat.update(_flatten(value, path))
         else:
-            flat[path] = np.asarray(value)
+            flat[path] = value
     return flat
 
 
@@ -41,9 +54,10 @@ def _load(root: nn.Module, tree: Mapping[str, Any], skip: Callable[[Path], bool]
     modules = dict(root.named_modules())
     params = dict(root.named_parameters())
     loaded = set()
-    for path, arr in _flatten(tree).items():
+    for path, leaf in _flatten(tree).items():
         if skip(path):
             continue
+        arr = as_tensor(leaf)
         parts = [".".join(m.groups()) if (m := _INDEXED.match(p)) else p for p in path]
         mod_name, leaf = ".".join(parts[:-1]), parts[-1]
         module = modules.get(mod_name)
@@ -61,28 +75,30 @@ def _load(root: nn.Module, tree: Mapping[str, Any], skip: Callable[[Path], bool]
                 f"JAX leaf {'/'.join(path)}: shape {tuple(arr.shape)} != "
                 f"{name} {tuple(param.shape)}"
             )
-        leaf_int = np.issubdtype(arr.dtype, np.integer)
+        leaf_int = not arr.dtype.is_floating_point
         if leaf_int != (not param.dtype.is_floating_point) or (
-                leaf_int and torch.from_numpy(np.zeros(0, arr.dtype)).dtype != param.dtype):
+                leaf_int and arr.dtype != param.dtype):
             raise TypeError(
                 f"JAX leaf {'/'.join(path)}: dtype {arr.dtype} does not fit {name} {param.dtype}"
             )
         with torch.no_grad():
-            param.copy_(torch.from_numpy(np.array(arr)).to(param.dtype))
+            param.copy_(arr)
         loaded.add(name)
     missing = sorted(set(params) - loaded)
     if missing:
         raise KeyError(f"port parameters with no JAX leaf: {missing}")
 
 
-def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
-    """The reverse of `load_jax_params` for modules that keep the flax
-    layouts (not the codec): (port name, tensor) pairs, such as
-    `model.named_parameters()` or their gradients, -> a nested dict of numpy
-    arrays under the flax names (`layers.3` -> `layers_3`), fp32 for floats."""
+def _tree(named: Iterable[Tuple[str, torch.Tensor]], modules: Mapping[str, nn.Module]
+          ) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for name, tensor in named:
         parts = name.split(".")
+        mod_name, leaf = ".".join(parts[:-1]), parts[-1]
+        tensor = tensor.detach()
+        to_jax = getattr(modules.get(mod_name), "to_jax", None)
+        if to_jax is not None:
+            leaf, tensor = to_jax(leaf, tensor)
         path = []
         for part in parts[:-1]:
             if part.isdigit() and path and path[-1] in ("layers", "block"):
@@ -92,14 +108,44 @@ def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
         node = tree
         for key in path:
             node = node.setdefault(key, {})
-        t = tensor.detach().cpu()
-        node[parts[-1]] = (t.float() if t.is_floating_point() else t).numpy()
+        node[leaf] = tensor
     return tree
 
 
-def load_jax_params(model: nn.Module, params_np: Mapping[str, Any]) -> None:
-    """`ParlerTTS` (or any port module named like its flax twin) <- JAX params."""
-    _load(model, params_np, skip=lambda path: False)
+def _numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k: _numpy(v) if isinstance(v, Mapping) else
+            (v.cpu().float() if v.is_floating_point() else v.cpu()).numpy()
+            for k, v in tree.items()}
+
+
+def tensor_tree(module: nn.Module) -> Dict[str, Any]:
+    """`module`'s parameters under the flax names and layouts (each
+    module's `to_jax` applied), as the module's own tensors: on its device,
+    in its dtypes, sharing its storage where no layout change is needed."""
+    return _tree(module.named_parameters(), dict(module.named_modules()))
+
+
+def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
+    """The reverse of `load_jax_params` for modules that keep the flax
+    layouts (not the codec): (port name, tensor) pairs, such as
+    `model.named_parameters()` or their gradients, -> a nested dict of numpy
+    arrays under the flax names (`layers.3` -> `layers_3`), fp32 for floats."""
+    return _numpy(_tree(named, {}))
+
+
+def dac_to_jax_tree(dac: nn.Module) -> Dict[str, Any]:
+    """The reverse of `load_jax_dac_params`: a `DACModel`'s parameters as the
+    JAX codec's tree (names and layouts), numpy fp32. The port's codec holds
+    the decode side only, so the tree has no `encoder` and no quantizer
+    `in_proj_*` leaves (ROADMAP.md, item 16)."""
+    return _numpy(tensor_tree(dac))
+
+
+def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
+    """`ParlerTTS` (or any port module named like its flax twin) <- a flax-named
+    tree of arrays or tensors, copied into the module's parameters on their
+    device and in their dtypes."""
+    _load(model, params, skip=lambda path: False)
 
 
 # the encode side of the codec (voice steering) is not ported yet
@@ -109,6 +155,6 @@ def _dac_encode_side(path: Path) -> bool:
     )
 
 
-def load_jax_dac_params(dac: nn.Module, dac_params_np: Mapping[str, Any]) -> None:
+def load_jax_dac_params(dac: nn.Module, dac_params: Mapping[str, Any]) -> None:
     """`DACModel` <- JAX DAC params (decode side; encode-side leaves are skipped)."""
-    _load(dac, dac_params_np, skip=_dac_encode_side)
+    _load(dac, dac_params, skip=_dac_encode_side)

@@ -26,6 +26,12 @@
     projections and MLP a `QuantDense` over kernel K2 (`ops/quant_matmul.py`):
     int8 `w_q` (in, out) and fp32 per-output-channel `scale` (out,), the
     flax names; embeddings, layer norms and heads stay in the float dtype.
+    `weight_quant="xla"` holds the same parameters and computes the JAX
+    package's `impl="xla"` form as a plain matmul;
+  - `fused_qkv=True` (serving) gives each layer's self-attention one
+    `qkv_proj` kernel, q|k|v concatenated along the output axis
+    (`models/parler.py:fuse_qkv_params`); cross-attention keeps its separate
+    projections.
 """
 
 from __future__ import annotations
@@ -101,9 +107,12 @@ def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class QuantDense(nn.Module):
-    """Weight-only int8 linear over kernel K2: y = (bf16(x) @ w_q) * scale in
-    the module's dtype. x is cast to the module's dtype first, as flax's
-    `QuantDense` does.
+    """Weight-only int8 linear: y = (x @ w_q) * scale in the module's dtype,
+    x cast to the module's dtype first, as flax's `QuantDense` does. With
+    `xla=False` the product runs through kernel K2 (bf16(x) @ w_q, fp32
+    sums); with `xla=True` it is the JAX package's `impl="xla"` form, a plain
+    matmul of the dtype-valued x and w_q summed in fp32 (both are exact in
+    fp32, so it runs as an fp32 matmul), times `scale`, cast to the dtype.
 
     `reset_parameters` draws the float kernel a `Dense` of the same shape and
     dtype would draw, on the parameters' device, and quantizes it there
@@ -111,12 +120,13 @@ class QuantDense(nn.Module):
     holds the quantization of the float model's weights."""
 
     def __init__(self, in_features: int, out_features: int, std: float, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, xla: bool = False):
         super().__init__()
         self.w_q = new_param(in_features, out_features, device=device, dtype=torch.int8)
         self.scale = new_param(out_features, device=device, dtype=torch.float32)
         self.std = std
         self.dtype = dtype
+        self.xla = xla
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         w = torch.empty(self.w_q.shape, dtype=self.dtype, device=self.w_q.device)
@@ -126,46 +136,52 @@ class QuantDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
-        y = quant_matmul(x.reshape(-1, shape[-1]).to(self.dtype).contiguous(), self.w_q,
-                         self.scale)
+        x2 = x.reshape(-1, shape[-1]).to(self.dtype)
+        if self.xla:
+            y = ((x2.float() @ self.w_q.float()) * self.scale).to(self.dtype)
+        else:
+            y = quant_matmul(x2.contiguous(), self.w_q, self.scale)
         return y.reshape(*shape[:-1], y.shape[-1])
 
 
 def make_dense(in_features: int, out_features: int, std: float, device, dtype,
                weight_quant: Any, param_dtype=None) -> nn.Module:
-    """The bias-free linear layer of a `weight_quant` setting: `Dense` (False)
-    or `QuantDense` (True). The JAX package's `"xla"` form is not ported."""
-    if weight_quant == "xla":
-        raise NotImplementedError(
-            'weight_quant="xla" is not ported (ROADMAP.md, item 19b); use weight_quant=True, '
-            "whose kernel K2 is the CUDA form of the int8 matmul"
-        )
-    if weight_quant is True:
-        return QuantDense(in_features, out_features, std, device, dtype)
+    """The bias-free linear layer of a `weight_quant` setting: `Dense`
+    (False), `QuantDense` over K2 (True) or its plain-matmul form ("xla")."""
+    if weight_quant is True or weight_quant == "xla":
+        return QuantDense(in_features, out_features, std, device, dtype,
+                          xla=weight_quant == "xla")
     if weight_quant is False:
         return Dense(in_features, out_features, std=std, device=device, dtype=dtype,
                      param_dtype=param_dtype)
-    raise ValueError(f"weight_quant must be False or True, got {weight_quant!r}")
+    raise ValueError(f'weight_quant must be False, True or "xla", got {weight_quant!r}')
 
 
 class Attention(nn.Module):
     """Bias-free multi-head attention with GQA/MQA. `use_chunked_attention`
     picks the training route of self-attention: False (dense bias), True or
-    an int (online-softmax scan, chunk 512 or that int) or "pallas" (K4)."""
+    an int (online-softmax scan, chunk 512 or that int) or "pallas" (K4).
+    `fused_qkv=True` holds one `qkv_proj` in place of q/k/v_proj; only a
+    self-attention takes it (`project_kv`, the cross-attention k/v, reads
+    `k_proj` and `v_proj`)."""
 
     def __init__(self, config: DecoderConfig, num_kv_heads: int, device=None,
                  dtype=torch.float32, weight_quant: Any = False, param_dtype=None,
-                 use_chunked_attention: Any = False):
+                 use_chunked_attention: Any = False, fused_qkv: bool = False):
         super().__init__()
         self.config = config
         self.num_kv_heads = num_kv_heads
         self.use_chunked_attention = use_chunked_attention
+        self.fused_qkv = fused_qkv
         d, dh, std = config.hidden_size, config.head_dim, config.initializer_factor
         kw = dict(std=std, device=device, dtype=dtype, weight_quant=weight_quant,
                   param_dtype=param_dtype)
-        self.q_proj = make_dense(d, d, **kw)
-        self.k_proj = make_dense(d, num_kv_heads * dh, **kw)
-        self.v_proj = make_dense(d, num_kv_heads * dh, **kw)
+        if fused_qkv:
+            self.qkv_proj = make_dense(d, d + 2 * num_kv_heads * dh, **kw)
+        else:
+            self.q_proj = make_dense(d, d, **kw)
+            self.k_proj = make_dense(d, num_kv_heads * dh, **kw)
+            self.v_proj = make_dense(d, num_kv_heads * dh, **kw)
         self.out_proj = make_dense(d, d, **kw)
 
     def _split(self, x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -176,13 +192,20 @@ class Attention(nn.Module):
         return (self._split(self.k_proj(states), self.num_kv_heads),
                 self._split(self.v_proj(states), self.num_kv_heads))
 
-    def _query(self, x, cos, sin):
+    def _scaled_query(self, q_raw, cos, sin):
         # scaled before RoPE like the reference (the rotation commutes with it)
-        q = self._split(self.q_proj(x), self.config.num_attention_heads)
+        q = self._split(q_raw, self.config.num_attention_heads)
         q = q * (self.config.head_dim ** -0.5)
         if cos is not None:
             q = apply_rope(q, cos, sin)
         return q
+
+    def _qkv(self, x):
+        """Raw q, k and v projections under either layout."""
+        if self.fused_qkv:
+            kv = self.num_kv_heads * self.config.head_dim
+            return self.qkv_proj(x).split([self.config.hidden_size, kv, kv], dim=-1)
+        return self.q_proj(x), self.k_proj(x), self.v_proj(x)
 
     def self_attention(self, x, bias, cos, sin, cache: Optional[DecoderCache], layer_idx: int,
                        decode_lengths: Optional[Tuple[torch.Tensor, int]] = None,
@@ -194,8 +217,9 @@ class Attention(nn.Module):
         route `use_chunked_attention` picks when `mask_1d` (B, T) is given,
         else densely with `bias`."""
         b, t, _ = x.shape
-        q = self._query(x, cos, sin)
-        k, v = self.project_kv(x)
+        q_raw, k_raw, v_raw = self._qkv(x)
+        q = self._scaled_query(q_raw, cos, sin)
+        k, v = self._split(k_raw, self.num_kv_heads), self._split(v_raw, self.num_kv_heads)
         if cos is not None:
             k = apply_rope(k, cos, sin)
         if cache is None:
@@ -229,7 +253,7 @@ class Attention(nn.Module):
         return self.out_proj(out.reshape(b, t, -1))
 
     def cross_attention(self, x, k, v, bias, cos, sin):
-        q = self._query(x, cos, sin)
+        q = self._scaled_query(self.q_proj(x), cos, sin)
         out = _gqa_attention(q, k, v, bias)
         return self.out_proj(out.reshape(out.shape[0], out.shape[1], -1))
 
@@ -240,13 +264,14 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
-                 use_chunked_attention: Any = False):
+                 use_chunked_attention: Any = False, fused_qkv: bool = False):
         super().__init__()
         self.config = config
         d, std = config.hidden_size, config.initializer_factor
         ln = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         self.self_attn = Attention(config, config.num_key_value_heads, device, dtype,
-                                   weight_quant, param_dtype, use_chunked_attention)
+                                   weight_quant, param_dtype, use_chunked_attention,
+                                   fused_qkv)
         self.self_attn_layer_norm = LayerNorm(d, **ln)
         self.encoder_attn = Attention(config, config.num_cross_attention_key_value_heads,
                                       device, dtype, weight_quant, param_dtype)
@@ -283,7 +308,8 @@ class ParlerDecoder(nn.Module):
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
-                 use_chunked_attention: Any = False, remat_layers: bool = False):
+                 use_chunked_attention: Any = False, remat_layers: bool = False,
+                 fused_qkv: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -293,7 +319,7 @@ class ParlerDecoder(nn.Module):
                                       dtype=param_dtype or dtype)
         self.layers = nn.ModuleList(
             DecoderLayer(config, device, dtype, weight_quant, param_dtype,
-                         use_chunked_attention)
+                         use_chunked_attention, fused_qkv)
             for _ in range(config.num_hidden_layers)
         )
         self.layer_norm = LayerNorm(config.hidden_size, device=device, dtype=dtype,
@@ -379,12 +405,13 @@ class ParlerForCausalLM(nn.Module):
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
-                 use_chunked_attention: Any = False, remat_layers: bool = False):
+                 use_chunked_attention: Any = False, remat_layers: bool = False,
+                 fused_qkv: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
         self.decoder = ParlerDecoder(config, device, dtype, weight_quant, param_dtype,
-                                     use_chunked_attention, remat_layers)
+                                     use_chunked_attention, remat_layers, fused_qkv)
         self.lm_heads = new_param(config.num_codebooks, config.hidden_size, config.vocab_size,
                                   device=device, dtype=param_dtype or dtype)
         self._serving_heads: Optional[Tuple[Any, torch.Tensor]] = None

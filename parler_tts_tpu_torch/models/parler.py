@@ -14,36 +14,42 @@ Prompt conditioning:
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import ParlerTTSConfig
+from ..convert import as_tensor, load_jax_params, tensor_tree
 from ..ops.losses import shift_tokens_right
 from ..ops.masks import dense_self_attention_bias, padding_cross_attention_bias
 from ..ops.positions import sinusoidal_embed, sinusoidal_table
 from .decoder import ParlerForCausalLM
 from .layers import Dense, Embed, fold_in
-from .t5_encoder import T5Encoder
+from .t5_encoder import T5Encoder, convert_t5_encoder_params
 
 
 class ParlerTTS(nn.Module):
     """`dtype` is the compute dtype, `param_dtype` (default `dtype`) the
     parameters' (the training recipe keeps fp32 parameters under bf16
     compute). `weight_quant=True`: int8 weight-only decoder layers over
-    kernel K2 (`models/decoder.py:QuantDense`); the parameters then follow
-    `utils.quantize.quantize_decoder_params`. `use_chunked_attention`
-    (False | True | int | "pallas") and `remat_layers` shape the training
-    forward as in the JAX package."""
+    kernel K2 (`models/decoder.py:QuantDense`), `"xla"`: the same parameters
+    over a plain matmul; the parameters then follow
+    `utils.quantize.quantize_decoder_params`. `fused_qkv=True`: one q|k|v
+    projection per decoder self-attention, parameters as `fuse_qkv_params`
+    lays them out. `use_chunked_attention` (False | True | int | "pallas")
+    and `remat_layers` shape the training forward as in the JAX package."""
 
     def __init__(self, config: ParlerTTSConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
-                 use_chunked_attention: Any = False, remat_layers: bool = False):
+                 use_chunked_attention: Any = False, remat_layers: bool = False,
+                 fused_qkv: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.param_dtype = param_dtype or dtype
         self.weight_quant = weight_quant
+        self.fused_qkv = fused_qkv
         self.use_chunked_attention = use_chunked_attention
         dcfg = config.decoder
         self.text_encoder = T5Encoder(config.text_encoder, device=device, dtype=dtype,
@@ -51,7 +57,7 @@ class ParlerTTS(nn.Module):
         self.decoder = ParlerForCausalLM(dcfg, device=device, dtype=dtype,
                                          weight_quant=weight_quant, param_dtype=param_dtype,
                                          use_chunked_attention=use_chunked_attention,
-                                         remat_layers=remat_layers)
+                                         remat_layers=remat_layers, fused_qkv=fused_qkv)
         self.embed_prompts = Embed(config.vocab_size, dcfg.hidden_size,
                                    std=dcfg.initializer_factor, device=device, dtype=dtype,
                                    param_dtype=param_dtype)
@@ -173,3 +179,55 @@ class ParlerTTS(nn.Module):
         if return_hidden:
             return hidden, decoder_input_ids
         return self.decoder.logits(hidden), decoder_input_ids
+
+
+def convert_composite_params(tensors: Mapping[str, torch.Tensor], config: ParlerTTSConfig
+                             ) -> Dict:
+    """A composite HF checkpoint's tensors -> the `ParlerTTS` tree."""
+    from ..utils.hf_bridge import convert_decoder_params
+
+    params: Dict = {
+        "text_encoder": convert_t5_encoder_params(tensors, config.text_encoder,
+                                                  prefix="text_encoder."),
+        "decoder": convert_decoder_params(tensors, config.decoder,
+                                          prefix="decoder.model.decoder.",
+                                          lm_head_prefix="decoder."),
+        "embed_prompts": {"embedding": tensors["embed_prompts.weight"]},
+    }
+    if "enc_to_dec_proj.weight" in tensors:
+        params["enc_to_dec_proj"] = {"kernel": tensors["enc_to_dec_proj.weight"].t(),
+                                     "bias": tensors["enc_to_dec_proj.bias"]}
+    return params
+
+
+def fuse_qkv_params(params: Mapping) -> Dict:
+    """The tree of a `fused_qkv=True` model: each decoder layer's
+    self-attention q/k/v kernels concatenated (bias-free) into one
+    `qkv_proj` kernel along the output axis; `encoder_attn` and every other
+    leaf untouched. Leaves may be arrays or tensors; the concatenation is a
+    tensor on the kernels' device."""
+    out = {}
+    for key, value in params.items():
+        if key == "self_attn" and isinstance(value, Mapping) and "q_proj" in value:
+            out[key] = {k: v for k, v in value.items() if k not in ("q_proj", "k_proj", "v_proj")}
+            out[key]["qkv_proj"] = {"kernel": torch.cat(
+                [as_tensor(value[n]["kernel"]) for n in ("q_proj", "k_proj", "v_proj")], dim=1)}
+        elif isinstance(value, Mapping):
+            out[key] = fuse_qkv_params(value)
+        else:
+            out[key] = value
+    return out
+
+
+def fused_qkv_model(model: ParlerTTS) -> ParlerTTS:
+    """A `fused_qkv=True` copy of a float `ParlerTTS`, on its device and in its
+    dtypes, its kernels fused on the device; `model` is left as it is."""
+    if model.weight_quant:
+        # quantized projections hold w_q and per-channel scales, not kernels
+        raise ValueError("fused_qkv does not support weight_quant models")
+    device = next(model.parameters()).device
+    fused = ParlerTTS(model.config, device=device, dtype=model.dtype,
+                      param_dtype=model.param_dtype, fused_qkv=True)
+    with torch.no_grad():
+        load_jax_params(fused, fuse_qkv_params(tensor_tree(model)))
+    return fused.eval()

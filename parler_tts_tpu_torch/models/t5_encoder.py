@@ -13,7 +13,7 @@ after each block's MLP, and after the final norm. It is off unless
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -173,3 +173,31 @@ class T5Encoder(nn.Module):
         return dropout(self.final_layer_norm(x), cfg.dropout_rate, fold_in(dropout_key, "final"))
 
 
+
+
+def convert_t5_encoder_params(tensors: Mapping[str, torch.Tensor], config: T5Config,
+                              prefix: str = "") -> Dict:
+    """An HF `T5EncoderModel` state dict -> the `T5Encoder` tree (tensors;
+    kernels are transposed views). `prefix` is `text_encoder.` inside a
+    composite Parler checkpoint."""
+
+    def kernel(name):
+        return {"kernel": tensors[prefix + name].t()}
+
+    params: Dict = {
+        "shared_embedding": tensors[prefix + "shared.weight"],
+        "relative_attention_bias": tensors[
+            prefix + "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"],
+        "final_layer_norm": {"weight": tensors[prefix + "encoder.final_layer_norm.weight"]},
+    }
+    ff = ("wi_0", "wi_1", "wo") if config.is_gated_act else ("wi", "wo")
+    for i in range(config.num_layers):
+        bp = f"encoder.block.{i}."
+        params[f"block_{i}"] = {
+            "ln_attn": {"weight": tensors[prefix + bp + "layer.0.layer_norm.weight"]},
+            "attention": {name: kernel(bp + f"layer.0.SelfAttention.{name}.weight")
+                          for name in ("q", "k", "v", "o")},
+            "ln_ff": {"weight": tensors[prefix + bp + "layer.1.layer_norm.weight"]},
+            "ff": {name: kernel(bp + f"layer.1.DenseReluDense.{name}.weight") for name in ff},
+        }
+    return params

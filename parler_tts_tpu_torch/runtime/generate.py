@@ -2,7 +2,10 @@
 of `parler_tts_tpu/runtime/generate.py`).
 
 Prefill, then a one-column decode loop: each step embeds the previous
-column, runs the decoder with kernel K1 over the cache, applies the
+column, runs the decoder with kernel K1 over the cache (with
+`cache_implementation="sliding_window"`, through the dense bias path with
+the window in the mask, as the JAX package does: K1's [start, limit) bounds
+cannot express a query-relative window), applies the
 processors in the reference order (codebook guard -> min-length -> EOS
 ordering -> warpers), forces PAD on finished codebooks and overrides with the
 delay pattern. The loop runs on the host in Python with no host sync inside a
@@ -160,11 +163,12 @@ def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generato
     k_cb, max_len = dcfg.num_codebooks, gen.max_length
     b = desc_ids.shape[0]
     device = desc_ids.device
-    if gen.cache_implementation != "static":
-        raise NotImplementedError(
-            f"cache_implementation={gen.cache_implementation!r}: the port serves the "
-            "static cache only (sliding-window decode is not ported yet)"
-        )
+    if gen.cache_implementation not in ("static", "sliding_window"):
+        raise ValueError(f"cache_implementation must be 'static' or 'sliding_window', "
+                         f"got {gen.cache_implementation!r}")
+    # the sliding-window option bounds self-attention to the last
+    # `sliding_window` positions of the static cache
+    window = dcfg.sliding_window if gen.cache_implementation == "sliding_window" else None
     span = (0 if cfg.prompt_cross_attention else prompt_ids.shape[1]) + max_len
     if span > dcfg.max_position_embeddings:
         raise ValueError(
@@ -220,7 +224,7 @@ def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generato
     abs_pos = positions[:, : s_p + s0]
     logits_pre = model.decoder(
         pre_embeds, abs_pos,
-        self_attn_bias=causal_self_attention_bias(abs_pos, kv_valid),
+        self_attn_bias=causal_self_attention_bias(abs_pos, kv_valid, window),
         cross_attn_bias=padding_cross_attention_bias(enc_mask, s_p + s0),
         cache=cache,
     )
@@ -239,10 +243,14 @@ def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generato
 
         def decode_step(t: int) -> torch.Tensor:
             emb = model.decoder.embed_ids(out_ids[:, :, t - 1: t])
+            q_pos = positions[:, s_p + t - 1: s_p + t]
+            if window is None:
+                bias, lengths = None, (flash_starts, s_p + t)
+            else:
+                bias, lengths = causal_self_attention_bias(q_pos, kv_valid, window), None
             return model.decoder(
-                emb, positions[:, s_p + t - 1: s_p + t],
-                self_attn_bias=None, cross_attn_bias=cross_bias, cache=cache,
-                decode_lengths=(flash_starts, s_p + t),
+                emb, q_pos, self_attn_bias=bias, cross_attn_bias=cross_bias, cache=cache,
+                decode_lengths=lengths,
             )[:, :, -1, :]
     else:
         decode_step = _fused_step(model, fused, cache, enc_mask, out_ids, s_p, s0,

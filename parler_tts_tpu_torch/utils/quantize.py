@@ -9,7 +9,8 @@ Symmetric per-output-channel scales:
 Two forms with the same arithmetic, bit for bit: `quantize_kernel` and
 `quantize_decoder_params` take numpy arrays and trees (the JAX package's
 parameter trees, as numpy); `quantize_kernel_torch` quantizes a float kernel
-on its own device (`models.decoder.QuantDense` initialises through it). Only the decoder
+on its own device (`models.decoder.QuantDense` initialises through it, and
+`quantize_decoder_params_torch` quantizes a loaded tree through it). Only the decoder
 layers' attention projections and MLP are quantized; embeddings, layer norms
 and the LM heads stay in their float dtype.
 """
@@ -41,22 +42,35 @@ def quantize_kernel_torch(w: torch.Tensor):
     return w_q, scale
 
 
+def _map_layer_kernels(tree: Mapping[str, Any], fn, leaf_fn, path=()) -> Dict[str, Any]:
+    out = {}
+    for key, value in tree.items():
+        if (key in QUANT_DENSE_NAMES and isinstance(value, Mapping) and "kernel" in value
+                and any(p.startswith("layers_") for p in path)):
+            out[key] = fn(value["kernel"])
+        elif isinstance(value, Mapping):
+            out[key] = _map_layer_kernels(value, fn, leaf_fn, path + (key,))
+        else:
+            out[key] = leaf_fn(value)
+    return out
+
+
 def quantize_decoder_params(params: Mapping[str, Any]) -> Dict[str, Any]:
     """A `ParlerTTS` (or decoder) parameter tree, as numpy, in the layout of a
     `weight_quant=True` model: every q/k/v/out/fc1/fc2 `{'kernel'}` under a
     `layers_<i>` node becomes `{'w_q', 'scale'}`."""
+    return _map_layer_kernels(params, lambda k: quantize_kernel(np.asarray(k)), np.asarray)
 
-    def walk(tree, path=()):
-        out = {}
-        for key, value in tree.items():
-            if (key in QUANT_DENSE_NAMES and isinstance(value, Mapping) and "kernel" in value
-                    and any(p.startswith("layers_") for p in path)):
-                out[key] = quantize_kernel(np.asarray(value["kernel"]))
-            elif isinstance(value, Mapping):
-                out[key] = walk(value, path + (key,))
-            else:
-                out[key] = np.asarray(value)
-        return out
 
-    return walk(params)
+def quantize_decoder_params_torch(params: Mapping[str, Any], device) -> Dict[str, Any]:
+    """`quantize_decoder_params` on `device`: each kernel (an array or a
+    tensor, of any float dtype) is moved there and quantized there by
+    `quantize_kernel_torch`; the other leaves are left as they are."""
+
+    def quant(kernel):
+        k = kernel if isinstance(kernel, torch.Tensor) else torch.from_numpy(np.asarray(kernel))
+        w_q, scale = quantize_kernel_torch(k.to(device))
+        return {"w_q": w_q, "scale": scale}
+
+    return _map_layer_kernels(params, quant, lambda leaf: leaf)
 

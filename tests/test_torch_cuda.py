@@ -1,7 +1,9 @@
 """Port tests that need the card: the CUDA kernels K1 (flash-decode), K2
 (int8 matmul), K3 (fused decode step) and K4 (training flash attention)
 against their plain versions, the pipeline on the GPU in its eager, int8 and
-fused modes, and the launch counts of a remat'd train step. Marked `cuda`; without a GPU each test
+fused modes, checkpoints loaded onto the GPU (the default device, a BF16
+shard bit for bit), the fused_qkv and weight_quant="xla" modes on CUDA
+tensors, and the launch counts of a remat'd train step. Marked `cuda`; without a GPU each test
 skips (a CUDA kernel has no CPU mode). This file imports no JAX, since the
 machine with the card has none. Run there with
 
@@ -567,3 +569,53 @@ def test_train_step_launch_counts(cuda, hidden):
         assert flash_attention.launches == want
         assert flash_attention.launches_wgmma == (want if hidden == 256 else dict.fromkeys(want, 0))
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+# ------------------------------------------------------------ checkpoints
+def test_from_pretrained_defaults_to_the_gpu(cuda, tmp_path):
+    cfg = tiny_config()
+    src = ParlerTTSPipeline.from_random(cfg, seed=2, generation_config=TINY_GEN,
+                                        dtype=torch.bfloat16)
+    src.save_pretrained(str(tmp_path))
+    pipe = ParlerTTSPipeline.from_pretrained(str(tmp_path), dtype=torch.bfloat16)
+    assert pipe.device.type == "cuda" and pipe.generation_config == TINY_GEN
+    for (name, got), (_, want) in zip(pipe.model.named_parameters(),
+                                      src.model.named_parameters()):
+        assert got.is_cuda and torch.equal(got, want), name
+    request = tiny_request()
+    assert torch.equal(pipe.generate_codes(*request).delayed_ids,
+                       src.generate_codes(*request).delayed_ids)
+
+
+def test_a_bf16_shard_loads_bit_exact_onto_the_gpu(cuda, tmp_path):
+    from chip_smoke import write_safetensors
+    from parler_tts_tpu_torch.runtime.checkpoint import load_safetensors_dir
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    want = {"w": torch.randn(64, 96, generator=g, device=cuda).to(torch.bfloat16),
+            "v": torch.randn(7, generator=g, device=cuda).to(torch.bfloat16)}
+    write_safetensors(str(tmp_path / "a.safetensors"), want)
+    got = load_safetensors_dir(str(tmp_path))
+    for name, w in want.items():
+        on_card = got[name].to(cuda)
+        assert on_card.dtype == torch.bfloat16
+        assert torch.equal(on_card.view(torch.int16), w.view(torch.int16)), name
+
+
+def test_weight_quant_xla_and_fused_qkv_run_on_the_gpu(cuda):
+    cfg, request = tiny_config(), tiny_request()
+    float_pipe = ParlerTTSPipeline.from_random(cfg, seed=4, generation_config=TINY_GEN)
+    fused = ParlerTTSPipeline(float_pipe.model, float_pipe.dac, TINY_GEN, fused_qkv=True)
+    assert fused.model.decoder.decoder.layers[0].self_attn.qkv_proj.kernel.is_cuda
+    before = flash_decode_attention.launches
+    out = fused.generate_codes(*request)
+    assert out.steps == TINY_GEN.max_length
+    assert flash_decode_attention.launches - before == 2 * (out.steps - 2)
+    xla = ParlerTTSPipeline.from_random(cfg, seed=4, generation_config=TINY_GEN,
+                                        weight_quant="xla")
+    fc1 = xla.model.decoder.decoder.layers[0].fc1
+    assert fc1.xla and fc1.w_q.is_cuda and fc1.w_q.dtype == torch.int8
+    before = quant_matmul.launches
+    out = xla.generate_codes(*request)
+    assert out.steps == TINY_GEN.max_length and quant_matmul.launches == before
+    assert torch.isfinite(torch.from_numpy(xla.decode_codes(out.codes, out.lengths)[0])).all()

@@ -1,8 +1,9 @@
 """The port stands alone: every module of `parler_tts_tpu_torch`, and
-`chip_smoke.py`, imports in a fresh interpreter where `jax`, `flax` and the
-JAX package `parler_tts_tpu` cannot be imported (`sys.modules[name] = None`
-makes any import of them raise). A leak then fails here on the CPU rather
-than on the machine with the card, which has none of them."""
+`chip_smoke.py`, imports in a fresh interpreter where `jax`, `flax`,
+`safetensors`, `transformers` and the JAX package `parler_tts_tpu` cannot be
+imported (`sys.modules[name] = None` makes any import of them raise). A leak
+then fails here on the CPU rather than on the machine with the card, which
+has none of them."""
 
 import pkgutil
 import subprocess
@@ -12,7 +13,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "flax", "parler_tts_tpu")
+BLOCKED = ("jax", "flax", "safetensors", "transformers", "parler_tts_tpu")
 
 
 def port_modules():

@@ -195,6 +195,7 @@ def test_pipeline_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 def test_text_input_needs_ids():
+    """Without a tokenizer, text raises and asks for token ids."""
     pipe = ParlerTTSPipeline.from_random(port_config(CFG), device="cpu")
-    with pytest.raises(TypeError, match="token ids"):
+    with pytest.raises(ValueError, match="no tokenizer; pass token ids"):
         pipe.generate("a calm voice", "hello")

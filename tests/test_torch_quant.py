@@ -171,8 +171,14 @@ def test_a_dropped_k_slice_fails_k2_close(m, k, n):
 
 
 def test_weight_quant_xla_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ParlerTTS(port_config(CFG), weight_quant="xla")
+    """weight_quant="xla" builds int8 QuantDense layers on the plain-matmul
+    route (tests/test_torch_serving_modes.py holds it against the JAX
+    package); a value other than False, True or "xla" still raises."""
+    model = ParlerTTS(port_config(CFG), weight_quant="xla")
+    fc1 = model.decoder.decoder.layers[0].fc1
+    assert isinstance(fc1, QuantDense) and fc1.xla and fc1.w_q.dtype == torch.int8
+    with pytest.raises(ValueError, match="weight_quant"):
+        ParlerTTS(port_config(CFG), weight_quant="int4")
 
 
 def test_from_random_weight_quant_holds_the_quantized_float_weights():
