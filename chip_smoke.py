@@ -104,11 +104,37 @@ Builds the port's CUDA kernels with nvcc, then:
       columns in fp32 (a window spanning the cache gives the static path's
       stream but at its near-ties, a 256 window the same columns before it
       can drop a slot and then parts; no K1 launch, no NaN); text through a
-      stub tokenizer equal to the same ids.
+      stub tokenizer equal to the same ids;
+  (k) steers phase (b)'s pipeline with a voice: two seeded synthetic 3 s
+      clips at 44.1 kHz through `encode_voice_prompt` on the card, the
+      latents within 1e-4 (norm-relative) of the same fp32 codec's encode on
+      the CPU and the codes equal to its codes but at its near-ties (a
+      best-to-second distance gap below 1e-5, counted); `stream` (B=1, row 0)
+      and `stream_batch` (B=2) over phase (b)'s request with those codes as
+      voice prompt, play_steps 86, after `warmup_stream_async`: the chunks'
+      tokens equal `generate_codes` on the same request, their samples the
+      offline lengths, K1 24 launches a decode step; time to the first
+      chunk, decode steps/s and chunk count; `pcm_stream` over 256 columns
+      through the native ring buffer gives the bytes of `float_to_pcm16` of
+      the stream's chunks;
+  (l) runs parler-tts-large-v1 (decoder 30 layers x 1536, 24 heads, FFN
+      6144; flan-t5-large; random bf16 weights drawn on the card from a
+      seed): K1 against its plain version at H=24 over a 868-slot stacked
+      cache (fp32 and bf16, repeats bit for bit, a dropped first slot fails
+      fp32 TOL); K2 at K x N = 1536 x 1536, 1536 x 6144, 6144 x 1536 within
+      `k2_close` (repeats bit for bit, a dropped K slice fails); K3 layer by
+      layer within `fused_limits` at n_rows 1, 434 and 867 from starts 0 and
+      3 (a dropped first or last cache row fails, 20 repeats bit for bit);
+      one fp32 decode step through K1 against the dense path; then serves
+      eager bf16 B=2, `weight_quant=True` B=2 and `fused_decode=True` B=1
+      over 256 greedy columns with exact launch counts (K1 30 a decode step,
+      K2 240 x (steps + 1) + 60, K3 one a decode step), and times K1, K2's
+      decode layer and K3 by CUDA-graph replay.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
-line of kernel numbers, the `nvidia-smi` name/power-limit line, and last
+line of kernel numbers (K1, K2 and K3 with their large-v1 numbers under
+`large_v1`), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 there is no CUDA device, when the port is not beside this script, or when
 any check fails.
@@ -534,20 +560,24 @@ def profile_decode(pipe, gen, dev, card, request, wall_s, decode_steps):
         print(f"    {us / busy_us:6.1%} {count[name]:7d}x {name[:90]}")
 
 
-def phase_c(dev, card):
-    """One fp32 mini-v1 decode step through K1 vs the dense attention path."""
-    from parler_tts_tpu_torch.config import GenerationConfig
+def phase_c(dev, card, config=None):
+    """One fp32 decode step of mini-v1 (or `config`) through K1 vs the dense
+    attention path."""
+    from parler_tts_tpu_torch.config import GenerationConfig, mini_v1_config
     from parler_tts_tpu_torch.models.decoder import DecoderCache
     from parler_tts_tpu_torch.ops.masks import causal_self_attention_bias
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
 
-    pipe = mini_v1_pipeline(dev, torch.float32, 1, GenerationConfig())
+    pipe = ParlerTTSPipeline.from_random(config or mini_v1_config(), seed=1,
+                                         generation_config=GenerationConfig(), device=dev,
+                                         dtype=torch.float32, cache_dtype=torch.float32)
     model, dcfg = pipe.model, pipe.config.decoder
     desc, desc_mask, prompt, prompt_mask = (torch.as_tensor(x, device=dev)
                                             for x in request_ids(1))
     g = torch.Generator(device=dev).manual_seed(1)
     n_pre = MAX_LENGTH // 2  # prefill the prompt and 430 columns, then decode the next one
-    cols = torch.randint(0, 1024, (BATCH, dcfg.num_codebooks, n_pre + 1), generator=g,
-                         device=dev)
+    cols = torch.randint(0, dcfg.pad_token_id, (BATCH, dcfg.num_codebooks, n_pre + 1),
+                         generator=g, device=dev)
     with torch.inference_mode():
         enc = model.encode_description(desc, desc_mask)
         cache = DecoderCache.zeros(dcfg, BATCH, S_CACHE, enc.shape[1], torch.float32, dev)
@@ -569,7 +599,8 @@ def phase_c(dev, card):
         dense = model.decoder(emb, pos[:, t:t + 1], self_attn_bias=causal_self_attention_bias(
             pos[:, t:t + 1], kv_valid), cross_attn_bias=None, cache=cache)
     err = (with_k1 - dense).abs().max().item()
-    print(f"  decode step at position {t}: logits {tuple(with_k1.shape)}, K1 vs dense "
+    print(f"  {dcfg.num_hidden_layers} x {dcfg.hidden_size} decode step at position {t}: logits "
+          f"{tuple(with_k1.shape)}, K1 vs dense "
           f"max_abs_err={err:.3e} (tolerance atol 2e-4 rtol 2e-4, fp32, TF32 off) ({card})")
     torch.testing.assert_close(with_k1, dense, **LOGITS_TOL)
     del pipe, model, cache
@@ -1565,8 +1596,8 @@ class SampleHook:
 def param_mismatches(model, dac, src_model, src_dac):
     """(names that differ, worst folded-kernel deviation): every model
     parameter `torch.equal` to the source's; the codec's conv weights and
-    out-projections (folded from weight_g / weight_v) within FOLD_REL of each
-    tensor's scale, its other parameters equal."""
+    in/out-projections (folded from weight_g / weight_v) within FOLD_REL of
+    each tensor's scale, its other parameters equal."""
     bad = []
     want = dict(src_model.named_parameters())
     for name, p in model.named_parameters():
@@ -1575,7 +1606,7 @@ def param_mismatches(model, dac, src_model, src_dac):
     worst, want = 0.0, dict(src_dac.named_parameters())
     for name, p in dac.named_parameters():
         w = want[name]
-        if name.split(".")[-1] in ("weight", "out_proj_kernel"):
+        if name.split(".")[-1] in ("weight", "in_proj_kernel", "out_proj_kernel"):
             rel = ((p.double() - w.double()).abs().max() / w.double().abs().max()).item()
             worst = max(worst, rel)
             if rel > FOLD_REL:
@@ -1998,6 +2029,525 @@ def phase_j(dev, card, source, out_b, stream_e, stream_g):
         raise AssertionError(f"phase (j): {len(failed)} checks failed: {failed}")
 
 
+# ------------------------------------------------------------ voice side
+ENCODE_TIE = 1e-5    # RVQ: a best-to-second distance gap below this is a near-tie
+LATENT_REL = 1e-4    # DAC encoder latents against the CPU's, norm-relative
+VOICE_SECONDS, PLAY_STEPS, PCM_COLUMNS = 3.0, 86, 256
+
+
+def encode_gaps(quantizer, latents, codes):
+    """(B, K, T') gaps between the best and the second-best distance of each
+    choice of the greedy quantization that gave `codes` from `latents`."""
+    residual, gaps = latents, []
+    for k in range(codes.shape[1]):
+        two = quantizer.distances(residual, k).topk(2, dim=-1, largest=False).values
+        gaps.append(two[..., 1] - two[..., 0])
+        residual = residual - (quantizer.codebooks[k][codes[:, k]] @ quantizer.out_proj_kernel[k]
+                               + quantizer.out_proj_bias[k])
+    return torch.stack(gaps, dim=1)
+
+
+def codes_agree(got, want, gaps):
+    """(whether codes `got` (B, K, T') may stand for the reference `want`,
+    the frames where they part): in each frame they agree up to the first
+    codebook where they part, and that choice is a near-tie of the reference
+    (its `gaps` below ENCODE_TIE); the codebooks after it quantize another
+    residual, so they may part too."""
+    differ = got.cpu() != want.cpu()
+    parts = differ.any(dim=1)  # (B, T')
+    first = differ.to(torch.int8).argmax(dim=1, keepdim=True)
+    tie = gaps.cpu().gather(1, first)[:, 0] < ENCODE_TIE
+    return bool((~parts | tie).all()), int(parts.sum())
+
+
+def voice_clips(sampling_rate: int, n: int, seed: int = 0):
+    """Two seeded synthetic clips (2, n) float32: a chord and a noisy glide."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / sampling_rate
+    chord = 0.2 * (np.sin(2 * np.pi * 220 * t) + np.sin(2 * np.pi * 277 * t))
+    glide = 0.3 * np.sin(2 * np.pi * (150 + 40 * t) * t) + 0.05 * rng.normal(size=t.size)
+    return np.stack([chord, glide]).astype(np.float32)
+
+
+class ChunkRecorder:
+    """Wraps a pipeline's stream functions (a check instrument): keeps the
+    columns the prefill gives and each chunk adds, whose concatenation is the
+    stream's tokens."""
+
+    def __init__(self, pipe):
+        self.pipe, self.real = pipe, pipe._ensure_stream_fns()
+        prefill, step = self.real
+        self.parts = []
+
+        def recording_prefill(*args, **kw):
+            state = prefill(*args, **kw)
+            self.parts = [state.out_ids[:, :, :state.t].clone()]
+            return state
+
+        def recording_step(state, n_steps):
+            t0 = state.t
+            step(state, n_steps)
+            self.parts.append(state.out_ids[:, :, t0:state.t].clone())
+            return state
+
+        pipe._stream_fns = (recording_prefill, recording_step)
+
+    def tokens(self):
+        self.pipe._stream_fns = self.real
+        return torch.cat(self.parts, dim=-1)
+
+
+def encode_check(pipe, audio, card):
+    """`encode_voice_prompt` on the card against the fp32 encode of the same
+    codec on the CPU: latents within LATENT_REL, codes equal but at the CPU's
+    near-ties. Returns the codes."""
+    import copy
+
+    hop = pipe.config.audio_encoder.hop_length
+    pipe.encode_voice_prompt(audio[:, :8 * hop])  # first use of the encoder's shapes
+    torch.cuda.synchronize()
+    encode_s = []
+    for _ in range(2):  # the first call at this shape, then again
+        t0 = time.perf_counter()
+        codes = pipe.encode_voice_prompt(audio)
+        torch.cuda.synchronize()
+        encode_s.append(time.perf_counter() - t0)
+    x = torch.nn.functional.pad(torch.from_numpy(audio)[:, :, None],
+                                (0, 0, 0, -audio.shape[1] % hop))
+    cpu = copy.deepcopy(pipe.dac).cpu()
+    with torch.inference_mode():
+        lat_cpu = cpu.encoder(x)
+        codes_cpu = cpu.quantizer.encode(lat_cpu)[0]
+        gaps = encode_gaps(cpu.quantizer, lat_cpu, codes_cpu)
+        lat_rel = norm_rel(pipe.dac.encoder(x.to(pipe.device)).cpu(), lat_cpu)
+    ok, parted = codes_agree(codes, codes_cpu, gaps)
+    n_ties = int((gaps < ENCODE_TIE).sum())
+    print(f"  encode_voice_prompt {tuple(audio.shape)} at {pipe.config.sampling_rate} Hz -> codes "
+          f"{tuple(codes.shape)} in {encode_s[0] * 1e3:.1f} ms, again {encode_s[1] * 1e3:.1f} ms "
+          f"({card}); latents vs the CPU's fp32 "
+          f"encode norm-rel {lat_rel:.2e} (limit {LATENT_REL:g}); codes equal to the CPU's: "
+          f"{torch.equal(codes.cpu(), codes_cpu)}, frames parted {parted}, all at the CPU's "
+          f"near-ties (gap < {ENCODE_TIE:g}; {n_ties} such choices): {ok}")
+    if lat_rel > LATENT_REL or not ok:
+        raise AssertionError(f"voice encode: latents {lat_rel:.2e}, codes parted at {parted} "
+                             f"frames, near-ties only: {ok}")
+    return codes
+
+
+def phase_k(dev, card, source):
+    """Voice-steered streaming on phase (b)'s mini-v1: a seeded 3 s clip
+    encoded on the card against the CPU; `stream` (B=1) and `stream_batch`
+    (B=2) with its codes as voice prompt, their tokens equal to
+    `generate_codes` on the same request and K1 24 a decode step;
+    `pcm_stream` through the native ring buffer. Returns the stream's
+    numbers."""
+    import dataclasses
+
+    import numpy as np
+
+    from parler_tts_tpu_torch.native import float_to_pcm16, float_to_pcm16_plain
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.runtime.streamer import ParlerTTSStreamer
+
+    pipe, cfg = source, source.config
+    hop, n_layers = cfg.audio_encoder.hop_length, cfg.decoder.num_hidden_layers
+    codes = encode_check(pipe, voice_clips(cfg.sampling_rate,
+                                           int(VOICE_SECONDS * cfg.sampling_rate)), card)
+    s0 = 1 + codes.shape[-1]
+    decode_steps = MAX_LENGTH - s0 - 1
+    request = request_ids(0)
+    row0 = tuple(x[:1] for x in request)
+    warm = pipe.warmup_stream_async(*row0, play_steps=PLAY_STEPS, decoder_prompt_codes=codes[:1])
+    warm.join()
+
+    out = {}
+    for label, req, steer in (("stream B=1", row0, codes[:1]), ("stream_batch B=2", request,
+                                                                  codes)):
+        rec = ChunkRecorder(pipe)
+        flash_decode_attention.launches = 0
+        chunks, first, got = [], None, np.zeros(steer.shape[0], np.int64)
+        t0 = time.perf_counter()
+        if steer.shape[0] == 1:
+            for chunk in pipe.stream(*req, play_steps=PLAY_STEPS, decoder_prompt_codes=steer):
+                first = first or time.perf_counter() - t0
+                chunks.append(chunk)
+                got += chunk.shape[1]
+        else:
+            for chunk, valid in pipe.stream_batch(*req, play_steps=PLAY_STEPS,
+                                                  decoder_prompt_codes=steer):
+                first = first or time.perf_counter() - t0
+                chunks.append(chunk)
+                got += valid
+        wall = time.perf_counter() - t0
+        k1 = flash_decode_attention.launches
+        tokens = rec.tokens()
+        offline = pipe.generate_codes(*req, decoder_prompt_codes=steer)
+        same = torch.equal(tokens, offline.delayed_ids)
+        want_samples = offline.lengths.cpu().numpy() * hop
+        print(f"  {label}, voice prompt {codes.shape[-1]} frames, {MAX_LENGTH} columns: first "
+              f"chunk after {first:.3f} s, {len(chunks)} chunks, {decode_steps / wall:.1f} "
+              f"decode steps/s over the stream ({wall:.2f} s, codec flushes included) ({card})")
+        print(f"    tokens equal to generate_codes: {same}; samples {got.tolist()} = "
+              f"{want_samples.tolist()}: {bool((got == want_samples).all())}; K1 launches {k1} "
+              f"= {n_layers} x {decode_steps}: {k1 == n_layers * decode_steps}; audio finite "
+              f"{bool(np.isfinite(np.concatenate(chunks, axis=1)).all())}")
+        if (not same or (got != want_samples).any() or k1 != n_layers * decode_steps
+                or not np.isfinite(np.concatenate(chunks, axis=1)).all()):
+            raise AssertionError(f"{label}: tokens equal {same}, samples {got} vs "
+                                 f"{want_samples}, K1 {k1}")
+        out[label] = dict(first_chunk_s=first, steps_per_s=decode_steps / wall,
+                          chunks=len(chunks), launches=k1)
+
+    # PCM through the native ring buffer, over PCM_COLUMNS columns
+    short = ParlerTTSPipeline(pipe.model, pipe.dac, dataclasses.replace(
+        pipe.generation_config, max_length=PCM_COLUMNS, min_new_tokens=PCM_COLUMNS),
+        cache_dtype=torch.bfloat16, device=dev)
+    chunks = list(short.stream(*row0, play_steps=PLAY_STEPS))
+    want = b"".join(float_to_pcm16(c[0]) for c in chunks)
+    pcm = b"".join(ParlerTTSStreamer(short, play_steps=PLAY_STEPS).pcm_stream(*row0))
+    plain = b"".join(float_to_pcm16_plain(c[0]) for c in chunks)
+    print(f"  pcm_stream over {PCM_COLUMNS} columns: {len(pcm)} bytes in {len(chunks)} chunks, "
+          f"equal to float_to_pcm16 of the stream's chunks: {pcm == want}, and to its numpy "
+          f"version: {want == plain}")
+    if pcm != want or want != plain or not pcm:
+        raise AssertionError("pcm_stream bytes differ from the stream's chunks")
+    return out
+
+
+# ------------------------------------------------------------ large-v1 side
+LARGE_COLUMNS = 256
+
+
+def large_v1_config():
+    from parler_tts_tpu_torch.config import ParlerTTSConfig, large_v1_decoder_config
+
+    return ParlerTTSConfig(decoder=large_v1_decoder_config())
+
+
+def bound(bytes_moved, ops, ops_per_s):
+    byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else "operations"
+
+
+def large_k1(dev, card):
+    """K1 at large-v1's H=24 over the 868-slot stacked cache of 30 layers."""
+    import torch.nn.functional as F
+
+    from parler_tts_tpu_torch.ops.flash_decode import (
+        flash_decode_attention,
+        flash_decode_attention_plain,
+        split_count,
+    )
+
+    cfg = large_v1_config().decoder
+    g = torch.Generator(device=dev).manual_seed(11)
+    h, dh, n_layers, b = cfg.num_attention_heads, cfg.head_dim, cfg.num_hidden_layers, BATCH
+
+    def rand(*shape, dtype):
+        return (torch.randn(shape, generator=g, device=dev) * 0.3).to(dtype)
+
+    starts = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=dtype)
+        cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=dtype)
+        cases = [(f"limit={n} layer {layer}", rand(b, h, dh, dtype=dtype), n, layer)
+                 for n in (1, 65, 434, 867, S_CACHE) for layer in (0, n_layers - 1)]
+        cases.append(("W=4 window", rand(b, 4, h, dh, dtype=dtype), S_CACHE - 3, n_layers - 1))
+        for name, q, limit, layer in cases:
+            got = flash_decode_attention(q, cache_k, cache_v, starts, limit, layer=layer)
+            torch.cuda.synchronize()
+            splits = split_count(b, h, S_CACHE, q.shape[1] if q.dim() == 4 else 1)
+            want = flash_decode_attention_plain(q, cache_k, cache_v, starts, limit, layer=layer,
+                                                splits=splits)
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+            if not torch.equal(flash_decode_attention(q, cache_k, cache_v, starts, limit,
+                                                      layer=layer), got):
+                raise AssertionError(f"K1 large-v1 {name}: a second call gave other bits")
+            max_err = max(max_err, err)
+        if dtype == torch.float32:  # a result without the first slot fails the fp32 tolerance
+            q = cases[6][1]
+            got = flash_decode_attention(q, cache_k, cache_v, starts, 434, layer=0)
+            dropped = flash_decode_attention_plain(q, cache_k, cache_v, starts + 1, 434,
+                                                   layer=0, splits=split_count(b, h, S_CACHE, 1))
+            if torch.allclose(got, dropped, **TOL[dtype]):
+                raise AssertionError("K1 large-v1: fp32 TOL does not see the first slot left out")
+        print(f"  K1 at H={h} vs plain {str(dtype)[6:]}: {len(cases)} cases (starts 0/3, "
+              f"stacked layers 0 and {n_layers - 1}, W=4) within TOL, max_abs_err "
+              f"{max_err:.3e}, repeats "
+              f"bit-identical, {split_count(b, h, S_CACHE, 1)} splits"
+              + ("; a dropped first slot fails fp32 TOL" if dtype == torch.float32 else ""))
+        del cache_k, cache_v
+
+    cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
+    cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
+    q = rand(b, h, dh, dtype=torch.bfloat16)
+    zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+    k_views = [cache_k[i].view(b, S_CACHE, h, dh).transpose(1, 2) for i in range(n_layers)]
+    v_views = [cache_v[i].view(b, S_CACHE, h, dh).transpose(1, 2) for i in range(n_layers)]
+    ms = graph_ms(lambda i: flash_decode_attention(q, cache_k, cache_v, zeros, S_CACHE,
+                                                   layer=i % n_layers), n_layers)
+    sdpa_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+        q.view(b, h, 1, dh), k_views[i % n_layers], v_views[i % n_layers], scale=1.0), n_layers)
+    plain_ms = cuda_ms(lambda i: flash_decode_attention_plain(
+        q, cache_k, cache_v, zeros, S_CACHE, layer=i % n_layers,
+        splits=split_count(b, h, S_CACHE, 1)), iters=60)
+    bound_ms, bound_by = bound(2 * b * h * dh * 2 + 2 * b * S_CACHE * h * dh * 2,
+                               4 * b * h * S_CACHE * dh, BF16_OPS_PER_S)
+    print(f"  K1 large-v1 B=2 bf16 868 slots: {ms * 1e3:.2f} us by graph replay of {n_layers} "
+          f"launches, "
+          f"SDPA {sdpa_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}; {bound_ms / ms:.1%} of it) ({card})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=max_err)
+
+
+def large_k2(dev, card):
+    """K2 at large-v1's K x N = D x D, D x F and F x D (1536 x 1536, 1536 x
+    6144, 6144 x 1536), 6, 1 and 1 launches a layer."""
+    from parler_tts_tpu_torch.ops.quant_matmul import (
+        k2_close,
+        k2_grid,
+        quant_matmul,
+        quant_matmul_plain,
+    )
+
+    cfg = large_v1_config().decoder
+    d, f, n_layers = cfg.hidden_size, cfg.ffn_dim, cfg.num_hidden_layers
+    shapes = ((d, d), (d, f), (f, d))
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    def scales(n):
+        return torch.rand(n, generator=g, device=dev) * 0.009 + 1e-3
+
+    max_err = 0.0
+    for m in (1, BATCH, 18):  # B=1 and B=2 decode, B=2 prefill of 8 + 1 columns
+        for k, n in shapes:
+            w, s = int8(k, n), scales(n)
+            slices, slice_ = k2_grid(m, k, n)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn(m, k, generator=g, device=dev) * 0.3).to(dtype)
+                got = quant_matmul(x, w, s)
+                torch.cuda.synchronize()
+                want = quant_matmul_plain(x, w, s)
+                err = (got.float() - want.float()).abs().max().item()
+                dropped = x.clone()
+                dropped[:, (slices - 1) * slice_:] = 0
+                if (got.dtype != dtype or not k2_close(got, want)
+                        or not torch.equal(quant_matmul(x, w, s), got)
+                        or k2_close(quant_matmul_plain(dropped, w, s), want)):
+                    raise AssertionError(f"K2 large-v1 {dtype} M={m} K={k} N={n}: error "
+                                         f"{err:.3e}, or a repeat differs, or a dropped K "
+                                         f"slice passes")
+                max_err = max(max_err, err)
+            print(f"  K2 large-v1 M={m:2d} K={k} N={n}: {slices} x {slice_}-row slices, fp32 and "
+                  f"bf16 within k2_close, repeats bit-identical, a dropped slice outside")
+
+    layers = [[(int8(k, n), scales(n)) for (k, n), per in zip(shapes, (6, 1, 1))
+               for _ in range(per)] for _ in range(n_layers)]
+    xs = {k: torch.randn(BATCH, k, generator=g, device=dev).to(torch.bfloat16) for k in (d, f)}
+
+    def k2_layer(i):
+        for w, s in layers[i]:
+            quant_matmul(xs[w.shape[0]], w, s)
+
+    def plain_layer(i):
+        for w, s in layers[i % n_layers]:
+            quant_matmul_plain(xs[w.shape[0]], w, s)
+
+    ms = graph_ms(k2_layer, n_layers)
+    plain_ms = device_ms(plain_layer, iters=n_layers)
+    deq = [[w.to(torch.bfloat16) for w, _ in layer] for layer in layers]
+
+    def mm_layer(i):
+        for w in deq[i]:
+            torch.matmul(xs[w.shape[0]], w)
+
+    library_ms = graph_ms(mm_layer, n_layers)
+    weights = sum(w.numel() for w, _ in layers[0])
+    small = sum(BATCH * w.shape[0] * 2 + s.numel() * 4 + BATCH * w.shape[1] * 2
+                for w, s in layers[0])
+    bound_ms, bound_by = bound(weights + small, 2 * BATCH * weights, INT8_OPS_PER_S)
+    print(f"  K2 large-v1, one decode layer's 8 launches at M=2 ({weights / 1e6:.2f} MB of "
+          f"int8): {ms * 1e3:.2f} us by graph replay over {n_layers} layers, bf16 matmul "
+          f"{library_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}; {bound_ms / ms:.1%} of it) ({card})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=max_err)
+
+
+def large_k3(dev, card):
+    """K3 at large-v1 (D=1536, F=6144, H=24, 30 layers) against its plain
+    version layer by layer within `fused_limits`, at n_rows 1, 434 and 867
+    from starts 0 and 3; a dropped first or last cache row must fail."""
+    from parler_tts_tpu_torch.models.decoder import ParlerDecoder
+    from parler_tts_tpu_torch.models.layers import init_weights
+    from parler_tts_tpu_torch.ops.fused_decode_step import (
+        CUDA_CHUNK,
+        fused_close,
+        fused_decode_layers,
+        fused_decode_layers_plain,
+        fused_gaps,
+        fused_limits,
+        launch_plan,
+        prepare_fused_params,
+    )
+
+    cfg = large_v1_config().decoder
+    g = torch.Generator(device=dev).manual_seed(13)
+    decoder = ParlerDecoder(cfg, device=dev, dtype=torch.bfloat16)
+    init_weights(decoder, g)
+    fp = prepare_fused_params(decoder)
+    del decoder
+    n_layers, d, s_enc = cfg.num_hidden_layers, cfg.hidden_size, 16
+
+    def bf16(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+
+    cache_k, cache_v = bf16(n_layers, S_CACHE, d), bf16(n_layers, S_CACHE, d)
+    cross_k, cross_v, x = bf16(n_layers, s_enc, d), bf16(n_layers, s_enc, d), bf16(1, d)
+    enc_bias = torch.zeros(1, s_enc, device=dev)
+    enc_bias[0, 12:] = torch.finfo(torch.float32).min
+    plan = launch_plan(cfg)
+    print(f"  K3 large-v1 launch: {plan['blocks']} blocks of {plan['threads']} threads, "
+          f"{plan['stages']} x {plan['stage_bytes']} B ring stages")
+
+    def args(start, n_rows):
+        return (cfg, fp, x, cache_k, cache_v, cross_k, cross_v, enc_bias, start, n_rows)
+
+    def plain(start, n_rows, **kw):
+        return fused_decode_layers_plain(*args(start, n_rows), block_s=CUDA_CHUNK, tiling="cuda",
+                                         **kw)
+
+    mean, last = S_CACHE // 2, S_CACHE - 1  # 434 and 867: an 860-column run's mean and last step
+    cases = [(s, n) for s in (0, 3) for n in (1, mean, last)]
+    got, want, noise = {}, {}, {}
+    for case in cases:
+        got[case] = fused_decode_layers(*args(*case))
+        torch.cuda.synchronize()
+        want[case] = plain(*case)
+        noise[case] = fused_gaps(plain(*case, dtype=torch.float64), want[case])
+    limits = fused_limits(torch.stack(list(noise.values())))
+    gaps = torch.stack([fused_gaps(got[c], want[c]) for c in cases])
+    max_abs = max((a.float() - b.float()).abs().max().item()
+                  for c in cases for a, b in zip(got[c], want[c]))
+    worst = (gaps / limits[0]).max().item()
+    median = gaps[:, 1].median().item() / limits[1]
+    print(f"  K3 large-v1 vs plain over {len(cases)} cases (start, n_rows) {cases}: worst slice "
+          f"{worst:.2f} x its limit, median at layer 1 {median:.2f} x its limit, max abs "
+          f"{max_abs:.3e}; limits from the plain version's fp32-vs-float64 noise (largest "
+          f"{limits[0].max().item():.2e})")
+    if not fused_close(gaps, limits):
+        raise AssertionError(f"K3 large-v1 exceeds its limits: {worst:.2f} x, {median:.2f} x")
+    long = [c for c in cases if c[1] >= mean]
+    for label, cut in (("first", lambda s, n: (s + 1, n)), ("last", lambda s, n: (s, n - 1))):
+        broken = torch.stack([fused_gaps(fused_decode_layers(*args(*cut(*c))), want[c])
+                              for c in long])
+        print(f"  K3 large-v1 negative check, the {label} cache row dropped at n_rows {mean} "
+              f"and {last}: worst slice {(broken / limits[0]).max().item():.2f} x its limit, "
+              f"median at layer 1 {broken[:, 1].median().item() / limits[1]:.2f} x its limit")
+        if fused_close(broken, limits):
+            raise AssertionError(f"K3 large-v1: a dropped {label} cache row passes the limits")
+    first = fused_decode_layers(*args(3, last))
+    if not all(all(torch.equal(a, b) for a, b in zip(fused_decode_layers(*args(3, last)), first))
+               for _ in range(20)):
+        raise AssertionError("K3 large-v1: a repeat gave other bits")
+
+    bounds = [torch.tensor(v, dtype=torch.int32, device=dev) for v in (3, mean)]
+    ms = graph_ms(lambda i: fused_decode_layers(*args(*bounds)), n=10)
+    plain_ms = device_ms(lambda i: plain(3, mean), iters=3, warmup=1)
+    weights = fp.w_attn.numel() + fp.wfc1.numel() + fp.wfc2.numel()
+    small = 4 * (fp.s_attn.numel() + fp.sfc1.numel() + fp.sfc2.numel() + 6 * n_layers * d)
+    rows = mean - 3
+    bytes_moved = (weights + small + 2 * n_layers * rows * d * 2 + 2 * n_layers * s_enc * d * 2
+                   + s_enc * 4 + d * 2 * 2 + 2 * n_layers * d * 2)
+    bound_ms, bound_by = bound(bytes_moved, 2 * weights + 4 * n_layers * (rows + 1 + s_enc) * d,
+                               INT8_OPS_PER_S)
+    print(f"  K3 large-v1, {n_layers} layers at {mean} cache rows: {ms:.4f} ms by CUDA-graph "
+          f"replay of 10 launches, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{bytes_moved / 1e6:.1f} MB; {bound_ms / ms:.1%} of it); 20 repeats bit-identical "
+          f"({card})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=max_abs, max_norm_rel_err=gaps.max().item())
+
+
+def large_serve(dev, card):
+    """large-v1 served over LARGE_COLUMNS greedy columns on the three paths,
+    with exact launch counts; returns them."""
+    import dataclasses
+
+    from parler_tts_tpu_torch.config import GenerationConfig
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.ops.fused_decode_step import fused_decode_layers
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+
+    cfg = large_v1_config()
+    gen = GenerationConfig(max_length=LARGE_COLUMNS, min_new_tokens=LARGE_COLUMNS,
+                           do_sample=False, codebook_guard=1024)
+    bf16 = dict(device=dev, dtype=torch.bfloat16, cache_dtype=torch.bfloat16)
+    request = request_ids(0)
+    n_layers = cfg.decoder.num_hidden_layers
+    decode_steps = LARGE_COLUMNS - 2
+    t0 = time.perf_counter()
+    eager = ParlerTTSPipeline.from_random(cfg, seed=0, generation_config=gen, **bf16)
+    int8 = ParlerTTSPipeline.from_random(cfg, seed=0, generation_config=gen, weight_quant=True,
+                                         **bf16)
+    fused = ParlerTTSPipeline(eager.model, eager.dac, gen, cache_dtype=torch.bfloat16,
+                              device=dev, fused_decode=True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in eager.model.parameters())
+    print(f"  large-v1 ({n_params / 1e6:.1f}M parameters + codec) in bf16, int8 and fused on the "
+          f"card: {time.perf_counter() - t0:.2f} s")
+    launches = {}
+    for label, pipe, req, want in (
+            ("eager bf16 B=2", eager, request, dict(k1=n_layers * decode_steps, k2=0, k3=0)),
+            ("int8 B=2", int8, request, dict(k1=n_layers * decode_steps,
+                                             k2=8 * n_layers * (decode_steps + 1) + 2 * n_layers,
+                                             k3=0)),
+            ("fused B=1", fused, tuple(x[1:2] for x in request),
+             dict(k1=0, k2=0, k3=decode_steps))):
+        warm = ParlerTTSPipeline(pipe.model, pipe.dac, dataclasses.replace(
+            gen, max_length=40, min_new_tokens=40), cache_dtype=torch.bfloat16, device=dev,
+            fused_decode=pipe.fused is not None)
+        warm.decode_codes(*warm.generate_codes(*req)[1:3])
+        torch.cuda.synchronize()
+        flash_decode_attention.launches = quant_matmul.launches = 0
+        fused_decode_layers.launches = 0
+        serve(pipe, req, f"large-v1 {label}", card)
+        got = dict(k1=flash_decode_attention.launches, k2=quant_matmul.launches,
+                   k3=fused_decode_layers.launches)
+        print(f"    launches {got} = {want}: {got == want}")
+        if got != want:
+            raise AssertionError(f"large-v1 {label}: launches {got}, want {want}")
+        launches[label] = got
+    del eager, int8, fused
+    torch.cuda.empty_cache()
+    return dict(k1=launches["eager bf16 B=2"]["k1"], k2=launches["int8 B=2"]["k2"],
+                k3=launches["fused B=1"]["k3"])
+
+
+def phase_l(dev, card):
+    """large-v1 at full width and depth on the card: K1, K2 and K3 against
+    their plain versions at its shapes, one fp32 decode step through K1
+    against the dense path, and the three serving paths with exact launch
+    counts. Returns each kernel's large-v1 numbers."""
+    out = dict(k1=large_k1(dev, card), k2=large_k2(dev, card), k3=large_k3(dev, card))
+    torch.cuda.empty_cache()
+    phase_c(dev, card, large_v1_config())
+    for key, n in large_serve(dev, card).items():
+        out[key]["launches"] = n
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2043,6 +2593,9 @@ def main() -> int:
     k3_launches, stream_g = phase_g(dev, card)
     print(f"[phase g] mini-v1 fused B=1 pipeline: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
+    stream_k = phase_k(dev, card, source)
+    print(f"[phase k] voice-steered mini-v1 streams: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
     phase_j(dev, card, source, out_b, stream_e, stream_g)
     del source, out_b, stream_e, stream_g
     torch.cuda.empty_cache()
@@ -2055,21 +2608,27 @@ def main() -> int:
     t0 = time.perf_counter()
     k4_launches = phase_i(dev, card)
     print(f"[phase i] mini-v1 trainer: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    large = phase_l(dev, card)
+    print(f"[phase l] large-v1 kernels and serving: {time.perf_counter() - t0:.2f} s ({card})")
+    print("  time to first chunk (phase k): " + "; ".join(
+        f"{label} {v['first_chunk_s']:.3f} s, {v['steps_per_s']:.1f} decode steps/s, "
+        f"{v['chunks']} chunks" for label, v in stream_k.items()) + f" ({card})")
 
     kernels = [
         dict(name="flash_decode_attention", route="cuda",
              source="parler_tts_tpu_torch/csrc/flash_decode.cu",
              replaces="parler_tts_tpu/ops/pallas/flash_decode.py:192",
-             launches=launches, max_abs_err=max_err, **timing),
+             launches=launches, max_abs_err=max_err, **timing, large_v1=large["k1"]),
         dict(name="quant_matmul", route="cuda",
              source="parler_tts_tpu_torch/csrc/quant_matmul.cu",
              replaces="parler_tts_tpu/ops/pallas/quant_matmul.py:39",
-             launches=k2_launches, max_abs_err=k2_err, **k2_timing),
+             launches=k2_launches, max_abs_err=k2_err, **k2_timing, large_v1=large["k2"]),
         dict(name="fused_decode_layers", route="cuda",
              source="parler_tts_tpu_torch/csrc/fused_decode_step.cu",
              replaces="parler_tts_tpu/ops/pallas/fused_decode_step.py:352",
              launches=k3_launches, max_abs_err=k3_err, max_norm_rel_err=k3_norm_rel,
-             **k3_timing),
+             **k3_timing, large_v1=large["k3"]),
     ] + [
         dict(name=f"flash_attention{tag}_{name}", route="cuda",
              source=f"parler_tts_tpu_torch/csrc/flash_attention{tag}.cu",

@@ -1,14 +1,13 @@
 """descript-DAC checkpoint tensors <-> the JAX codec's parameter tree (port
-of `parler_tts_tpu/codec/convert.py`), for the decode side.
+of `parler_tts_tpu/codec/convert.py`): encoder, quantizer and decoder.
 
 The torch weight-norm parametrization is folded into plain kernels, in
 float64 (w = g * v / ||v||, the norm over every dim but 0, torch's
 weight_norm with dim=0), from either form a checkpoint holds:
 `parametrizations.weight.original{0,1}` or `weight_g`/`weight_v`. Names
 follow descript's `DAC` module tree (`decoder.model.N...`,
-`quantizer.quantizers.K...`) under the `model.` prefix of the DAC wrapper.
-The encode side (`encoder.*`, the quantizers' `in_proj`) is not read: the
-port's codec has no encoder yet (ROADMAP.md, item 16).
+`quantizer.quantizers.K...`, `encoder.block.N...`) under the `model.` prefix
+of the DAC wrapper.
 
 Tensors in, tensors out: the tree's leaves view the checkpoint's tensors
 where only the layout changes, and the folded kernels are new fp32 (or the
@@ -67,11 +66,25 @@ def _residual_unit(tensors, prefix) -> Dict:
 
 def convert_dac_params(tensors: Mapping[str, torch.Tensor], config: DACConfig,
                        prefix: str = "model.") -> Dict:
-    """descript-DAC state dict -> the JAX `DACModel` tree, decode side
-    (`quantizer` codebooks and out-projections, `decoder`). `prefix` is
+    """descript-DAC state dict -> the JAX `DACModel` tree (`encoder`,
+    `quantizer` codebooks and in/out projections, `decoder`). `prefix` is
     `model.` for a bare DAC wrapper checkpoint and `audio_encoder.model.`
     inside the composite Parler checkpoint."""
     p = prefix
+    encoder: Dict = {"conv_in": _conv(tensors, f"{p}encoder.block.0")}
+    for i in range(len(config.encoder_rates)):
+        bp = f"{p}encoder.block.{1 + i}"
+        encoder[f"block_{i}"] = {
+            "res1": _residual_unit(tensors, f"{bp}.block.0"),
+            "res2": _residual_unit(tensors, f"{bp}.block.1"),
+            "res3": _residual_unit(tensors, f"{bp}.block.2"),
+            "snake": _snake(tensors, f"{bp}.block.3"),
+            "down": _conv(tensors, f"{bp}.block.4"),
+        }
+    n_enc = 1 + len(config.encoder_rates)
+    encoder["snake_out"] = _snake(tensors, f"{p}encoder.block.{n_enc}")
+    encoder["conv_out"] = _conv(tensors, f"{p}encoder.block.{n_enc + 1}")
+
     decoder: Dict = {"conv_in": _conv(tensors, f"{p}decoder.model.0")}
     for i in range(len(config.decoder_rates)):
         bp = f"{p}decoder.model.{1 + i}"
@@ -86,18 +99,22 @@ def convert_dac_params(tensors: Mapping[str, torch.Tensor], config: DACConfig,
     decoder["snake_out"] = _snake(tensors, f"{p}decoder.model.{n_dec}")
     decoder["conv_out"] = _conv(tensors, f"{p}decoder.model.{n_dec + 1}")
 
-    cbs, opk, opb = [], [], []
+    cbs, ipk, ipb, opk, opb = [], [], [], [], []
     for k in range(config.num_codebooks):
         qp = f"{p}quantizer.quantizers.{k}"
         cbs.append(tensors[f"{qp}.codebook.weight"])
+        ipk.append(_folded_weight(tensors, f"{qp}.in_proj")[:, :, 0].t())   # (latent, d_cb)
+        ipb.append(tensors[f"{qp}.in_proj.bias"])
         opk.append(_folded_weight(tensors, f"{qp}.out_proj")[:, :, 0].t())  # (d_cb, latent)
         opb.append(tensors[f"{qp}.out_proj.bias"])
     quantizer = {
         "codebooks": torch.stack(cbs),
+        "in_proj_kernel": torch.stack(ipk),
+        "in_proj_bias": torch.stack(ipb),
         "out_proj_kernel": torch.stack(opk),
         "out_proj_bias": torch.stack(opb),
     }
-    return {"quantizer": quantizer, "decoder": decoder}
+    return {"encoder": encoder, "quantizer": quantizer, "decoder": decoder}
 
 
 # --------------------------------------------------------------------- export
@@ -113,8 +130,8 @@ def export_dac_params(params: Mapping, config: DACConfig, prefix: str = "model."
                       ) -> Dict[str, torch.Tensor]:
     """The inverse of `convert_dac_params`: a JAX-named DAC tree (arrays or
     tensors) -> descript-DAC tensors, weight-norm parametrized as
-    `weight_g`/`weight_v` when `weight_norm`. Decode side only: a tree
-    without `encoder` or `in_proj` leaves gives a state dict without them."""
+    `weight_g`/`weight_v` when `weight_norm`: encoder, quantizer and
+    decoder."""
     out: Dict[str, torch.Tensor] = {}
 
     def put_conv(name: str, leaf: Mapping, dims):
@@ -140,7 +157,20 @@ def export_dac_params(params: Mapping, config: DACConfig, prefix: str = "model."
         snake(f"{name}.block.2", leaf["snake2"])
         conv(f"{name}.block.3", leaf["conv2"])
 
-    p, dec = prefix, params["decoder"]
+    p, enc = prefix, params["encoder"]
+    conv(f"{p}encoder.block.0", enc["conv_in"])
+    for i in range(len(config.encoder_rates)):
+        bp, blk = f"{p}encoder.block.{1 + i}", enc[f"block_{i}"]
+        res_unit(f"{bp}.block.0", blk["res1"])
+        res_unit(f"{bp}.block.1", blk["res2"])
+        res_unit(f"{bp}.block.2", blk["res3"])
+        snake(f"{bp}.block.3", blk["snake"])
+        conv(f"{bp}.block.4", blk["down"])
+    n_enc = 1 + len(config.encoder_rates)
+    snake(f"{p}encoder.block.{n_enc}", enc["snake_out"])
+    conv(f"{p}encoder.block.{n_enc + 1}", enc["conv_out"])
+
+    dec = params["decoder"]
     conv(f"{p}decoder.model.0", dec["conv_in"])
     for i in range(len(config.decoder_rates)):
         bp, blk = f"{p}decoder.model.{1 + i}", dec[f"block_{i}"]
@@ -153,17 +183,17 @@ def export_dac_params(params: Mapping, config: DACConfig, prefix: str = "model."
     snake(f"{p}decoder.model.{n_dec}", dec["snake_out"])
     conv(f"{p}decoder.model.{n_dec + 1}", dec["conv_out"])
 
-    q = params["quantizer"]
-    codebooks, kernels = as_tensor(q["codebooks"]), as_tensor(q["out_proj_kernel"])
-    biases = as_tensor(q["out_proj_bias"])
+    q = {name: as_tensor(leaf) for name, leaf in params["quantizer"].items()}
     for k in range(config.num_codebooks):
         qp = f"{p}quantizer.quantizers.{k}"
-        out[f"{qp}.codebook.weight"] = codebooks[k]
-        wo = kernels[k].t()[:, :, None].contiguous()  # (latent, d_cb, 1)
-        if weight_norm:
-            out[f"{qp}.out_proj.weight_g"], out[f"{qp}.out_proj.weight_v"] = \
-                _split_weight_norm(wo, v_scale)
-        else:
-            out[f"{qp}.out_proj.weight"] = wo
-        out[f"{qp}.out_proj.bias"] = biases[k]
+        out[f"{qp}.codebook.weight"] = q["codebooks"][k]
+        for proj in ("in_proj", "out_proj"):  # (d_cb, latent, 1) and (latent, d_cb, 1)
+            w = q[f"{proj}_kernel"][k].t()[:, :, None].contiguous()
+            if weight_norm:
+                out[f"{qp}.{proj}.weight_g"], out[f"{qp}.{proj}.weight_v"] = \
+                    _split_weight_norm(w, v_scale)
+            else:
+                out[f"{qp}.{proj}.weight"] = w
+        for proj in ("in_proj", "out_proj"):
+            out[f"{qp}.{proj}.bias"] = q[f"{proj}_bias"][k]
     return out

@@ -1,4 +1,6 @@
-"""Descript Audio Codec, decode side (port of `parler_tts_tpu/codec/dac_model.py`).
+"""Descript Audio Codec (port of `parler_tts_tpu/codec/dac_model.py`): the
+Snake-activation conv encoder, the residual vector quantizer (decode from
+codes, and greedy encode to codes) and the transposed-conv decoder.
 
 Public functions keep the JAX package's (B, T, C) layout; inside, the conv
 stack runs channels-first (B, C, T) as PyTorch's convolutions want. Weights
@@ -118,6 +120,45 @@ class ResidualUnit(nn.Module):
         return x + self.conv2(self.snake2(self.conv1(self.snake1(x))))
 
 
+class EncoderBlock(nn.Module):
+    """Three residual units (dilations 1, 3, 9) at dim // 2 channels, then a
+    strided down conv (kernel 2 * stride) to `dim` channels."""
+
+    def __init__(self, dim: int, stride: int, device=None):
+        super().__init__()
+        h = dim // 2
+        self.res1 = ResidualUnit(h, 1, device)
+        self.res2 = ResidualUnit(h, 3, device)
+        self.res3 = ResidualUnit(h, 9, device)
+        self.snake = Snake1d(h, device)
+        self.down = Conv1d(h, dim, 2 * stride, stride=stride, padding=math.ceil(stride / 2),
+                           device=device)
+
+    def forward(self, x):
+        return self.down(self.snake(self.res3(self.res2(self.res1(x)))))
+
+
+class DACEncoder(nn.Module):
+    def __init__(self, config: DACConfig, device=None):
+        super().__init__()
+        d = config.encoder_dim
+        self.conv_in = Conv1d(1, d, 7, padding=3, device=device)
+        blocks = []
+        for stride in config.encoder_rates:
+            d *= 2
+            blocks.append(EncoderBlock(d, stride, device))
+        self.block = nn.ModuleList(blocks)
+        self.snake_out = Snake1d(d, device)
+        self.conv_out = Conv1d(d, config.latent_dim, 3, padding=1, device=device)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        """audio (B, T, 1) -> latents (B, T / hop, latent_dim)."""
+        x = self.conv_in(audio.transpose(1, 2))
+        for block in self.block:
+            x = block(x)
+        return self.conv_out(self.snake_out(x)).transpose(1, 2)
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, input_dim: int, output_dim: int, stride: int, device=None):
         super().__init__()
@@ -156,12 +197,17 @@ class DACDecoder(nn.Module):
 
 
 class ResidualVQ(nn.Module):
-    """Residual vector quantizer, decode from codes."""
+    """Residual vector quantizer: decode from codes, encode to codes. The
+    in/out projections are 1x1 convs, stored as (K, in, out) kernels with
+    the weight norm folded."""
 
     def __init__(self, config: DACConfig, device=None):
         super().__init__()
         k = config.num_codebooks
         self.codebooks = new_param(k, config.codebook_size, config.codebook_dim, device=device)
+        self.in_proj_kernel = new_param(k, config.latent_dim, config.codebook_dim,
+                                        device=device)
+        self.in_proj_bias = new_param(k, config.codebook_dim, device=device)
         self.out_proj_kernel = new_param(k, config.codebook_dim, config.latent_dim,
                                          device=device)
         self.out_proj_bias = new_param(k, config.latent_dim, device=device)
@@ -171,6 +217,9 @@ class ResidualVQ(nn.Module):
         std = 1.0 / math.sqrt(self.out_proj_kernel.shape[1])
         self.out_proj_kernel.normal_(0.0, std, generator=generator)
         self.out_proj_bias.zero_()
+        self.in_proj_kernel.normal_(0.0, 1.0 / math.sqrt(self.in_proj_kernel.shape[1]),
+                                    generator=generator)
+        self.in_proj_bias.zero_()
 
     def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """codes (B, K, T') -> fp32 latents (B, T', latent_dim):
@@ -181,15 +230,48 @@ class ResidualVQ(nn.Module):
         z_q = torch.einsum("bktc,kcd->btd", z_p.float(), self.out_proj_kernel.float())
         return z_q + self.out_proj_bias.float().sum(dim=0)[None, None, :]
 
+    def distances(self, residual: torch.Tensor, k: int) -> torch.Tensor:
+        """(B, T', C) squared distances between the L2-normalised
+        in-projection of `residual` (B, T', D) and codebook k's L2-normalised
+        entries, with the JAX package's (and descript's `decode_latents`)
+        1e-12 epsilons."""
+        z_e = residual @ self.in_proj_kernel[k] + self.in_proj_bias[k]
+        enc = z_e / (torch.linalg.vector_norm(z_e, dim=-1, keepdim=True) + 1e-12)
+        cb = self.codebooks[k]
+        cbn = cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-12)
+        return (enc.square().sum(dim=-1, keepdim=True) - 2.0 * enc @ cbn.t()
+                + cbn.square().sum(dim=-1))
+
+    def encode(self, latents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Greedy residual quantization: latents (B, T', D) -> (codes (B, K, T')
+        int64, z_q (B, T', D)). Codebook k takes the entry nearest to the
+        residual (`distances`; the first index wins a tie, as with
+        `jnp.argmin`); its out-projection leaves the residual, and z_q sums
+        them."""
+        residual, codes, z_q = latents, [], 0
+        for k in range(self.codebooks.shape[0]):
+            idx = torch.argmin(self.distances(residual, k), dim=-1)  # (B, T')
+            z_q_k = self.codebooks[k][idx] @ self.out_proj_kernel[k] + self.out_proj_bias[k]
+            residual = residual - z_q_k
+            codes.append(idx)
+            z_q = z_q + z_q_k
+        return torch.stack(codes, dim=1), z_q
+
 
 class DACModel(nn.Module):
-    """Codec decode: codes (B, K, T') int -> audio (B, T' * hop, 1) float."""
+    """The codec: encode audio (B, T, 1) float -> codes (B, K, T / hop) int64;
+    decode codes (B, K, T') int -> audio (B, T' * hop, 1) float."""
 
     def __init__(self, config: DACConfig, device=None):
         super().__init__()
         self.config = config
         self.quantizer = ResidualVQ(config, device)
         self.decoder = DACDecoder(config, device)
+        self.encoder = DACEncoder(config, device)
+
+    def encode(self, audio: torch.Tensor) -> torch.Tensor:
+        """audio (B, T, 1), T a multiple of hop_length -> codes (B, K, T / hop)."""
+        return self.quantizer.encode(self.encoder(audio))[0]
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.quantizer.from_codes(codes))

@@ -226,6 +226,26 @@ def mini_v1_decoder_config(**overrides: Any) -> DecoderConfig:
     return DecoderConfig(**base)
 
 
+def large_v1_decoder_config(**overrides: Any) -> DecoderConfig:
+    """parler-tts-large-v1 decoder: 30 layers, hidden 1536, 24 heads, FFN 6144.
+    Its composite is `ParlerTTSConfig(decoder=large_v1_decoder_config())`: the
+    default text encoder is flan-t5-large and the codec the 44.1 kHz DAC."""
+    base = dict(
+        vocab_size=1088,
+        max_position_embeddings=4096,
+        num_hidden_layers=30,
+        ffn_dim=6144,
+        num_attention_heads=24,
+        hidden_size=1536,
+        num_codebooks=9,
+        pad_token_id=1024,
+        bos_token_id=1025,
+        eos_token_id=1024,
+    )
+    base.update(overrides)
+    return DecoderConfig(**base)
+
+
 def mini_v1_config() -> ParlerTTSConfig:
     """parler-tts-mini-v1: flan-t5-base encoder, mini-v1 decoder, 44.1 kHz DAC."""
     return ParlerTTSConfig(

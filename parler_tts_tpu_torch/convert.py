@@ -19,7 +19,7 @@ parameters), and every parameter of the port's module must receive a leaf.
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -50,13 +50,11 @@ def _flatten(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
     return flat
 
 
-def _load(root: nn.Module, tree: Mapping[str, Any], skip: Callable[[Path], bool]) -> None:
+def _load(root: nn.Module, tree: Mapping[str, Any]) -> None:
     modules = dict(root.named_modules())
     params = dict(root.named_parameters())
     loaded = set()
     for path, leaf in _flatten(tree).items():
-        if skip(path):
-            continue
         arr = as_tensor(leaf)
         parts = [".".join(m.groups()) if (m := _INDEXED.match(p)) else p for p in path]
         mod_name, leaf = ".".join(parts[:-1]), parts[-1]
@@ -135,9 +133,8 @@ def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
 
 def dac_to_jax_tree(dac: nn.Module) -> Dict[str, Any]:
     """The reverse of `load_jax_dac_params`: a `DACModel`'s parameters as the
-    JAX codec's tree (names and layouts), numpy fp32. The port's codec holds
-    the decode side only, so the tree has no `encoder` and no quantizer
-    `in_proj_*` leaves (ROADMAP.md, item 16)."""
+    JAX codec's tree (names and layouts; encoder, quantizer and decoder),
+    numpy fp32."""
     return _numpy(tensor_tree(dac))
 
 
@@ -145,16 +142,10 @@ def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
     """`ParlerTTS` (or any port module named like its flax twin) <- a flax-named
     tree of arrays or tensors, copied into the module's parameters on their
     device and in their dtypes."""
-    _load(model, params, skip=lambda path: False)
-
-
-# the encode side of the codec (voice steering) is not ported yet
-def _dac_encode_side(path: Path) -> bool:
-    return path[0] == "encoder" or path in (
-        ("quantizer", "in_proj_kernel"), ("quantizer", "in_proj_bias"),
-    )
+    _load(model, params)
 
 
 def load_jax_dac_params(dac: nn.Module, dac_params: Mapping[str, Any]) -> None:
-    """`DACModel` <- JAX DAC params (decode side; encode-side leaves are skipped)."""
-    _load(dac, dac_params, skip=_dac_encode_side)
+    """`DACModel` <- the JAX codec's params, every leaf (encoder, quantizer,
+    decoder)."""
+    _load(dac, dac_params)

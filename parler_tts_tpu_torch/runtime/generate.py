@@ -20,11 +20,17 @@ mode whose decode step is kernel K3 (`ops/fused_decode_step.py`): the whole
 layer stack of one token in one launch with int8 weights, the final LN and
 the stacked heads in fp32 after it. Prefill and sampling are shared with
 `generate_tokens`.
+
+`make_stream_functions` (port of the JAX package's) cuts the same loop into
+chunks of columns for streaming: a prefill that returns a `StreamState`,
+and a chunk step that advances it. The offline loop and the chunks call one
+decode step (`_advance`), so a stream's greedy tokens are the offline ones.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -155,9 +161,35 @@ def generate_tokens_fused(
                      decoder_prompt_codes, torch.bfloat16, fused=fused)
 
 
+@dataclass
+class StreamState:
+    """The carried state of the host-driven decode loop (port of the JAX
+    package's `StreamState`): the delayed ids written so far, the cache, the
+    EOS state, the sampler's generator and the next column `t` (a host int).
+    `prompt_cols` is the decoder prompt's column count (1 for BOS only, 1 + T0
+    under voice steering): min_new_tokens counts from there, as offline.
+    `step(t)` runs the decoder over column t - 1 and returns column t's
+    logits (B, K, V); it writes the cache in place and holds the masks the
+    JAX state carries (kv_valid, enc_mask). The state is updated in place
+    and returned by the functions that advance it."""
+
+    out_ids: torch.Tensor   # (B, K, L)
+    cache: DecoderCache
+    eos: EosState
+    generator: Optional[torch.Generator]
+    t: int
+    pattern: torch.Tensor   # (B, K, L)
+    s_p: int
+    prompt_cols: int
+    step: Callable[[int], torch.Tensor]
+
+
 @torch.inference_mode()
-def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
-              decoder_prompt_codes, cache_dtype, fused) -> GenerateOutput:
+def _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+             decoder_prompt_codes, cache_dtype, fused) -> StreamState:
+    """Encoder, prefill and the first sampled column (index s0); the decode
+    step over K1 (the dense bias path with a sliding window) or, with
+    `fused`, over K3."""
     cfg: ParlerTTSConfig = model.config
     dcfg = cfg.decoder
     k_cb, max_len = dcfg.num_codebooks, gen.max_length
@@ -237,7 +269,6 @@ def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generato
     )
     out_ids[:, :, s0] = col
 
-    # ---- decode loop: columns s0+1 .. L-1
     if fused is None:
         cross_bias = padding_cross_attention_bias(enc_mask, 1)
 
@@ -255,27 +286,96 @@ def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generato
     else:
         decode_step = _fused_step(model, fused, cache, enc_mask, out_ids, s_p, s0,
                                   flash_starts[0])
+    return StreamState(out_ids, cache, eos_state, generator, s0 + 1, pattern, s_p, s0,
+                       decode_step)
+
+
+def _advance(state: StreamState, gen: GenerationConfig, num_codebooks: int) -> None:
+    """Sample column `state.t` and move on to the next: the one decode step
+    that the offline loop and the stream chunks share."""
+    col, state.eos = _sample_column(
+        state.step(state.t), state.t, state.eos, state.pattern, gen, num_codebooks,
+        prompt_cols=state.prompt_cols, generator=state.generator,
+    )
+    state.out_ids[:, :, state.t] = col
+    state.t += 1
+
+
+@torch.inference_mode()
+def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+              decoder_prompt_codes, cache_dtype, fused) -> GenerateOutput:
+    k_cb, max_len = model.config.decoder.num_codebooks, gen.max_length
+    state = _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+                     decoder_prompt_codes, cache_dtype, fused)
+    s0 = state.prompt_cols
     # all_done[t]: every codebook of every row had emitted EOS before column t
-    all_done = torch.zeros((max_len + 2,), dtype=torch.bool, device=device)
-    t = s0 + 1
-    while t < max_len:
-        all_done[t] = eos_state.eos_seen.all()
-        if (t - s0 - 1) % EOS_CHECK_EVERY == 0 and bool(all_done[t]):
+    all_done = torch.zeros((max_len + 2,), dtype=torch.bool, device=desc_ids.device)
+    while state.t < max_len:
+        all_done[state.t] = state.eos.eos_seen.all()
+        if (state.t - s0 - 1) % EOS_CHECK_EVERY == 0 and bool(all_done[state.t]):
             break
-        col, eos_state = _sample_column(
-            decode_step(t), t, eos_state, pattern, gen, k_cb,
-            prompt_cols=s0, generator=generator,
-        )
-        out_ids[:, :, t] = col
-        t += 1
-    all_done[t] = eos_state.eos_seen.all()
+        _advance(state, gen, k_cb)
+    t = state.t
+    all_done[t] = state.eos.eos_seen.all()
     done_at = torch.nonzero(all_done[s0 + 1: t + 1])
     steps = s0 + 1 + int(done_at[0, 0]) if done_at.numel() else t
-
-    delayed = apply_delay_pattern_mask(out_ids, pattern)
+    delayed = apply_delay_pattern_mask(state.out_ids, state.pattern)
     codes = undelay_pattern(delayed, k_cb)
-    lengths = valid_frame_lengths(codes, dcfg.pad_token_id)  # pad == eos == codebook_size
-    return GenerateOutput(delayed, codes, lengths, steps)
+    pad = model.config.decoder.pad_token_id  # pad == eos == codebook_size
+    return GenerateOutput(delayed, codes, valid_frame_lengths(codes, pad), steps)
+
+
+def make_stream_functions(model: ParlerTTS, gen: GenerationConfig,
+                          cache_dtype=torch.bfloat16):
+    """(prefill_fn, step_chunk_fn) for streaming generation (port of the JAX
+    package's `make_stream_functions`), over the offline loop's decode step:
+
+      prefill_fn(desc_ids, desc_mask, prompt_ids, prompt_mask, generator=None,
+                 decoder_prompt_codes=None) -> StreamState, at t = s0 + 1;
+      step_chunk_fn(state, n_steps) -> state, `n_steps` columns further.
+
+    Once `t >= max_length` or every codebook of every row has seen EOS, the
+    state stops changing: `t`, `out_ids`, the cache and the EOS state keep
+    the values they had when that first held (the JAX package's freeze). A
+    chunk reads the device once, at its end: steps run past the freeze are
+    undone there (their columns get back the pattern's fill, their cache
+    rows their zeros, the EOS state its value at the freeze), so the host
+    does not wait on the device between steps. The stream never takes the
+    fused K3 step, as in the JAX package."""
+    k_cb, max_len = model.config.decoder.num_codebooks, gen.max_length
+
+    def prefill_fn(desc_ids, desc_mask, prompt_ids, prompt_mask, generator=None,
+                   decoder_prompt_codes=None) -> StreamState:
+        return _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+                        decoder_prompt_codes, cache_dtype, fused=None)
+
+    @torch.inference_mode()
+    def step_chunk_fn(state: StreamState, n_steps: int) -> StreamState:
+        t0 = state.t
+        eos = [state.eos]
+        done = [state.eos.eos_seen.all()]  # done[i]: frozen before step i
+        for _ in range(n_steps):
+            if state.t >= max_len:
+                break
+            _advance(state, gen, k_cb)
+            eos.append(state.eos)
+            done.append(state.eos.eos_seen.all())
+        frozen = torch.stack(done).nonzero()
+        if frozen.numel():  # the one read of the device in a chunk
+            t_f = t0 + int(frozen[0, 0])
+            if t_f < state.t:
+                fill = state.pattern[:, :, t_f:state.t]
+                state.out_ids[:, :, t_f:state.t] = torch.where(
+                    fill == -1, torch.full_like(fill, gen.pad_token_id), fill)
+                lo, hi = state.s_p + t_f - 1, state.s_p + state.t - 1
+                state.cache.self_k[:, :, lo:hi] = 0
+                state.cache.self_v[:, :, lo:hi] = 0
+                state.cache.index = lo
+                state.eos = eos[t_f - t0]
+                state.t = t_f
+        return state
+
+    return prefill_fn, step_chunk_fn
 
 
 def _fused_step(model: ParlerTTS, fp: FusedParams, cache: DecoderCache, enc_mask, out_ids,

@@ -11,6 +11,13 @@ package reads (native: `config.json` + pickled numpy trees; HF:
 `config.json` + `.safetensors`, read without the safetensors package), and
 `save_pretrained` writes the native layout, which the JAX package loads.
 
+Voice steering: `encode_voice_prompt` turns a reference clip into codec
+codes with the fp32 codec's encoder; they go to `generate` as
+`decoder_prompt_codes`. Streaming: `stream` (B=1 or the batch's row 0) and
+`stream_batch` yield waveform chunks every `play_steps` columns, decoding a
+trailing window of frames each time (`runtime/generate.py:
+make_stream_functions`; `runtime/streamer.py` wraps them for a player).
+
 Serving modes of the JAX pipeline: a model built with `weight_quant=True`
 (int8 weight-only decoder layers over kernel K2) or `"xla"` (the same int8
 weights over a plain matmul) is served unchanged; `fused_decode=True` sends
@@ -46,7 +53,13 @@ from ..models.parler import ParlerTTS, convert_composite_params, fused_qkv_model
 from ..ops.fused_decode_step import prepare_fused_params
 from ..utils.quantize import quantize_decoder_params_torch
 from .checkpoint import load_hf_config, load_safetensors_dir
-from .generate import GenerateOutput, generate_tokens, generate_tokens_fused
+from ..ops.delay_pattern import undelay_pattern, valid_frame_lengths
+from .generate import (
+    GenerateOutput,
+    generate_tokens,
+    generate_tokens_fused,
+    make_stream_functions,
+)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -139,6 +152,7 @@ class ParlerTTSPipeline:
         )
         # B=1 requests run the fused decode step over int8 weights stacked once
         self.fused = prepare_fused_params(self.model.decoder.decoder) if fused_decode else None
+        self._stream_fns = None
 
     @classmethod
     def from_random(
@@ -226,12 +240,10 @@ class ParlerTTSPipeline:
     def save_pretrained(self, path: str) -> None:
         """Write the native layout: `config.json`, `generation_config.json`,
         `params.pkl` (the flax-named tree, numpy fp32) and `dac_params.pkl`
-        (the JAX codec's names and layouts, numpy fp32). The port's codec has
-        the decode side only, so its `dac_params.pkl` holds no encoder and no
-        quantizer `in_proj` leaves (ROADMAP.md, item 16): the JAX package
-        loads it and generates codes, but its codec needs those leaves to
-        decode. A pipeline serving int8 or fused q|k|v weights raises: save
-        the float model it was built from."""
+        (the whole codec under the JAX codec's names and layouts, numpy
+        fp32), which the JAX package loads and serves, decode and encode. A
+        pipeline serving int8 or fused q|k|v weights raises: save the float
+        model it was built from."""
         if self.model.weight_quant or self.model.fused_qkv:
             raise ValueError("save_pretrained writes float, unfused weights; this pipeline "
                              "serves weight_quant or fused_qkv weights")
@@ -295,6 +307,35 @@ class ParlerTTSPipeline:
         )
 
     @torch.inference_mode()
+    def encode_voice_prompt(self, audio, return_scales: bool = False):
+        """A reference clip -> codec codes (B, K, T / hop) int64 on the
+        pipeline's device, for `generate(..., decoder_prompt_codes=...)`.
+        `audio` is (B, T) or (T,) float (numpy or a tensor), mono, replicated
+        to the codec's channels (B, T, C) if 2-D and zero-padded to a multiple
+        of `hop_length`. The fp32 codec encodes, whatever `codec_dtype` says
+        (as the JAX package's encode keeps its fp32 parameters). On the card,
+        fp32 convolutions follow `torch.backends.cudnn.allow_tf32` (PyTorch
+        turns it on by default), which moves the latents by about 1e-3 and
+        with them the codes at near-ties; turn it off for fp32 codes. With
+        `return_scales=True` also returns the per-clip audio scales (B,): ones,
+        since DAC does not normalise its input."""
+        if getattr(self.config.audio_encoder, "normalize", False):
+            raise NotImplementedError("scale-normalised Encodec codecs are ROADMAP item 17")
+        audio = (audio.float() if isinstance(audio, torch.Tensor)
+                 else torch.from_numpy(np.array(audio, np.float32)))
+        if audio.dim() == 1:
+            audio = audio[None]
+        if audio.dim() == 2:  # (B, T) mono: one channel, the DAC codec's
+            audio = audio[:, :, None]
+        hop = self.config.audio_encoder.hop_length
+        audio = torch.nn.functional.pad(audio, (0, 0, 0, -audio.shape[1] % hop))
+        codes = self.dac.encode(audio.to(self.device))
+        if return_scales:
+            return codes, torch.ones((codes.shape[0],), dtype=torch.float32,
+                                     device=self.device)
+        return codes
+
+    @torch.inference_mode()
     def decode_codes(self, codes: torch.Tensor, lengths: torch.Tensor
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """Bucketed DAC decode: (B, K, T) codes -> (B, samples) waveform and
@@ -335,3 +376,150 @@ class ParlerTTSPipeline:
         out = self.generate_codes(description, desc_mask, prompt, prompt_mask, seed,
                                   decoder_prompt_codes=decoder_prompt_codes)
         return self.decode_codes(out.codes, out.lengths)
+
+    # --------------------------------------------------------------- streaming
+    def _ensure_stream_fns(self):
+        """The (prefill, chunk step) pair of `make_stream_functions`, made once.
+        Streams take the eager decode step whatever `fused_decode` says, as in
+        the JAX package."""
+        if self._stream_fns is None:
+            self._stream_fns = make_stream_functions(self.model, self.generation_config,
+                                                     self.cache_dtype)
+        return self._stream_fns
+
+    def warmup_stream_async(self, desc_ids, desc_mask, prompt_ids, prompt_mask,
+                            play_steps: int = 86, **stream_kwargs):
+        """Run one stream flush with the given inputs on a background thread,
+        so that a server pays the first-use costs (the kernels' nvcc builds,
+        cuDNN's plans for the codec's shapes) before its first request.
+        Returns the started thread; its `join()` re-raises a failure of the
+        flush as RuntimeError("stream warmup failed")."""
+        import threading
+
+        pipe = self
+
+        class _WarmupThread(threading.Thread):
+            exc: Optional[BaseException] = None
+
+            def run(self):
+                try:
+                    for _ in pipe.stream(desc_ids, desc_mask, prompt_ids, prompt_mask,
+                                         play_steps=play_steps, **stream_kwargs):
+                        break
+                except BaseException as e:  # noqa: BLE001 - re-raised by join()
+                    self.exc = e
+
+            def join(self, timeout=None):
+                super().join(timeout)
+                if self.exc is not None:
+                    raise RuntimeError("stream warmup failed") from self.exc
+
+        thread = _WarmupThread(daemon=True, name="parler-stream-warmup")
+        thread.start()
+        return thread
+
+    def _stream_state(self, desc_ids, desc_mask, prompt_ids, prompt_mask, seed,
+                      decoder_prompt_codes):
+        prefill_fn, step_fn = self._ensure_stream_fns()
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed)
+        ids = [_as_ids(x, self.device) for x in
+               (desc_ids, desc_mask, prompt_ids, prompt_mask, decoder_prompt_codes)]
+        return prefill_fn(*ids[:4], generator, ids[4]), step_fn
+
+    def _stream_frames(self, state, step_fn, play_steps: int):
+        """Advance `state` a chunk at a time; yields (codes (B, K, t - K) of
+        the columns so far, frame lengths (B,) numpy, done)."""
+        dcfg = self.config.decoder
+        max_len = self.generation_config.max_length
+        while True:
+            step_fn(state, play_steps)
+            done = state.t >= max_len or bool(state.eos.eos_seen.all())
+            if state.t <= dcfg.num_codebooks:
+                if done:
+                    return
+                continue
+            codes = undelay_pattern(state.out_ids[:, :, :state.t], dcfg.num_codebooks)
+            lengths = valid_frame_lengths(codes, dcfg.pad_token_id).cpu().numpy()
+            yield codes, lengths, done
+            if done:
+                return
+
+    def stream(self, desc_ids, desc_mask, prompt_ids, prompt_mask, play_steps: int = 86,
+               seed: int = 0, decoder_prompt_codes=None, incremental: bool = True,
+               context_frames: int = 64):
+        """Yield waveform chunks (B, S) float32 numpy as generation goes on,
+        for row 0's frames (port of the JAX package's `stream`): every
+        `play_steps` columns the new frames are codec-decoded and the new
+        samples emitted, holding back `stride = hop * max(play_steps - K, 1)
+        // 6` samples for smooth joins; the last chunk gives the rest.
+
+        `incremental=True` decodes only a trailing window of frames each
+        flush, the new ones and `context_frames` before the first sample
+        still to emit (`_decode_stream_window`), so a flush costs the same
+        all along an utterance."""
+        hop = self.config.audio_encoder.hop_length
+        stride = hop * max(play_steps - self.config.decoder.num_codebooks, 1) // 6
+        state, step_fn = self._stream_state(desc_ids, desc_mask, prompt_ids, prompt_mask, seed,
+                                            decoder_prompt_codes)
+        to_yield = 0
+        for codes, lengths, done in self._stream_frames(state, step_fn, play_steps):
+            n = int(lengths[0])
+            if n == 0:
+                continue
+            audio, base = self._decode_stream_window(codes, n, to_yield, play_steps,
+                                                     incremental, context_frames)
+            total = base + audio.shape[1]
+            if done:
+                if total > to_yield:
+                    yield audio[:, to_yield - base:]
+                return
+            upper = max(total - stride, to_yield)
+            if upper > to_yield:
+                yield audio[:, to_yield - base: upper - base]
+                to_yield = upper
+
+    @torch.inference_mode()
+    def _decode_stream_window(self, codes, n: int, to_yield: int, play_steps: int,
+                              incremental: bool, context_frames: int):
+        """Codec-decode the frames the next flush needs: the trailing window
+        [w0, n), w0 = `context_frames` before the first sample still to emit
+        (0 if not incremental), rounded up to a multiple of `play_steps`
+        frames and clipped to the codes. Returns (audio (B, S) numpy, the
+        sample offset of audio[:, 0])."""
+        hop = self.config.audio_encoder.hop_length
+        cb_max = self.config.audio_encoder.codebook_size - 1
+        w0 = max(0, to_yield // hop - context_frames) if incremental else 0
+        m = min(_round_up(n - w0, play_steps), codes.shape[-1] - w0)
+        window = codes[:, :, w0: w0 + m].clamp(0, cb_max)
+        audio = self.dac_decode.decode(window).float()[:, : (n - w0) * hop, 0]
+        return audio.cpu().numpy(), w0 * hop
+
+    def stream_batch(self, desc_ids, desc_mask, prompt_ids, prompt_mask,
+                     play_steps: int = 86, seed: int = 0, decoder_prompt_codes=None,
+                     incremental: bool = True, context_frames: int = 64):
+        """B streams from one chunked loop (port of the JAX package's
+        `stream_batch`, without its speculative branch). Yields `(chunk,
+        valid)` pairs on one sample grid: `chunk` (B, S) float32 numpy, and
+        `valid[i]` the count of this chunk's samples that are real for
+        stream i (0 once stream i has ended; chunks go on until the longest
+        stream ends). The stride hold-back and the decode window are those
+        of `stream`."""
+        hop = self.config.audio_encoder.hop_length
+        stride = hop * max(play_steps - self.config.decoder.num_codebooks, 1) // 6
+        state, step_fn = self._stream_state(desc_ids, desc_mask, prompt_ids, prompt_mask, seed,
+                                            decoder_prompt_codes)
+        to_yield = 0
+        for codes, lengths, done in self._stream_frames(state, step_fn, play_steps):
+            n_max = int(lengths.max())
+            if n_max == 0:
+                continue
+            audio, base = self._decode_stream_window(codes, n_max, to_yield, play_steps,
+                                                     incremental, context_frames)
+            total = base + audio.shape[1]  # == n_max * hop
+            upper = total if done else max(total - stride, to_yield)
+            if upper > to_yield:
+                width = upper - to_yield
+                valid = np.clip(lengths * hop - to_yield, 0, width).astype(np.int64)
+                yield audio[:, to_yield - base: upper - base], valid
+                to_yield = upper

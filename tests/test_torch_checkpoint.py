@@ -61,8 +61,8 @@ from test_torch_models import host, port_config
 from test_torch_pipeline import CFG, GEN, PAD, ids, jax_params
 
 FOLD_REL = 1e-6
-# weight-norm-folded leaves of the port's codec (conv weights, out-projections)
-FOLDED = ("weight", "out_proj_kernel")
+# weight-norm-folded leaves of the port's codec (conv weights, in/out-projections)
+FOLDED = ("weight", "in_proj_kernel", "out_proj_kernel")
 
 
 def stub_tokenizer(texts):
@@ -389,10 +389,10 @@ def test_port_exporters_match_the_jax_exporters(pair):
         np.testing.assert_array_equal(got[name].numpy(), w, err_msg=name)
     got = export_dac_params(tensor_tree(dac), port_config(CFG.audio_encoder), v_scale=1.7)
     want = jax_export_dac(dac_params, CFG.audio_encoder, v_scale=1.7)
-    decode_side = {k for k in want if ".encoder." not in f".{k}" and ".in_proj." not in k}
-    assert got.keys() == decode_side
-    for name in decode_side:
-        np.testing.assert_array_equal(got[name].numpy(), want[name], err_msg=name)
+    assert got.keys() == want.keys()
+    assert any(".encoder." in f".{k}" for k in want) and any(".in_proj." in k for k in want)
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name].numpy(), w, err_msg=name)
 
 
 def test_port_written_hf_directory_round_trips(tmp_path, pair):
@@ -462,10 +462,7 @@ def test_port_save_pretrained_loads_into_the_jax_package(tmp_path, pair):
             jax.tree_util.tree_flatten_with_path(host(loaded.params))[0],
             jax.tree_util.tree_flatten_with_path(params)[0]):
         np.testing.assert_array_equal(got, w, err_msg=jax.tree_util.keystr(path))
-    decode_side = {k: v for k, v in dac_params.items() if k != "encoder"}
-    decode_side["quantizer"] = {k: v for k, v in decode_side["quantizer"].items()
-                                if not k.startswith("in_proj")}
-    jax.tree.map(np.testing.assert_array_equal, host(loaded.dac_params), decode_side)
+    jax.tree.map(np.testing.assert_array_equal, host(loaded.dac_params), host(dac_params))
     desc, dm, prompt, pm = ids(seed=7)
     got = make_generate(jm, GEN, cache_dtype=jnp.float32)(
         loaded.params, desc, dm, prompt, pm, jax.random.key(0))

@@ -619,3 +619,64 @@ def test_weight_quant_xla_and_fused_qkv_run_on_the_gpu(cuda):
     out = xla.generate_codes(*request)
     assert out.steps == TINY_GEN.max_length and quant_matmul.launches == before
     assert torch.isfinite(torch.from_numpy(xla.decode_codes(out.codes, out.lengths)[0])).all()
+
+
+# ------------------------------------------------- voice steering, streaming
+def test_encode_voice_prompt_on_the_gpu_matches_the_cpu(cuda):
+    """Codes on the card equal the fp32 CPU encode of the same codec, but at
+    its near-ties (`chip_smoke.codes_agree`), latents within 1e-4."""
+    import copy
+
+    from chip_smoke import LATENT_REL, codes_agree, encode_gaps, norm_rel, voice_clips
+
+    cfg = tiny_config()
+    pipe = ParlerTTSPipeline.from_random(cfg, seed=5, generation_config=TINY_GEN)
+    audio = voice_clips(cfg.sampling_rate, 1605)  # 50.2 hops
+    codes = pipe.encode_voice_prompt(audio)
+    hop = cfg.audio_encoder.hop_length
+    assert codes.device.type == cuda.type and codes.shape == (2, 4, -(-audio.shape[1] // hop))
+    x = torch.nn.functional.pad(torch.from_numpy(audio)[:, :, None],
+                                (0, 0, 0, -audio.shape[1] % hop))
+    cpu = copy.deepcopy(pipe.dac).cpu()
+    with torch.inference_mode():
+        lat_cpu = cpu.encoder(x)
+        want = cpu.quantizer.encode(lat_cpu)[0]
+        assert norm_rel(pipe.dac.encoder(x.to(cuda)).cpu(), lat_cpu) <= LATENT_REL
+        assert codes_agree(codes, want, encode_gaps(cpu.quantizer, lat_cpu, want))[0]
+
+
+def test_voice_steered_streams_on_the_gpu_match_generate_codes(cuda):
+    """`stream_batch` with voice-prompt codes launches K1 every decode step
+    and its samples equal the offline lengths; the stream's tokens equal
+    `generate_codes`'s."""
+    from parler_tts_tpu_torch.runtime.generate import make_stream_functions
+
+    cfg = tiny_config()
+    pipe = ParlerTTSPipeline.from_random(cfg, seed=6, generation_config=TINY_GEN, frame_bucket=8)
+    request = tiny_request()
+    codes = pipe.encode_voice_prompt(torch.randn(2, 6 * cfg.audio_encoder.hop_length) * 0.1)
+    offline = pipe.generate_codes(*request, decoder_prompt_codes=codes)
+    prefill, step = make_stream_functions(pipe.model, TINY_GEN, pipe.cache_dtype)
+    state = prefill(*(x if x is None else x.to(cuda) for x in request),
+                    decoder_prompt_codes=codes)
+    before = flash_decode_attention.launches
+    while state.t < TINY_GEN.max_length:
+        step(state, 7)
+    s0 = 1 + codes.shape[-1]  # BOS and the voice prompt; the prefill samples column s0
+    assert flash_decode_attention.launches - before == 2 * (TINY_GEN.max_length - s0 - 1)
+    assert torch.equal(state.out_ids, offline.delayed_ids)
+    got = 0
+    for chunk, valid in pipe.stream_batch(*request, play_steps=8, decoder_prompt_codes=codes):
+        got = got + valid
+    assert (got == offline.lengths.cpu().numpy() * cfg.audio_encoder.hop_length).all()
+
+
+def test_pcm_stream_on_the_gpu(cuda):
+    from parler_tts_tpu_torch.native import float_to_pcm16
+    from parler_tts_tpu_torch.runtime.streamer import ParlerTTSStreamer
+
+    pipe = ParlerTTSPipeline.from_random(tiny_config(), seed=7, generation_config=TINY_GEN)
+    request = [None if x is None else x[:1] for x in tiny_request()]
+    chunks = list(pipe.stream(*request, play_steps=8))
+    pcm = b"".join(ParlerTTSStreamer(pipe, play_steps=8).pcm_stream(*request))
+    assert pcm and pcm == b"".join(float_to_pcm16(c[0]) for c in chunks)

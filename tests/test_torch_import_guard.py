@@ -42,3 +42,6 @@ def test_imports_without_jax(target):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert len(modules) > (10 if target == "package" else 0)
+    if target == "package":
+        assert {"parler_tts_tpu_torch.native", "parler_tts_tpu_torch.runtime.streamer",
+                "parler_tts_tpu_torch.runtime.generate"} <= set(modules)

@@ -163,6 +163,14 @@ DAC_CFG = jc.DACConfig(num_codebooks=4, codebook_size=32, codebook_dim=4, latent
                        decoder_rates=(4, 4, 2), sampling_rate=16000, frame_rate=500)
 
 
+def dac_init(jdac):
+    """The whole codec's params (encoder, quantizer, decoder), as the port
+    loads them: flax draws each module's params from its own path, so the
+    decode side's values are those of an init through `decode` alone."""
+    audio = jnp.zeros((1, 2 * DAC_CFG.hop_length, 1))
+    return jdac.init(jax.random.key(0), audio)["params"]
+
+
 @pytest.mark.parametrize("stride", [2, 4, 8])
 def test_conv_transpose_is_torch_conv_transpose1d_with_permuted_weight(stride):
     """JAX's flipped-kernel input-dilated conv == F.conv_transpose1d with
@@ -186,8 +194,7 @@ def test_dac_decode_waveform():
     rng = np.random.default_rng(0)
     codes = rng.integers(0, DAC_CFG.codebook_size, (2, 4, 12)).astype(np.int32)
     jdac = JDAC(DAC_CFG)
-    params = jdac.init(jax.random.key(0), jnp.asarray(codes), method="decode")["params"]
-    params = output_in_unit_range(params)
+    params = output_in_unit_range(dac_init(jdac))
     want = np.asarray(jdac.apply({"params": params}, jnp.asarray(codes), method="decode"))
     port = DACModel(port_config(DAC_CFG))
     load_jax_dac_params(port, params)
@@ -205,7 +212,7 @@ def test_dac_decode_waveform_at_init_weights():
     rng = np.random.default_rng(0)
     codes = rng.integers(0, DAC_CFG.codebook_size, (2, 4, 12)).astype(np.int32)
     jdac = JDAC(DAC_CFG)
-    params = host(jdac.init(jax.random.key(0), jnp.asarray(codes), method="decode")["params"])
+    params = host(dac_init(jdac))
     want = np.asarray(jdac.apply({"params": params}, jnp.asarray(codes), method="decode"))
     port = DACModel(port_config(DAC_CFG))
     load_jax_dac_params(port, params)
@@ -218,8 +225,7 @@ def test_dac_decode_waveform_at_init_weights():
 
 def test_converter_checks_every_leaf():
     jdac = JDAC(DAC_CFG)
-    codes = jnp.zeros((1, 4, 3), jnp.int32)
-    params = host(jdac.init(jax.random.key(0), codes, method="decode")["params"])
+    params = host(dac_init(jdac))
     port = DACModel(port_config(DAC_CFG))
     bad = jax.tree.map(lambda x: x, params)
     bad["quantizer"]["codebooks"] = bad["quantizer"]["codebooks"][:, :-1]

@@ -74,7 +74,7 @@ def jax_params(cfg, seed=0):
         jnp.zeros((1, 2, cfg.decoder.num_codebooks), jnp.int32),
     )["params"]
     dac = JDAC(cfg.audio_encoder)
-    # full round-trip init: the port skips the encode-side leaves
+    # full round-trip init, so the tree holds the encode side too
     hop = cfg.audio_encoder.hop_length
     dac_params = jax.jit(dac.init)(k2, jnp.zeros((1, 2 * hop, 1)))["params"]
     return model, host(params), dac, output_in_unit_range(dac_params)

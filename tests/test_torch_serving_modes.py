@@ -17,7 +17,11 @@ JAX package on the same weights, on the CPU (tiny configs of
     codec's decode after `cast_floating` (both compute in fp32 over
     bf16-rounded weights).
   * `cache_implementation="sliding_window"` with a window shorter than the
-    span: identical greedy ids on left-padded prompts.
+    span: identical greedy ids on left-padded prompts; in bf16, decoder
+    logits over a prefill and four decode steps through the dense bias path
+    with the window within half of JAX's own bf16-vs-fp32 gap on its window
+    path (norm-relative, the rule of `tests/test_torch_models_bf16.py`).
+  * `large_v1_decoder_config()` equals the JAX package's field for field.
 """
 
 import dataclasses
@@ -296,6 +300,87 @@ def test_sliding_window_greedy_generation_matches_jax(left_pad):
     assert not np.array_equal(np.asarray(want.delayed_ids), np.asarray(static.delayed_ids))
     pipe = port_pipeline(cfg, params, dac_params, gen)
     assert_same_ids(pipe.generate_codes(desc, dm, prompt, pm), want)
+
+
+def window_logits(seed, window):
+    """Decoder logits over a prefill of 5 and 4 one-column steps, every step
+    through the dense bias path with `window` in the mask (the sliding-window
+    route of both packages' generate loops) over a 16-slot flat cache: the
+    JAX model in fp32 and in bf16, and the port in bf16."""
+    dtype = torch.bfloat16
+    cfg = dec_config(4, False)
+    b, s_pre, n_steps, s_enc, s_max = 2, 5, 4, 6, 16
+    rng = np.random.default_rng(seed)
+    ids_ = rng.integers(0, 62, (b, 3, s_pre + n_steps)).astype(np.int32)
+    enc = rng.normal(size=(b, s_enc, 64)).astype(np.float32)
+    enc_mask = np.ones((b, s_enc), np.int32)
+    enc_mask[0, 4:] = 0
+    kv_valid = np.ones((b, s_max), bool)
+    kv_valid[0, :2] = False  # a left-padded row
+    spans = [(0, s_pre)] + [(i, i + 1) for i in range(s_pre, s_pre + n_steps)]
+    params = host(JLM(cfg).init(
+        jax.random.key(seed), jnp.zeros((b, s_pre, 64)),
+        jnp.broadcast_to(jnp.arange(s_pre), (b, s_pre)), self_attn_bias=None,
+        encoder_hidden_states=jnp.asarray(enc))["params"])
+    out = {}
+    for name, jdt in (("fp32", jnp.float32), ("bf16", jnp.bfloat16)):
+        jm = JLM(cfg, dtype=jdt, use_flash_decode=True)
+        cache = JCache.zeros(cfg, b, s_max, s_enc, jdt, flat_self=True)
+        ck, cv = jm.apply({"params": params}, jnp.asarray(enc), method="precompute_cross_kv")
+        cache = cache.replace(cross_k=ck, cross_v=cv)
+        steps = []
+        for lo, hi in spans:
+            pos = jnp.broadcast_to(jnp.arange(lo, hi), (b, hi - lo))
+            emb = jm.apply({"params": params}, jnp.asarray(ids_[:, :, lo:hi]), method="embed_ids")
+            logits, cache = jm.apply(
+                {"params": params}, emb, pos,
+                self_attn_bias=causal_self_attention_bias(pos, jnp.asarray(kv_valid), window),
+                cross_attn_bias=padding_cross_attention_bias(jnp.asarray(enc_mask), hi - lo),
+                cache=cache)
+            steps.append(np.asarray(logits, np.float32))
+        out[name] = np.concatenate(steps, axis=2)
+    port = ParlerForCausalLM(port_config(cfg), dtype=dtype)
+    load_jax_params(port, params)
+    cache = DecoderCache.zeros(port_config(cfg), b, s_max, s_enc, dtype)
+    got = []
+    with torch.inference_mode():
+        cache.cross_k, cache.cross_v = port.precompute_cross_kv(torch.from_numpy(enc))
+        for lo, hi in spans:
+            pos = torch.arange(lo, hi)[None].expand(b, hi - lo)
+            got.append(port(
+                port.embed_ids(torch.from_numpy(ids_[:, :, lo:hi]).long()), pos,
+                self_attn_bias=tmasks.causal_self_attention_bias(
+                    pos, torch.from_numpy(kv_valid), window),
+                cross_attn_bias=tmasks.padding_cross_attention_bias(
+                    torch.from_numpy(enc_mask), hi - lo),
+                cache=cache).float().numpy())
+    return out, np.concatenate(got, axis=2)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_sliding_window_logits_match_jax(seed):
+    """ROADMAP queue 3, V1: a window of 3 slots (the span reaches 9)."""
+    jax_logits, got = window_logits(seed, 3)
+    norm_rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    jax_gap = norm_rel(jax_logits["bf16"], jax_logits["fp32"])
+    assert jax_gap > 1e-3  # the bf16 model really runs in bf16
+    gap = norm_rel(got, jax_logits["bf16"])
+    print(f"bf16 window logits: port vs JAX {gap:.3e}, JAX bf16 vs fp32 {jax_gap:.3e}")
+    assert gap <= 0.5 * jax_gap
+
+
+def test_large_v1_decoder_config_matches_jax():
+    from parler_tts_tpu.config import ParlerTTSConfig as JConfig
+    from parler_tts_tpu.config import large_v1_decoder_config as jax_large_v1
+    from parler_tts_tpu_torch import config as tc
+
+    got = tc.large_v1_decoder_config()
+    assert dataclasses.asdict(got) == dataclasses.asdict(jax_large_v1())
+    assert (got.num_hidden_layers, got.hidden_size, got.num_attention_heads, got.ffn_dim) == (
+        30, 1536, 24, 6144)
+    composite = tc.ParlerTTSConfig(decoder=got)
+    assert dataclasses.asdict(composite) == dataclasses.asdict(JConfig(decoder=jax_large_v1()))
+    assert tc.large_v1_decoder_config(num_hidden_layers=2).num_hidden_layers == 2
 
 
 def test_sliding_window_is_refused_by_the_fused_path_and_unknown_caches_raise(pair):
