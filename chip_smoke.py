@@ -129,12 +129,30 @@ Builds the port's CUDA kernels with nvcc, then:
       eager bf16 B=2, `weight_quant=True` B=2 and `fused_decode=True` B=1
       over 256 greedy columns with exact launch counts (K1 30 a decode step,
       K2 240 x (steps + 1) + 60, K3 one a decode step), and times K1, K2's
-      decode layer and K3 by CUDA-graph replay.
+      decode layer and K3 by CUDA-graph replay;
+  (m) serves both speculatively (W candidate columns verified per forward):
+      K1 against its plain version at the window's shapes (mini-v1 W=24 at
+      B=1 and at B=2 with per-row limits that differ, large-v1 W=16; fp32
+      and bf16, repeats bit for bit, a last column without its last slot
+      fails fp32 TOL), timed beside SDPA with the equal boolean mask; then
+      mini-v1 bf16 W=24, lookup 3, over 860 greedy columns at B=1 (row 1)
+      and per-row at B=2, each row equal to phase (b)'s eager row up to its
+      first parting, which must be a near-tie of the AR run (its logit of
+      the speculative token within 4 x the bf16 decode step's largest logit
+      gap to its fp32 copy; replayed on the AR run up to that column); the
+      same per-row in fp32 over 256 columns against the fp32 AR run with
+      near-ties at 2e-4; sampled B=1 twice from one seed (equal tokens, >= 1
+      column a forward, valid codes); a speculative stream B=1 (play_steps
+      86) equal to the offline tokens bit for bit; int8 over K2 at M = 24
+      against phase (e); large-v1 W=16 over 256 columns against phase (l);
+      decoder-only in fp32 over 256 columns, AR against speculative; K1 24
+      (large-v1 30) launches and K2 192 a forward run, exactly.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
 line of kernel numbers (K1, K2 and K3 with their large-v1 numbers under
-`large_v1`), the `nvidia-smi` name/power-limit line, and last
+`large_v1`, K1's window numbers under `window` and phase (m)'s runs under
+`speculative`), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 there is no CUDA device, when the port is not beside this script, or when
 any check fails.
@@ -613,14 +631,38 @@ K2_PER_LAYER = (6, 1, 1)                                # launches of each shape
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak, NVIDIA data sheet
 
 
-def phase_d(dev, card):
-    """K2 against its plain version; times it over 24 layers' weights per shape."""
+def k2_check(x, w, s, label):
+    """K2 on (x, w, s) against its plain version: within k2_close, of x's
+    dtype, the same bits on a second call, and a result that left out the
+    cluster's last K slice outside k2_close. Returns (max abs error, slices,
+    rows per slice)."""
     from parler_tts_tpu_torch.ops.quant_matmul import (
         k2_close,
         k2_grid,
         quant_matmul,
         quant_matmul_plain,
     )
+
+    slices, slice_ = k2_grid(*x.shape, w.shape[1])
+    got = quant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    want = quant_matmul_plain(x, w, s)
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype != x.dtype or not k2_close(got, want):
+        raise AssertionError(f"{label}: error {err:.3e} (max |y| "
+                             f"{want.float().abs().max().item():.1f})")
+    if not torch.equal(quant_matmul(x, w, s), got):
+        raise AssertionError(f"{label}: a second call gave other bits")
+    dropped = x.clone()
+    dropped[:, (slices - 1) * slice_:] = 0
+    if k2_close(quant_matmul_plain(dropped, w, s), want):
+        raise AssertionError(f"{label}: k2_close misses a dropped K slice")
+    return err, slices, slice_
+
+
+def phase_d(dev, card):
+    """K2 against its plain version; times it over 24 layers' weights per shape."""
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 
     g = torch.Generator(device=dev).manual_seed(4)
 
@@ -632,31 +674,18 @@ def phase_d(dev, card):
         return torch.rand(n, generator=g, device=dev) * 0.009 + 1e-3
 
     max_err, n_cases = 0.0, 0
-    for m in (1, BATCH, 18, 32):  # decode, B=2 decode, prefill B*(8+1), cross kv B*16
+    # decode B=1 and B=2, B=1 prefill (8 + 1 rows), B=1 cross kv (16), B=2
+    # prefill, the speculative window B x W at B=1, B=2 cross kv, B x W at B=2
+    for m in (1, BATCH, 9, 16, 18, 24, 32, 48):
         # N = 1040: a multiple of 16 that leaves the last 64-column strip ragged
         for k, n in K2_SHAPES + ((1024, 1040),):
             w, s = int8(k, n), scales(n)
-            slices, slice_ = k2_grid(m, k, n)
             for dtype in (torch.float32, torch.bfloat16):
                 x = (torch.randn(m, k, generator=g, device=dev) * 0.3).to(dtype)
-                got = quant_matmul(x, w, s)
-                torch.cuda.synchronize()
-                want = quant_matmul_plain(x, w, s)
-                err = (got.float() - want.float()).abs().max().item()
-                if got.dtype != dtype or not k2_close(got, want):
-                    raise AssertionError(f"K2 {dtype} M={m} K={k} N={n}: error {err:.3e}")
-                if not torch.equal(quant_matmul(x, w, s), got):
-                    raise AssertionError(f"K2 {dtype} M={m} K={k} N={n}: a second call gave "
-                                         f"other bits")
-                # a result that left out the cluster's last K slice must fail
-                dropped = x.clone()
-                dropped[:, (slices - 1) * slice_:] = 0
-                if k2_close(quant_matmul_plain(dropped, w, s), want):
-                    raise AssertionError(f"K2 M={m} K={k} N={n}: k2_close misses a dropped slice")
+                err, slices, slice_ = k2_check(x, w, s, f"K2 {str(dtype)[6:]} M={m} K={k} N={n}")
                 max_err, n_cases = max(max_err, err), n_cases + 1
                 print(f"  K2 vs plain {str(dtype)[6:]:8s} M={m:2d} K={k} N={n} "
-                      f"{slices} x {slice_}-row slices max_abs_err={err:.3e} "
-                      f"(max |y| {want.float().abs().max().item():.1f})")
+                      f"{slices} x {slice_}-row slices max_abs_err={err:.3e}")
     print(f"  {n_cases} cases within 1e-6 x max|y| + 1e-5 x |y| (bf16: or one bf16 ulp), a "
           f"second call bit-identical, a dropped K slice outside it")
 
@@ -1542,21 +1571,26 @@ CODEC_REL_RMS = 0.12  # bf16 codec: the JAX package's bound for random weights
 WINDOW, WINDOW_COLUMNS, TEXT_COLUMNS, XLA_COLUMNS = 256, 512, 64, 256
 
 
+class ReplayDone(Exception):
+    """Raised by a SampleHook once it has sampled its `stop` column."""
+
+
 class SampleHook:
     """Wraps `runtime.generate._sample_column` for the generate calls made
     inside it (a check instrument: it syncs each step). It keeps the raw
-    logits of the first `keep` sampling events, the top two processed logits
-    at the columns `top2_at`, and whether any logits held a NaN. Given
-    `want` (B, K, L) ids, each column before `follow_until` that parts from
-    them is recorded as (column, row, codebook, own token, wanted token, gap
-    of the two in this run's logits) and the wanted token is forced, so the
-    rest of the stream stays comparable; from `follow_until` on, the first
-    column that parts is recorded and nothing is forced."""
+    logits of the first `keep` sampling events, the processed logits at the
+    columns `keep_at`, and whether any logits held a NaN. Given `want` (B,
+    K, L) ids, each column before `follow_until` that parts from them is
+    recorded as (column, row, codebook, own token, wanted token, gap of the
+    two in this run's logits) and the wanted token is forced, so the rest of
+    the stream stays comparable; from `follow_until` on, the first column
+    that parts is recorded and nothing is forced. Given `stop`, the run ends
+    with ReplayDone once column `stop` is sampled."""
 
-    def __init__(self, want=None, follow_until=None, keep=0, top2_at=()):
-        self.want, self.follow_until, self.keep = want, follow_until, keep
-        self.top2_at = set(top2_at)
-        self.kept, self.top2, self.partings = [], {}, []
+    def __init__(self, want=None, follow_until=None, keep=0, keep_at=(), stop=None):
+        self.want, self.follow_until, self.keep, self.stop = want, follow_until, keep, stop
+        self.keep_at = set(keep_at)
+        self.kept, self.processed, self.partings = [], {}, []
         self.first_free_parting, self.nan = None, False
 
     def __enter__(self):
@@ -1570,13 +1604,19 @@ class SampleHook:
         self.tgen._sample_column = self.real
 
     def _sample(self, logits, t, eos_state, pattern, gen, k, prompt_cols=1, generator=None):
+        col, state = self._follow(logits, t, eos_state, pattern, gen, k, prompt_cols, generator)
+        if self.stop is not None and t >= self.stop:
+            raise ReplayDone
+        return col, state
+
+    def _follow(self, logits, t, eos_state, pattern, gen, k, prompt_cols, generator):
         kw = dict(prompt_cols=prompt_cols, generator=generator)
         self.nan |= bool(torch.isnan(logits).any())
         if len(self.kept) < self.keep:
             self.kept.append(logits.clone())
-        if t in self.top2_at:
-            x, _ = self.tgen._process_column(logits, t, eos_state, gen, k, prompt_cols)
-            self.top2[t] = x.topk(2, dim=-1)
+        if t in self.keep_at:
+            self.processed[t] = self.tgen._process_column(logits, t, eos_state, gen, k,
+                                                          prompt_cols)[0]
         col, state = self.real(logits, t, eos_state, pattern, gen, k, **kw)
         if self.want is None or torch.equal(col, self.want[:, :, t]):
             return col, state
@@ -1616,25 +1656,50 @@ def param_mismatches(model, dac, src_model, src_dac):
     return bad + sorted(set(want) - {n for n, _ in dac.named_parameters()}), worst
 
 
-def near_ties(label, partings, pipe, request, want, need):
-    """Each parting of a stream held to `want` (SampleHook.partings) must
-    fall where `want`'s own run had the two tokens as its top two logits
-    within TIE: `pipe`, the run that gave `want`, is replayed recording them
-    (its replay must give `want` again)."""
+def near_ties(label, partings, replay, want, need, tie=TIE, top_two=True, stop_early=False):
+    """Each parting (column, row, codebook, other run's token, `want`'s
+    token, ...) of a stream held to `want` must fall where `want`'s own run
+    had `want`'s token on top and the other token within `tie` of it: as its
+    runner-up (`top_two`), or at any rank with every token between also
+    within `tie`. `replay()` reruns the run that gave `want`, recording its
+    processed logits; it must give `want` again, or with `stop_early` follow
+    it up to the last parting column, where it is ended."""
     cols = sorted({x[0] for x in partings})
     if not cols:
         return
-    with SampleHook(want=want, top2_at=cols) as hook:
-        replay = pipe.generate_codes(*request, seed=0)
-    need(torch.equal(replay.delayed_ids, want), f"{label}: the replay gave another stream")
-    for t, b, k, mine, theirs, own_gap in partings:
-        vals, idx = hook.top2[t]
-        top = {int(idx[b, k, 0]), int(idx[b, k, 1])}
-        gap = float(vals[b, k, 0] - vals[b, k, 1])
-        print(f"    {label}: column {t} row {b} codebook {k}: token {mine} for {theirs}; its "
-              f"own gap {own_gap:.2e}; the reference's top two {sorted(top)}, {gap:.2e} apart")
-        need(top == {mine, theirs} and gap <= TIE,
+    with SampleHook(want=want, keep_at=cols, stop=cols[-1] if stop_early else None) as hook:
+        try:
+            same = torch.equal(replay().delayed_ids, want)
+        except ReplayDone:
+            same = True  # it followed `want` up to the stop if hook.partings is empty
+    need(same and cols[-1] in hook.processed and not hook.partings and not hook.nan,
+         f"{label}: the replay gave another stream")
+    for t, b, k, mine, theirs, *_ in partings:
+        x = hook.processed[t][b, k]
+        gap = float(x[theirs] - x[mine])
+        rank = int((x > x[mine]).sum())
+        print(f"    {label}: column {t} row {b} codebook {k}: token {mine} for {theirs}; in the "
+              f"reference {gap:.2e} below its top {int(x.argmax())}, rank {rank} (near-tie: "
+              f"<= {tie:.2e}{', runner-up' if top_two else ''})")
+        need(int(x.argmax()) == theirs and 0 <= gap <= tie and (rank <= 1 or not top_two),
              f"{label}: column {t} row {b} codebook {k} is not a near-tie")
+
+
+def first_partings(label, got, want, rows):
+    """Greedy ids `got` (b, K, L) against `want` (B, K, L), row i of `got`
+    against row rows[i] of `want`: the entries of each row's first parting
+    column, as (column, row of `want`, codebook, got's token, want's
+    token)."""
+    partings, firsts = [], []
+    for i, r in enumerate(rows):
+        diff = (got[i] != want[r]).any(dim=0).nonzero()
+        firsts.append(int(diff[0, 0]) if diff.numel() else None)
+        if diff.numel():
+            t = firsts[-1]
+            partings += [(t, r, k, int(got[i, k, t]), int(want[r, k, t]))
+                         for k in (got[i, :, t] != want[r, :, t]).nonzero()[:, 0].tolist()]
+    print(f"    {label}: first parting column of each row {firsts} (of {got.shape[-1]})")
+    return partings
 
 
 def dir_bytes(path) -> int:
@@ -1686,9 +1751,10 @@ def serve_checked(pipe, request, want, label, card, need):
     need(same and k1 == n_layers * steps, f"{label}: ids equal {same}, K1 launches {k1}")
 
 
-def decode_step_logits(model, dev, dtype):
-    """Logits of one mini-v1 decode step at position S_PROMPT + 430 after a
-    prefill of random columns (phase e's int8 step, at `dtype`)."""
+def decode_prefix(model, dev, dtype, n_after):
+    """A B=2 mini-v1 request's cache prefilled with 430 random columns after
+    the prompt; returns (cache, positions, K1's starts, the next position,
+    the `n_after` random columns that follow)."""
     from parler_tts_tpu_torch.models.decoder import DecoderCache
     from parler_tts_tpu_torch.ops.masks import causal_self_attention_bias
 
@@ -1697,7 +1763,7 @@ def decode_step_logits(model, dev, dtype):
                                             for x in request_ids(1))
     g = torch.Generator(device=dev).manual_seed(1)
     n_pre = MAX_LENGTH // 2
-    cols = torch.randint(0, 1024, (BATCH, dcfg.num_codebooks, n_pre + 1), generator=g,
+    cols = torch.randint(0, 1024, (BATCH, dcfg.num_codebooks, n_pre + n_after), generator=g,
                          device=dev)
     kv_valid = torch.cat([prompt_mask.bool(),
                           torch.ones(BATCH, MAX_LENGTH, dtype=torch.bool, device=dev)], 1)
@@ -1712,9 +1778,48 @@ def decode_step_logits(model, dev, dtype):
                          model.decoder.embed_ids(cols[:, :, :n_pre])], dim=1)
         model.decoder(pre, pos[:, :t], self_attn_bias=causal_self_attention_bias(
             pos[:, :t], kv_valid), cross_attn_bias=None, cache=cache)
-        return model.decoder(model.decoder.embed_ids(cols[:, :, n_pre:]), pos[:, t:t + 1],
+    return cache, pos, starts, t, cols[:, :, n_pre:]
+
+
+def decode_step_logits(model, dev, dtype):
+    """Logits of one mini-v1 decode step at position S_PROMPT + 430 after a
+    prefill of random columns (phase e's int8 step, at `dtype`)."""
+    cache, pos, starts, t, cols = decode_prefix(model, dev, dtype, 1)
+    with torch.inference_mode():
+        return model.decoder(model.decoder.embed_ids(cols), pos[:, t:t + 1],
                              self_attn_bias=None, cross_attn_bias=None, cache=cache,
                              decode_lengths=(starts, t + 1))
+
+
+def window_vs_steps(model, dev, w, n_windows):
+    """Logits of the same n_windows x W random columns after decode_prefix,
+    at the model's dtype, computed two ways from one prefilled cache: as
+    n_windows W-column forwards (M = B x W rows; the cache index and K1's
+    limits device tensors, as the speculative step runs them) and as
+    one-column steps (M = B, as the AR loop runs them), each way writing
+    its own copy of the cache. Returns (window, steps), each (B, K, n x W, V)."""
+    import dataclasses
+
+    dtype = next(model.decoder.parameters()).dtype
+    cache, pos, starts, t, cols = decode_prefix(model, dev, dtype, n_windows * w)
+    copy = dataclasses.replace(cache, self_k=cache.self_k.clone(),
+                               self_v=cache.self_v.clone())
+    cache.index = torch.tensor(t, device=dev)
+    window, steps = [], []
+    with torch.inference_mode():
+        for j in range(n_windows):
+            p = t + j * w
+            limit = torch.full((BATCH,), p + 1, dtype=torch.int32, device=dev)
+            window.append(model.decoder(
+                model.decoder.embed_ids(cols[:, :, j * w:(j + 1) * w]), pos[:, p:p + w],
+                self_attn_bias=None, cross_attn_bias=None, cache=cache,
+                decode_lengths=(starts, limit)))
+        for i in range(n_windows * w):
+            steps.append(model.decoder(
+                model.decoder.embed_ids(cols[:, :, i:i + 1]), pos[:, t + i:t + i + 1],
+                self_attn_bias=None, cross_attn_bias=None, cache=copy,
+                decode_lengths=(starts, t + i + 1)))
+    return torch.cat(window, dim=2), torch.cat(steps, dim=2)
 
 
 def phase_j(dev, card, source, out_b, stream_e, stream_g):
@@ -1920,7 +2025,8 @@ def phase_j(dev, card, source, out_b, stream_e, stream_g):
             fqkv.generate_codes(*request, seed=0)
         print(f"  fused_qkv B=2 serve: {(out.steps - 2) / wall:.1f} decode steps/s, parts "
               f"from phase (b) at columns {sorted({p[0] for p in hook.partings})} ({card})")
-        near_ties("fused_qkv", hook.partings, source, request, want_b, need)
+        near_ties("fused_qkv", hook.partings,
+                  lambda: source.generate_codes(*request, seed=0), want_b, need)
     del fqkv
 
     # ---- bf16 codec: decode_codes of phase (b)'s codes. It computes in fp32
@@ -1997,7 +2103,8 @@ def phase_j(dev, card, source, out_b, stream_e, stream_g):
               f"{hook.first_free_parting} ({card})")
         need(not k1 and not hook.nan and out.steps == WINDOW_COLUMNS,
              f"sliding window {w}: K1 {k1}, NaN {hook.nan}")
-        near_ties(f"window {w}", hook.partings, static, request, want_s, need)
+        near_ties(f"window {w}", hook.partings,
+                  lambda: static.generate_codes(*request, seed=0), want_s, need)
         if w == WINDOW:
             first = WINDOW - S_PROMPT + 1
             same_before = torch.equal(streams[w][:, :, :first], streams[span][:, :, :first])
@@ -2309,12 +2416,7 @@ def large_k1(dev, card):
 def large_k2(dev, card):
     """K2 at large-v1's K x N = D x D, D x F and F x D (1536 x 1536, 1536 x
     6144, 6144 x 1536), 6, 1 and 1 launches a layer."""
-    from parler_tts_tpu_torch.ops.quant_matmul import (
-        k2_close,
-        k2_grid,
-        quant_matmul,
-        quant_matmul_plain,
-    )
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 
     cfg = large_v1_config().decoder
     d, f, n_layers = cfg.hidden_size, cfg.ffn_dim, cfg.num_hidden_layers
@@ -2332,21 +2434,9 @@ def large_k2(dev, card):
     for m in (1, BATCH, 18):  # B=1 and B=2 decode, B=2 prefill of 8 + 1 columns
         for k, n in shapes:
             w, s = int8(k, n), scales(n)
-            slices, slice_ = k2_grid(m, k, n)
             for dtype in (torch.float32, torch.bfloat16):
                 x = (torch.randn(m, k, generator=g, device=dev) * 0.3).to(dtype)
-                got = quant_matmul(x, w, s)
-                torch.cuda.synchronize()
-                want = quant_matmul_plain(x, w, s)
-                err = (got.float() - want.float()).abs().max().item()
-                dropped = x.clone()
-                dropped[:, (slices - 1) * slice_:] = 0
-                if (got.dtype != dtype or not k2_close(got, want)
-                        or not torch.equal(quant_matmul(x, w, s), got)
-                        or k2_close(quant_matmul_plain(dropped, w, s), want)):
-                    raise AssertionError(f"K2 large-v1 {dtype} M={m} K={k} N={n}: error "
-                                         f"{err:.3e}, or a repeat differs, or a dropped K "
-                                         f"slice passes")
+                err, slices, slice_ = k2_check(x, w, s, f"K2 large-v1 {dtype} M={m} K={k} N={n}")
                 max_err = max(max_err, err)
             print(f"  K2 large-v1 M={m:2d} K={k} N={n}: {slices} x {slice_}-row slices, fp32 and "
                   f"bf16 within k2_close, repeats bit-identical, a dropped slice outside")
@@ -2481,7 +2571,8 @@ def large_k3(dev, card):
 
 def large_serve(dev, card):
     """large-v1 served over LARGE_COLUMNS greedy columns on the three paths,
-    with exact launch counts; returns them."""
+    with exact launch counts; returns them, the eager pipeline and its
+    output (phase m holds its speculative run to them)."""
     import dataclasses
 
     from parler_tts_tpu_torch.config import GenerationConfig
@@ -2522,30 +2613,435 @@ def large_serve(dev, card):
         torch.cuda.synchronize()
         flash_decode_attention.launches = quant_matmul.launches = 0
         fused_decode_layers.launches = 0
-        serve(pipe, req, f"large-v1 {label}", card)
+        served = serve(pipe, req, f"large-v1 {label}", card)[0]
+        if pipe is eager:
+            eager_out = served.delayed_ids
         got = dict(k1=flash_decode_attention.launches, k2=quant_matmul.launches,
                    k3=fused_decode_layers.launches)
         print(f"    launches {got} = {want}: {got == want}")
         if got != want:
             raise AssertionError(f"large-v1 {label}: launches {got}, want {want}")
         launches[label] = got
-    del eager, int8, fused
+    del int8, fused
     torch.cuda.empty_cache()
     return dict(k1=launches["eager bf16 B=2"]["k1"], k2=launches["int8 B=2"]["k2"],
-                k3=launches["fused B=1"]["k3"])
+                k3=launches["fused B=1"]["k3"]), eager, eager_out
 
 
 def phase_l(dev, card):
     """large-v1 at full width and depth on the card: K1, K2 and K3 against
     their plain versions at its shapes, one fp32 decode step through K1
     against the dense path, and the three serving paths with exact launch
-    counts. Returns each kernel's large-v1 numbers."""
+    counts. Returns each kernel's large-v1 numbers, the eager pipeline and
+    its output."""
     out = dict(k1=large_k1(dev, card), k2=large_k2(dev, card), k3=large_k3(dev, card))
     torch.cuda.empty_cache()
     phase_c(dev, card, large_v1_config())
-    for key, n in large_serve(dev, card).items():
+    launches, eager, eager_out = large_serve(dev, card)
+    for key, n in launches.items():
         out[key]["launches"] = n
+    return out, eager, eager_out
+
+
+# ---------------------------------------------------------- speculative side
+SPEC_WINDOW, SPEC_LOOKUP, SPEC_WINDOW_LARGE = 24, 3, 16
+SAMPLED_COLUMNS, DECODER_ONLY_COLUMNS = 256, 256
+
+
+def window_tie(label, model, dev, w):
+    """The near-tie limit of a greedy speculative run of `model` held to its
+    AR run, read like for like: over window_vs_steps' 4 x W columns, the
+    largest change, from the one-column steps to the window forwards, of the
+    gap between the steps' top two logits (each row, codebook and column)."""
+    window, steps = window_vs_steps(model, dev, w, 4)
+    top = steps.float().topk(2, dim=-1).indices
+    moved = (window.float().gather(-1, top) - steps.float().gather(-1, top)).diff(dim=-1).abs()
+    q = moved.flatten().quantile(torch.tensor([0.5, 0.99], device=dev)).tolist()
+    tie = moved.max().item()
+    print(f"  {label} near-tie limit: the window forward moves the steps' top-two gap by at most "
+          f"{tie:.3e} (median {q[0]:.3e}, 99% {q[1]:.3e}) over {moved.numel()} rows, codebooks "
+          f"and columns at W={w}")
+    return tie
+
+
+def window_k1(dev, card):
+    """K1 at the speculative window's shapes: W query columns, per-row (B,)
+    limits, the cache s_p + L + W slots long. Returns the timings."""
+    import torch.nn.functional as F
+
+    from parler_tts_tpu_torch.ops.flash_decode import (
+        flash_decode_attention,
+        flash_decode_attention_plain,
+        split_count,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    large = large_v1_config().decoder
+    mean = S_PROMPT + MAX_LENGTH // 2
+    cases = [  # label, H, layers, W, starts, limits at the window's first column
+        ("mini-v1 W=24 B=1", 16, 24, SPEC_WINDOW, [3], [mean]),
+        ("mini-v1 W=24 B=2", 16, 24, SPEC_WINDOW, [0, 3], [mean + 97, mean]),
+        ("large-v1 W=16 B=1", large.num_attention_heads, large.num_hidden_layers,
+         SPEC_WINDOW_LARGE, [3], [mean]),
+    ]
+    out, max_err = {}, 0.0
+    for label, h, n_layers, w, starts_l, limits_l in cases:
+        b, dh, s = len(starts_l), 64, S_CACHE + w
+        starts = torch.tensor(starts_l, dtype=torch.int32, device=dev)
+        limits = torch.tensor(limits_l, dtype=torch.int32, device=dev)
+        splits = split_count(b, h, s, w)
+        for dtype in (torch.float32, torch.bfloat16):
+            def rand(*shape):
+                return (torch.randn(shape, generator=g, device=dev) * 0.3).to(dtype)
+
+            cache_k, cache_v = rand(n_layers, b, s, h * dh), rand(n_layers, b, s, h * dh)
+            q = rand(b, w, h, dh)
+            for layer in (0, n_layers - 1):
+                got = flash_decode_attention(q, cache_k, cache_v, starts, limits, layer=layer)
+                torch.cuda.synchronize()
+                want = flash_decode_attention_plain(q, cache_k, cache_v, starts, limits,
+                                                    layer=layer, splits=splits)
+                err = (got.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+                if not torch.equal(flash_decode_attention(q, cache_k, cache_v, starts, limits,
+                                                          layer=layer), got):
+                    raise AssertionError(f"K1 {label}: a second call gave other bits")
+                max_err = max(max_err, err)
+            if dtype == torch.float32:
+                # the last window column without its last slot (limit + W - 2)
+                wrong = want.clone()
+                wrong[:, -1] = flash_decode_attention_plain(
+                    q[:, -1:].contiguous(), cache_k, cache_v, starts, limits + w - 2,
+                    layer=n_layers - 1, splits=split_count(b, h, s, 1))[:, 0]
+                if torch.allclose(got, wrong, **TOL[dtype]):
+                    raise AssertionError(f"K1 {label}: fp32 TOL does not see the last column's "
+                                         f"last slot left out")
+            print(f"  K1 {label} {str(dtype)[6:]} vs plain at {splits} splits, {n_layers} "
+                  f"layers' stacked cache of {s} slots, starts {starts_l}, limits {limits_l}: "
+                  f"max_abs_err {err:.3e}, repeats bit-identical"
+                  + ("; the last column's last slot dropped fails fp32 TOL"
+                     if dtype == torch.float32 else ""))
+            del cache_k, cache_v
+
+        # bf16 timing over the stacked cache, one launch per layer
+        cache_k = (torch.randn(n_layers, b, s, h * dh, generator=g, device=dev) * 0.3).to(
+            torch.bfloat16)
+        cache_v = (torch.randn(n_layers, b, s, h * dh, generator=g, device=dev) * 0.3).to(
+            torch.bfloat16)
+        q = (torch.randn(b, w, h, dh, generator=g, device=dev) * 0.3).to(torch.bfloat16)
+        pos = torch.arange(s, device=dev)
+        mask = ((pos[None, None, :] >= starts[:, None, None])
+                & (pos[None, None, :] < limits[:, None, None]
+                   + torch.arange(w, device=dev)[None, :, None]))[:, None]   # (B, 1, W, S)
+        qs = q.transpose(1, 2)
+        k_views = [cache_k[i].view(b, s, h, dh).transpose(1, 2) for i in range(n_layers)]
+        v_views = [cache_v[i].view(b, s, h, dh).transpose(1, 2) for i in range(n_layers)]
+        ms = graph_ms(lambda i: flash_decode_attention(q, cache_k, cache_v, starts, limits,
+                                                       layer=i % n_layers), n_layers)
+        sdpa_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+            qs, k_views[i % n_layers], v_views[i % n_layers], attn_mask=mask, scale=1.0),
+            n_layers)
+        plain_ms = cuda_ms(lambda i: flash_decode_attention_plain(
+            q, cache_k, cache_v, starts, limits, layer=i % n_layers, splits=splits), iters=24)
+        slots = sum(lim + w - 1 - st for st, lim in zip(starts_l, limits_l))
+        bytes_moved = 2 * b * w * h * dh * 2 + 2 * slots * h * dh * 2
+        ops = 4 * h * dh * sum(lim + i - st for st, lim in zip(starts_l, limits_l)
+                               for i in range(w))
+        bound_ms, bound_by = bound(bytes_moved, ops, BF16_OPS_PER_S)
+        print(f"  K1 {label} bf16: {ms * 1e3:.2f} us by graph replay of {n_layers} launches, "
+              f"SDPA with the equal boolean mask {sdpa_ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+              f"{bytes_moved / 1e6:.2f} MB; {bound_ms / ms:.1%} of it), {splits} splits of "
+              f"{b * h * -(-w // 8)} row tiles ({card})")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=max_err)
+        del cache_k, cache_v, k_views, v_views
     return out
+
+
+def fp32_copy(model, dev):
+    """An fp32 ParlerTTS holding `model`'s weights."""
+    from parler_tts_tpu_torch.convert import load_jax_params, tensor_tree
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+
+    fp32 = ParlerTTS(model.config, device=dev, dtype=torch.float32)
+    load_jax_params(fp32, tensor_tree(model))
+    return fp32
+
+
+def spec_serve(pipe, request, label, card):
+    """One timed speculative generate_codes + decode_codes; returns (output,
+    stats, the wall seconds of generate_codes)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = pipe.generate_codes(*request, seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    audio, lengths = pipe.decode_codes(out.codes, out.lengths)
+    t2 = time.perf_counter()
+    st, cfg = pipe.last_spec_stats, pipe.config
+    frames = pipe.generation_config.max_length - cfg.decoder.num_codebooks
+    audio_s = frames * cfg.audio_encoder.hop_length / cfg.sampling_rate
+    print(f"  {label}: {st.forwards} forwards (+{st.frozen} frozen) for {st.columns} columns, "
+          f"{st.columns / st.forwards:.2f} columns per forward, {st.columns / (t1 - t0):.1f} "
+          f"columns/s; generate_codes {t1 - t0:.3f} s + decode_codes {t2 - t1:.3f} s = "
+          f"{t2 - t0:.3f} s for {audio_s:.2f} s of audio: real-time factor "
+          f"{(t2 - t0) / audio_s:.4f} at B={audio.shape[0]} ({card})")
+    if out.steps != pipe.generation_config.max_length:
+        raise AssertionError(f"{label}: expected {pipe.generation_config.max_length} columns, "
+                             f"got {out.steps}")
+    if not np.isfinite(audio).all() or (lengths != frames * cfg.audio_encoder.hop_length).any():
+        raise AssertionError(f"{label}: bad audio {audio.shape} or lengths {lengths}")
+    if st.columns < st.forwards:
+        raise AssertionError(f"{label}: fewer columns than forwards")
+    return out, st, t1 - t0
+
+
+def spec_pipeline(pipe, gen=None, **kw):
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+
+    kw.setdefault("speculative_window", SPEC_WINDOW)
+    return ParlerTTSPipeline(pipe.model, pipe.dac, gen or pipe.generation_config,
+                             cache_dtype=pipe.cache_dtype, device=pipe.device,
+                             speculative_lookup=SPEC_LOOKUP, **kw)
+
+
+def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
+    """Speculative decoding on the card: K1 at the window shapes, then
+    mini-v1 served speculatively (greedy B=1 and per-row B=2 against phase
+    (b)'s eager rows and, in fp32, against the fp32 AR run; sampled;
+    streamed; int8 against phase (e), with K2 held to its plain version at
+    each shape that run gives it), large-v1 against phase (l)'s eager rows
+    and its fp32 AR run, and decoder-only generation. Returns K1's window
+    numbers and launches."""
+    import dataclasses
+
+    import numpy as np
+
+    import parler_tts_tpu_torch.models.decoder as tdec
+    from parler_tts_tpu_torch.config import mini_v1_config
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul
+    from parler_tts_tpu_torch.runtime.generate import generate_tokens_decoder_only
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.runtime.speculative import (
+        generate_tokens_decoder_only_speculative,
+    )
+
+    numbers = dict(k1=window_k1(dev, card))
+    n_layers = source.config.decoder.num_hidden_layers
+    request = request_ids(0)
+    row1 = tuple(x[1:2] for x in request)
+
+    def need(ok, msg):
+        if not ok:
+            raise AssertionError(msg)
+
+    def held(label, got, want, rows, replay, tie=TIE, top_two=True):
+        """Greedy ids equal to the AR run's up to each row's first parting,
+        which is a near-tie of the AR run (near_ties)."""
+        near_ties(label, first_partings(label, got, want, rows), replay, want, need, tie,
+                  top_two, stop_early=True)
+
+    def k1_check(label, st, k1, layers=n_layers):
+        runs = st.forwards + st.frozen
+        print(f"    {label}: K1 launches {k1} = {layers} x {runs} forwards run "
+              f"({st.forwards} advancing, {st.frozen} frozen): {k1 == layers * runs}")
+        need(k1 == layers * runs, f"{label}: K1 launched {k1} times, want {layers} x {runs}")
+
+    # warm-up: the window's shapes over 64 columns
+    short = dataclasses.replace(source.generation_config, max_length=64, min_new_tokens=64)
+    for per_row, req in ((False, row1), (True, request)):
+        spec_pipeline(source, short, speculative_per_row=per_row).generate_codes(*req)
+    torch.cuda.synchronize()
+
+    # bf16: the window forward runs every matmul at M = B x W rows where the
+    # AR step runs M = B, and bf16 rounds the two otherwise, so a greedy run
+    # parts from its AR run where the AR run's top logits lie within what
+    # that rounding moves them (window_tie). Three tokens can lie that close
+    # in a random model's flat logits, so the AR run's runner-up is not
+    # required there; fp32 runs keep it, at TIE.
+    ties = dict(mini_v1=window_tie("mini-v1 bf16", source.model, dev, SPEC_WINDOW))
+
+    # greedy B=1 (row 1, left-padded) and per-row B=2 against phase (b)
+    got = {}
+    for label, per_row, req in (("spec W=24 B=1", False, row1),
+                                ("spec W=24 per-row B=2", True, request)):
+        pipe = spec_pipeline(source, speculative_per_row=per_row)
+        flash_decode_attention.launches = 0
+        out, st, gen_s = spec_serve(pipe, req, label, card)
+        k1_check(label, st, flash_decode_attention.launches)
+        got[label] = out.delayed_ids
+        numbers[label] = dict(forwards=st.forwards, frozen=st.frozen, columns=st.columns,
+                              columns_per_s=st.columns / gen_s,
+                              k1_launches=flash_decode_attention.launches)
+    held("greedy B=1 and per-row B=2 vs phase (b)",
+         torch.cat([got["spec W=24 B=1"], got["spec W=24 per-row B=2"]]), out_b, [1, 0, 1],
+         lambda: source.generate_codes(*request, seed=0), ties["mini_v1"], top_two=False)
+
+    # fp32, B=1 and per-row B=2 over 256 columns, against the fp32 AR run: TIE
+    fp32 = fp32_copy(source.model, dev)
+    gen32 = dataclasses.replace(source.generation_config, max_length=DECODER_ONLY_COLUMNS,
+                                min_new_tokens=DECODER_ONLY_COLUMNS)
+    ar32 = ParlerTTSPipeline(fp32, source.dac, gen32, cache_dtype=torch.float32, device=dev)
+    want32 = ar32.generate_codes(*request, seed=0).delayed_ids
+    for label, per_row, req, rows in (("fp32 spec W=24 B=1", False, row1, [1]),
+                                      ("fp32 spec W=24 per-row B=2", True, request, [0, 1])):
+        flash_decode_attention.launches = 0
+        out, st, _ = spec_serve(spec_pipeline(ar32, speculative_per_row=per_row), req, label,
+                                card)
+        k1_check(label, st, flash_decode_attention.launches)
+        held(f"{label} vs the fp32 AR run", out.delayed_ids, want32, rows,
+             lambda: ar32.generate_codes(*request, seed=0))
+
+    # sampled B=1: two runs from one seed give the same tokens
+    sampled_gen = dataclasses.replace(source.generation_config, do_sample=True,
+                                      max_length=SAMPLED_COLUMNS, min_new_tokens=SAMPLED_COLUMNS)
+    sampled = spec_pipeline(source, sampled_gen)
+    first, st1, _ = spec_serve(sampled, row1, "sampled spec W=24 B=1", card)
+    again = sampled.generate_codes(*row1, seed=0)
+    st2 = sampled.last_spec_stats
+    same = torch.equal(first.delayed_ids, again.delayed_ids)
+    valid = bool((first.codes < 1024).all())
+    print(f"    sampled: two runs from seed 0 equal: {same}; {st1.columns} columns in "
+          f"{st1.forwards} forwards (>= 1 a forward: {st1.columns >= st1.forwards}); codes "
+          f"inside the codebooks: {valid}")
+    need(same and st1 == st2._replace(frozen=st1.frozen) and valid,
+         f"sampled spec: repeat equal {same}, stats {st1} / {st2}, codes valid {valid}")
+
+    # a speculative stream B=1 over row 1: the offline tokens, bit for bit
+    pipe = spec_pipeline(source)
+    prefill, step = pipe._ensure_stream_fns()
+    seen = {}
+
+    def keep(*args, **kw):
+        seen["state"] = prefill(*args, **kw)
+        return seen["state"]
+
+    pipe._stream_fns = (keep, step)
+    chunks, first_chunk = [], None
+    t0 = time.perf_counter()
+    for chunk in pipe.stream(*row1, play_steps=PLAY_STEPS):
+        first_chunk = first_chunk or time.perf_counter() - t0
+        chunks.append(chunk)
+    wall = time.perf_counter() - t0
+    state = seen["state"]
+    t_end = int(state.t)
+    columns = t_end - state.t0
+    same = t_end == MAX_LENGTH and torch.equal(state.out_ids[:, :, :MAX_LENGTH],
+                                               got["spec W=24 B=1"])
+    print(f"  spec stream B=1, play_steps {PLAY_STEPS}: first chunk after {first_chunk:.3f} s, "
+          f"{len(chunks)} chunks, {columns / wall:.1f} columns/s over the stream ({wall:.2f} s, "
+          f"codec flushes included); tokens equal to the offline spec run: {same} ({card})")
+    need(same and np.isfinite(np.concatenate(chunks, axis=1)).all(),
+         f"spec stream: tokens equal {same}")
+    numbers["stream"] = dict(first_chunk_s=first_chunk, columns_per_s=columns / wall,
+                             chunks=len(chunks))
+
+    # int8 over K2 at M = W: K2 against its plain version on the inputs the
+    # warm-up run gave it, one of each (M, K, N); then against phase (e)'s
+    # int8 AR row 1
+    int8 = ParlerTTSPipeline.from_random(mini_v1_config(), seed=0,
+                                         generation_config=source.generation_config,
+                                         device=dev, dtype=torch.bfloat16,
+                                         cache_dtype=torch.bfloat16, weight_quant=True)
+    pipe = spec_pipeline(int8)
+    shapes, real = {}, tdec.quant_matmul
+
+    def record(x, w, s):
+        shapes.setdefault((x.shape[0],) + tuple(w.shape), (x.clone(), w, s))
+        return real(x, w, s)
+
+    tdec.quant_matmul = record
+    try:
+        pipe.generate_codes(*row1, seed=0)  # warm-up of M = 24
+    finally:
+        tdec.quant_matmul = real
+    for (m, k, n), (x, w, s) in sorted(shapes.items()):
+        err, slices, slice_ = k2_check(x, w, s, f"K2 int8 spec M={m} K={k} N={n}")
+        print(f"  K2 at the int8 speculative run's M={m:2d} K={k} N={n} on its own inputs: "
+              f"max_abs_err {err:.3e} within k2_close, {slices} x {slice_}-row slices, a "
+              f"repeat bit-identical, a dropped slice outside")
+    ties["int8"] = window_tie("mini-v1 int8", int8.model, dev, SPEC_WINDOW)
+    flash_decode_attention.launches = quant_matmul.launches = 0
+    out, st, gen_s = spec_serve(pipe, row1, "int8 spec W=24 B=1", card)
+    runs = st.forwards + st.frozen
+    k2, want_k2 = quant_matmul.launches, 8 * n_layers * (runs + 1) + 2 * n_layers
+    print(f"    int8: K2 launches {k2} = 192 x ({runs} forwards run + prefill) + 48 cross-kv: "
+          f"{k2 == want_k2}")
+    need(k2 == want_k2, f"int8 spec: K2 launched {k2} times, want {want_k2}")
+    k1_check("int8 spec", st, flash_decode_attention.launches)
+    held("int8 spec B=1 vs phase (e)", out.delayed_ids, stream_e, [1],
+         lambda: int8.generate_codes(*request, seed=0), ties["int8"], top_two=False)
+    numbers["int8"] = dict(forwards=st.forwards, columns=st.columns, k2_launches=k2,
+                           columns_per_s=st.columns / gen_s,
+                           k2_shapes=[list(key) for key in sorted(shapes)])
+    del int8, pipe, shapes
+    torch.cuda.empty_cache()
+
+    # large-v1 W=16 against phase (l)'s eager row 1, then in fp32 against
+    # the fp32 AR run
+    large_layers = large_eager.config.decoder.num_hidden_layers
+    ties["large_v1"] = window_tie("large-v1 bf16", large_eager.model, dev, SPEC_WINDOW_LARGE)
+    pipe = spec_pipeline(large_eager, speculative_window=SPEC_WINDOW_LARGE)
+    pipe.generate_codes(*row1, seed=0)  # warm-up
+    flash_decode_attention.launches = 0
+    out, st, gen_s = spec_serve(pipe, row1, "large-v1 spec W=16 B=1", card)
+    k1_check("large-v1 spec", st, flash_decode_attention.launches, large_layers)
+    held("large-v1 spec B=1 vs phase (l)", out.delayed_ids, large_out, [1],
+         lambda: large_eager.generate_codes(*request, seed=0), ties["large_v1"], top_two=False)
+    numbers["large-v1"] = dict(forwards=st.forwards, columns=st.columns,
+                               columns_per_s=st.columns / gen_s)
+    del pipe
+    large_ar32 = ParlerTTSPipeline(fp32_copy(large_eager.model, dev), large_eager.dac,
+                                   large_eager.generation_config, cache_dtype=torch.float32,
+                                   device=dev)
+    want = large_ar32.generate_codes(*request, seed=0).delayed_ids
+    flash_decode_attention.launches = 0
+    out, st, _ = spec_serve(spec_pipeline(large_ar32, speculative_window=SPEC_WINDOW_LARGE),
+                            row1, "large-v1 fp32 spec W=16 B=1", card)
+    k1_check("large-v1 fp32 spec", st, flash_decode_attention.launches, large_layers)
+    held("large-v1 fp32 spec B=1 vs the fp32 AR run", out.delayed_ids, want, [1],
+         lambda: large_ar32.generate_codes(*request, seed=0))
+    del large_ar32
+    torch.cuda.empty_cache()
+
+    # decoder-only, in fp32 (phase (b)'s weights): phase (b)'s description
+    # row 1 as encoder states
+    model = fp32
+    gen = dataclasses.replace(source.generation_config, max_length=DECODER_ONLY_COLUMNS,
+                              min_new_tokens=DECODER_ONLY_COLUMNS)
+    desc, desc_mask = (torch.as_tensor(x[1:2], device=dev) for x in request[:2])
+    with torch.inference_mode():
+        states, mask = model.build_encoder_states(model.encode_description(desc, desc_mask),
+                                                  desc_mask, None, None)
+    kw = dict(encoder_hidden_states=states, encoder_mask=mask, cache_dtype=torch.float32)
+
+    def decoder_only_ar():
+        return generate_tokens_decoder_only(model, gen, 1, **kw)
+
+    generate_tokens_decoder_only_speculative(model, gen, 1, window=SPEC_WINDOW, **kw)  # warm-up
+    t0 = time.perf_counter()
+    ar = decoder_only_ar()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    flash_decode_attention.launches = 0
+    spec, st = generate_tokens_decoder_only_speculative(model, gen, 1, window=SPEC_WINDOW,
+                                                        lookup_ngram=SPEC_LOOKUP, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"  decoder-only fp32 B=1 over {DECODER_ONLY_COLUMNS} columns: AR {t1 - t0:.3f} s, "
+          f"spec W=24 {t2 - t1:.3f} s ({st.forwards} forwards, {st.columns / st.forwards:.2f} "
+          f"columns per forward) ({card})")
+    k1_check("decoder-only spec", st, flash_decode_attention.launches)
+    need(ar.steps == DECODER_ONLY_COLUMNS and spec.steps == DECODER_ONLY_COLUMNS,
+         f"decoder-only: {ar.steps} / {spec.steps} columns")
+    held("decoder-only fp32 spec vs AR", spec.delayed_ids, ar.delayed_ids, [0], decoder_only_ar)
+    numbers["decoder-only"] = dict(forwards=st.forwards, columns=st.columns)
+    numbers["tie_bf16"] = ties
+    del fp32
+    return numbers
 
 
 def main() -> int:
@@ -2597,7 +3093,7 @@ def main() -> int:
     print(f"[phase k] voice-steered mini-v1 streams: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
     phase_j(dev, card, source, out_b, stream_e, stream_g)
-    del source, out_b, stream_e, stream_g
+    del stream_g
     torch.cuda.empty_cache()
     print(f"[phase j] a saved mini-v1 served from disk: {time.perf_counter() - t0:.2f} s "
           f"({card})")
@@ -2609,8 +3105,14 @@ def main() -> int:
     k4_launches = phase_i(dev, card)
     print(f"[phase i] mini-v1 trainer: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
-    large = phase_l(dev, card)
+    large, large_eager, large_out = phase_l(dev, card)
     print(f"[phase l] large-v1 kernels and serving: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    spec = phase_m(dev, card, source, out_b.delayed_ids, stream_e, large_eager, large_out)
+    del source, out_b, stream_e, large_eager, large_out
+    torch.cuda.empty_cache()
+    print(f"[phase m] speculative and decoder-only serving: {time.perf_counter() - t0:.2f} s "
+          f"({card})")
     print("  time to first chunk (phase k): " + "; ".join(
         f"{label} {v['first_chunk_s']:.3f} s, {v['steps_per_s']:.1f} decode steps/s, "
         f"{v['chunks']} chunks" for label, v in stream_k.items()) + f" ({card})")
@@ -2619,7 +3121,8 @@ def main() -> int:
         dict(name="flash_decode_attention", route="cuda",
              source="parler_tts_tpu_torch/csrc/flash_decode.cu",
              replaces="parler_tts_tpu/ops/pallas/flash_decode.py:192",
-             launches=launches, max_abs_err=max_err, **timing, large_v1=large["k1"]),
+             launches=launches, max_abs_err=max_err, **timing, large_v1=large["k1"],
+             window=spec.pop("k1"), speculative=spec),
         dict(name="quant_matmul", route="cuda",
              source="parler_tts_tpu_torch/csrc/quant_matmul.cu",
              replaces="parler_tts_tpu/ops/pallas/quant_matmul.py:39",

@@ -37,7 +37,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -67,14 +67,16 @@ class DecoderCache:
 
     self_k/self_v: (L, B, S_max, H_kv*Dh), the flat layout K1 reads in place
     cross_k/cross_v: (L, B, S_enc, H_ckv, Dh), filled once per generate
-    index: next self-attention write position
+    index: next self-attention write position: an int, or an int device
+    tensor, () for every row or (B,) for each row's own position (the
+    speculative window forward, whose offsets stay on the device)
     """
 
     self_k: torch.Tensor
     self_v: torch.Tensor
     cross_k: torch.Tensor
     cross_v: torch.Tensor
-    index: int = 0
+    index: Union[int, torch.Tensor] = 0
 
     @classmethod
     def zeros(cls, config: DecoderConfig, batch_size: int, max_length: int,
@@ -210,8 +212,8 @@ class Attention(nn.Module):
     def self_attention(self, x, bias, cos, sin, cache: Optional[DecoderCache], layer_idx: int,
                        decode_lengths: Optional[Tuple[torch.Tensor, int]] = None,
                        mask_1d: Optional[torch.Tensor] = None):
-        """With a cache: writes this step's k/v into it at `cache.index`,
-        then attends through K1 when `decode_lengths` = (starts, limit) is
+        """With a cache: writes this step's k/v into it at `cache.index`
+        (each row at its own offset when that is a (B,) tensor), then attends through K1 when `decode_lengths` = (starts, limit) is
         given, else densely over the layer's cache with the additive `bias`.
         Without one (training): attends over this call's k/v, through the
         route `use_chunked_attention` picks when `mask_1d` (B, T) is given,
@@ -236,8 +238,16 @@ class Attention(nn.Module):
             return self.out_proj(out.reshape(b, t, -1))
         i = cache.index
         ck, cv = cache.self_k, cache.self_v
-        ck[layer_idx, :, i:i + t] = k.reshape(b, t, -1)
-        cv[layer_idx, :, i:i + t] = v.reshape(b, t, -1)
+        if isinstance(i, torch.Tensor):
+            # rows [i_b, i_b + t) of each row b, one index scatter per layer
+            s = ck.shape[2]
+            rows = (torch.arange(b, device=i.device)[:, None] * s + i.expand(b)[:, None]
+                    + torch.arange(t, device=i.device)[None, :]).reshape(-1)
+            ck[layer_idx].view(b * s, -1).index_copy_(0, rows, k.reshape(b * t, -1).to(ck.dtype))
+            cv[layer_idx].view(b * s, -1).index_copy_(0, rows, v.reshape(b * t, -1).to(cv.dtype))
+        else:
+            ck[layer_idx, :, i:i + t] = k.reshape(b, t, -1)
+            cv[layer_idx, :, i:i + t] = v.reshape(b, t, -1)
         if decode_lengths is not None:
             starts, limit = decode_lengths
             out = flash_decode_attention(q[:, 0] if t == 1 else q, ck, cv, starts, limit,
@@ -396,7 +406,7 @@ class ParlerDecoder(nn.Module):
                 out = torch.where(dropped, x, out)
             x = out
         if cache is not None:
-            cache.index += inputs_embeds.shape[1]
+            cache.index = cache.index + inputs_embeds.shape[1]
         return self.layer_norm(x)
 
 

@@ -1,5 +1,5 @@
 """Sampling and logits constraints for the delayed-codebook decode loop
-(port of `parler_tts_tpu/ops/sampling.py`, without `speculative_accept`).
+(port of `parler_tts_tpu/ops/sampling.py`).
 
 Pure functions over (B, K, V) logits with the EOS-ordering state carried
 explicitly: `eos_seen` (B, K) and `first_unfinished` (B,).
@@ -7,7 +7,7 @@ explicitly: `eos_seen` (B, K) and `first_unfinished` (B,).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -117,17 +117,48 @@ def sample_tokens(
     top_k: int = 0,
     top_p: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    gumbel: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Greedy or filtered-categorical sampling over (B, K, V) -> (B, K) int64.
 
     The categorical draw is Gumbel-argmax with noise from `generator` (Philox
-    on the card): it follows the same distribution as the JAX package's
-    threefry draw, not the same bits.
+    on the card), or the given `gumbel` noise of the logits' shape: it
+    follows the same distribution as the JAX package's threefry draw, not
+    the same bits.
     """
     if not do_sample:
         return torch.argmax(logits, dim=-1)
     x = process_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p)
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
-    tiny = torch.finfo(torch.float32).tiny
-    gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+    if gumbel is None:
+        gumbel = gumbel_noise(generator, x.shape, x.device)
     return torch.argmax(x + gumbel, dim=-1)
+
+
+def gumbel_noise(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
+    """Gumbel(0, 1) fp32 noise of `shape` from `generator`: -log(-log(u))."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def speculative_accept(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    cand: torch.Tensor,
+    u: torch.Tensor,
+    gumbel: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The speculative-sampling rejection step: accept `cand` (...,) drawn
+    from the proposal q (..., V) with probability min(1, p/q), i.e. where
+    u * q_c < p_c for the uniforms `u` (...,); otherwise draw from the
+    residual (p - q)^+ by Gumbel-argmax over log(residual + 1e-30) with the
+    `gumbel` noise (..., V), falling back to p where the residual sums to at
+    most 1e-9. The token is distributed exactly as p when cand ~ q and the
+    noise is independent of it. Returns (tokens, accepted)."""
+    p_c = torch.gather(p, -1, cand[..., None])[..., 0]
+    q_c = torch.gather(q, -1, cand[..., None])[..., 0]
+    accepted = u * q_c < p_c
+    residual = (p - q).clamp_min(0.0)
+    empty = residual.sum(dim=-1, keepdim=True) <= 1e-9
+    residual = torch.where(empty, p, residual)
+    alt = torch.argmax(torch.log(residual + 1e-30) + gumbel, dim=-1)
+    return torch.where(accepted, cand, alt), accepted

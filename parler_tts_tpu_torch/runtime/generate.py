@@ -25,6 +25,11 @@ the stacked heads in fp32 after it. Prefill and sampling are shared with
 chunks of columns for streaming: a prefill that returns a `StreamState`,
 and a chunk step that advances it. The offline loop and the chunks call one
 decode step (`_advance`), so a stream's greedy tokens are the offline ones.
+
+`generate_tokens_decoder_only` runs the same prefill and loop without the
+text encoder (`_decoder_only_side` in place of `_encoder_side`); the
+speculative loop (`runtime/speculative.py`) shares the prefill
+(`_prefill_decoder`) with a cache and ids wider by its window.
 """
 
 from __future__ import annotations
@@ -101,14 +106,16 @@ def _sample_column(
     num_codebooks: int,
     prompt_cols: int = 1,
     generator: Optional[torch.Generator] = None,
+    gumbel: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, EosState]:
     """One sampling event: processors, sampling, finished-row PAD forcing,
     delay-pattern override. `prompt_cols` = decoder-prompt column count
-    (min_new_tokens counts from there)."""
+    (min_new_tokens counts from there); `gumbel` (B, K, V), when given, is
+    the sampler's noise in place of a draw from `generator`."""
     x, eos_state = _process_column(logits, t, eos_state, gen, num_codebooks, prompt_cols)
     toks = sample_tokens(
         x, do_sample=gen.do_sample, temperature=gen.temperature,
-        top_k=gen.top_k, top_p=gen.top_p, generator=generator,
+        top_k=gen.top_k, top_p=gen.top_p, generator=generator, gumbel=gumbel,
     )
     toks = toks.masked_fill(eos_state.eos_seen, gen.pad_token_id)
     eos_state = record_sampled(eos_state, toks, gen.eos_token_id)
@@ -184,35 +191,19 @@ class StreamState:
     step: Callable[[int], torch.Tensor]
 
 
-@torch.inference_mode()
-def _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
-             decoder_prompt_codes, cache_dtype, fused) -> StreamState:
-    """Encoder, prefill and the first sampled column (index s0); the decode
-    step over K1 (the dense bias path with a sliding window) or, with
-    `fused`, over K3."""
+def _encoder_side(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask,
+                  decoder_prompt_codes):
+    """The text side of a request: (prefix, prefix_mask, enc_states, enc_mask,
+    start): the decoder's prompt prefix (B, s_p, D) and its (B, s_p) mask
+    (empty when the prompt goes through cross-attention), the encoder states
+    and mask, and the decoder prompt's columns (B, K, s0): BOS, then any
+    voice-prompt codes."""
     cfg: ParlerTTSConfig = model.config
-    dcfg = cfg.decoder
-    k_cb, max_len = dcfg.num_codebooks, gen.max_length
-    b = desc_ids.shape[0]
-    device = desc_ids.device
-    if gen.cache_implementation not in ("static", "sliding_window"):
-        raise ValueError(f"cache_implementation must be 'static' or 'sliding_window', "
-                         f"got {gen.cache_implementation!r}")
-    # the sliding-window option bounds self-attention to the last
-    # `sliding_window` positions of the static cache
-    window = dcfg.sliding_window if gen.cache_implementation == "sliding_window" else None
-    span = (0 if cfg.prompt_cross_attention else prompt_ids.shape[1]) + max_len
-    if span > dcfg.max_position_embeddings:
-        raise ValueError(
-            f"prompt ({prompt_ids.shape[1]}) + max_length ({max_len}) exceeds "
-            f"max_position_embeddings={dcfg.max_position_embeddings}"
-        )
+    b, device = desc_ids.shape[0], desc_ids.device
     if desc_mask is None:
         desc_mask = torch.ones_like(desc_ids)
     if prompt_mask is None:
         prompt_mask = torch.ones_like(prompt_ids)
-
-    # ---- encoder precompute
     enc = model.encode_description(desc_ids, desc_mask)
     prompt = model.prompt_hidden(prompt_ids)
     pca = cfg.prompt_cross_attention
@@ -220,36 +211,80 @@ def _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator
         enc, desc_mask, prompt if pca else None, prompt_mask if pca else None
     )
     if pca:
-        s_p = 0
-        prefix = prompt.new_zeros((b, 0, dcfg.hidden_size))
+        prefix = prompt.new_zeros((b, 0, cfg.decoder.hidden_size))
         prefix_mask = torch.zeros((b, 0), dtype=torch.int32, device=device)
     else:
-        s_p = prompt_ids.shape[1]
-        prefix = prompt
-        prefix_mask = prompt_mask.to(torch.int32)
+        prefix, prefix_mask = prompt, prompt_mask.to(torch.int32)
+    return prefix, prefix_mask, enc_states, enc_mask, _start_columns(
+        gen, model.config.decoder.num_codebooks, b, device, decoder_prompt_codes)
 
-    # ---- delay pattern: BOS column, then any voice-prompt codes
+
+def _start_columns(gen, k_cb, b, device, decoder_prompt_codes) -> torch.Tensor:
+    """The decoder prompt (B, K, s0): the BOS column, then any voice-prompt
+    codes."""
     start = torch.full((b, k_cb, 1), gen.bos_token_id, dtype=torch.int64, device=device)
     if decoder_prompt_codes is not None:
         start = torch.cat([start, decoder_prompt_codes.to(device, torch.int64)], dim=-1)
+    return start
+
+
+@dataclass
+class Prefilled:
+    """The decoder after its prefill: the delay pattern and the delayed ids,
+    (B, K, L + 2 * extra) each with columns past L forced to PAD, the
+    cache of s_p + L + extra slots, its (B, S) validity, K1's starts (the
+    first valid slot of each row), the positions (B, S), and the prefill's
+    last logits (B, K, V). `s0` is the decoder prompt's column count."""
+
+    pattern: torch.Tensor
+    out_ids: torch.Tensor
+    cache: DecoderCache
+    kv_valid: torch.Tensor
+    flash_starts: torch.Tensor
+    positions: torch.Tensor
+    logits: torch.Tensor
+    enc_mask: Optional[torch.Tensor]
+    s_p: int
+    s0: int
+
+
+def _prefill_decoder(model, gen, prefix, prefix_mask, enc_states, enc_mask, start,
+                     cache_dtype, extra: int = 0) -> Prefilled:
+    """Delay pattern, cache and the prefill forward over [prompt prefix,
+    decoder prompt]. `extra` columns beyond max_length (the speculative
+    window) widen the ids by 2 * extra and the cache by extra slots."""
+    dcfg = model.config.decoder
+    k_cb, max_len = dcfg.num_codebooks, gen.max_length
+    b, s_p, device = start.shape[0], prefix.shape[1], start.device
+    if gen.cache_implementation not in ("static", "sliding_window"):
+        raise ValueError(f"cache_implementation must be 'static' or 'sliding_window', "
+                         f"got {gen.cache_implementation!r}")
+    # the sliding-window option bounds self-attention to the last
+    # `sliding_window` positions of the static cache
+    window = dcfg.sliding_window if gen.cache_implementation == "sliding_window" else None
+    if s_p + max_len + extra > dcfg.max_position_embeddings:
+        raise ValueError(
+            f"prompt ({s_p}) + max_length ({max_len}) + window ({extra}) exceeds "
+            f"max_position_embeddings={dcfg.max_position_embeddings}"
+        )
     first_ids, pattern = build_delay_pattern_mask(
         start, gen.bos_token_id, gen.pad_token_id, max_len
     )
-    out_ids = torch.where(pattern == -1, torch.full_like(pattern, gen.pad_token_id), pattern)
+    pad = torch.full((b, k_cb, 2 * extra), gen.pad_token_id, dtype=pattern.dtype, device=device)
+    pattern_ext = torch.cat([pattern, pad], dim=-1)
+    out_ids = torch.where(pattern_ext == -1, torch.full_like(pattern_ext, gen.pad_token_id),
+                          pattern_ext)
 
-    # ---- cache and masks
-    s_cache = s_p + max_len
+    s_cache = s_p + max_len + extra
     cache = DecoderCache.zeros(dcfg, b, s_cache, enc_states.shape[1], cache_dtype, device)
     cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc_states)
     kv_valid = torch.cat(
-        [prefix_mask.to(torch.bool), torch.ones((b, max_len), dtype=torch.bool, device=device)],
-        dim=1,
-    )
+        [prefix_mask.to(torch.bool),
+         torch.ones((b, s_cache - s_p), dtype=torch.bool, device=device)], dim=1)
     # left-padded prompts: first valid cache slot of each row, K1's `starts`
     flash_starts = (s_p - prefix_mask.sum(dim=1)).to(torch.int32).contiguous()
     positions = torch.arange(s_cache, device=device)[None, :].expand(b, s_cache)
 
-    # ---- prefill: [prompt prefix, delayed columns 0 .. s0-1]
     s0 = first_ids.shape[-1]
     emb0 = model.decoder.embed_ids(first_ids)
     pre_embeds = torch.cat([prefix.to(emb0.dtype), emb0], dim=1)
@@ -260,23 +295,43 @@ def _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator
         cross_attn_bias=padding_cross_attention_bias(enc_mask, s_p + s0),
         cache=cache,
     )
+    return Prefilled(pattern_ext, out_ids, cache, kv_valid, flash_starts, positions,
+                     logits_pre[:, :, -1, :], enc_mask, s_p, s0)
 
-    # ---- first sampled column (index s0)
-    eos_state = init_eos_state(b, k_cb, device)
+
+@torch.inference_mode()
+def _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+             decoder_prompt_codes, cache_dtype, fused) -> StreamState:
+    """Encoder, prefill and the first sampled column (index s0); the decode
+    step over K1 (the dense bias path with a sliding window) or, with
+    `fused`, over K3."""
+    side = _encoder_side(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask,
+                         decoder_prompt_codes)
+    return _ar_state(model, gen, _prefill_decoder(model, gen, *side, cache_dtype), generator,
+                     fused)
+
+
+def _ar_state(model, gen, pre: Prefilled, generator, fused) -> StreamState:
+    """The first sampled column (index s0) and the one-column decode step."""
+    dcfg = model.config.decoder
+    k_cb = dcfg.num_codebooks
+    b, s_p, s0, out_ids = pre.out_ids.shape[0], pre.s_p, pre.s0, pre.out_ids
+    window = dcfg.sliding_window if gen.cache_implementation == "sliding_window" else None
+    eos_state = init_eos_state(b, k_cb, out_ids.device)
     col, eos_state = _sample_column(
-        logits_pre[:, :, -1, :], s0, eos_state, pattern, gen, k_cb,
-        prompt_cols=s0, generator=generator,
+        pre.logits, s0, eos_state, pre.pattern, gen, k_cb, prompt_cols=s0, generator=generator,
     )
     out_ids[:, :, s0] = col
+    cache, positions, kv_valid = pre.cache, pre.positions, pre.kv_valid
 
     if fused is None:
-        cross_bias = padding_cross_attention_bias(enc_mask, 1)
+        cross_bias = padding_cross_attention_bias(pre.enc_mask, 1)
 
         def decode_step(t: int) -> torch.Tensor:
             emb = model.decoder.embed_ids(out_ids[:, :, t - 1: t])
             q_pos = positions[:, s_p + t - 1: s_p + t]
             if window is None:
-                bias, lengths = None, (flash_starts, s_p + t)
+                bias, lengths = None, (pre.flash_starts, s_p + t)
             else:
                 bias, lengths = causal_self_attention_bias(q_pos, kv_valid, window), None
             return model.decoder(
@@ -284,9 +339,9 @@ def _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator
                 decode_lengths=lengths,
             )[:, :, -1, :]
     else:
-        decode_step = _fused_step(model, fused, cache, enc_mask, out_ids, s_p, s0,
-                                  flash_starts[0])
-    return StreamState(out_ids, cache, eos_state, generator, s0 + 1, pattern, s_p, s0,
+        decode_step = _fused_step(model, fused, cache, pre.enc_mask, out_ids, s_p, s0,
+                                  pre.flash_starts[0])
+    return StreamState(out_ids, cache, eos_state, generator, s0 + 1, pre.pattern, s_p, s0,
                        decode_step)
 
 
@@ -304,12 +359,17 @@ def _advance(state: StreamState, gen: GenerationConfig, num_codebooks: int) -> N
 @torch.inference_mode()
 def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
               decoder_prompt_codes, cache_dtype, fused) -> GenerateOutput:
+    return _run(model, gen, _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask,
+                                     generator, decoder_prompt_codes, cache_dtype, fused))
+
+
+def _run(model, gen, state: StreamState) -> GenerateOutput:
+    """The decode loop from a prefilled state to max_length or the all-EOS
+    exit."""
     k_cb, max_len = model.config.decoder.num_codebooks, gen.max_length
-    state = _prefill(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
-                     decoder_prompt_codes, cache_dtype, fused)
     s0 = state.prompt_cols
     # all_done[t]: every codebook of every row had emitted EOS before column t
-    all_done = torch.zeros((max_len + 2,), dtype=torch.bool, device=desc_ids.device)
+    all_done = torch.zeros((max_len + 2,), dtype=torch.bool, device=state.out_ids.device)
     while state.t < max_len:
         all_done[state.t] = state.eos.eos_seen.all()
         if (state.t - s0 - 1) % EOS_CHECK_EVERY == 0 and bool(all_done[state.t]):
@@ -323,6 +383,62 @@ def _generate(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask, generato
     codes = undelay_pattern(delayed, k_cb)
     pad = model.config.decoder.pad_token_id  # pad == eos == codebook_size
     return GenerateOutput(delayed, codes, valid_frame_lengths(codes, pad), steps)
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless the caller names a device; raises when CUDA is asked for
+    and absent (the port has no silent CPU fallback)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: parler_tts_tpu_torch runs on the GPU; pass device='cpu' "
+            "to run on the CPU"
+        )
+    return dev
+
+
+def _decoder_only_side(model, gen, batch_size, encoder_hidden_states, encoder_mask,
+                       decoder_prompt_codes, device):
+    """`_encoder_side` without a text encoder: no prompt prefix, the given
+    encoder states (B, S_enc, D) or one zero state that cross-attention
+    masks out, and the decoder prompt."""
+    dcfg = model.config.decoder
+    given = next((x for x in (encoder_hidden_states, decoder_prompt_codes) if x is not None),
+                 None)
+    device = given.device if given is not None else resolve_device(device)
+    b = batch_size
+    if encoder_hidden_states is None:
+        encoder_hidden_states = torch.zeros((b, 1, dcfg.hidden_size), device=device)
+        encoder_mask = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    prefix = torch.zeros((b, 0, dcfg.hidden_size), device=device)
+    prefix_mask = torch.zeros((b, 0), dtype=torch.int32, device=device)
+    start = _start_columns(gen, dcfg.num_codebooks, b, device, decoder_prompt_codes)
+    return prefix, prefix_mask, encoder_hidden_states.to(device), encoder_mask, start
+
+
+@torch.inference_mode()
+def generate_tokens_decoder_only(
+    model: ParlerTTS,
+    gen: GenerationConfig,
+    batch_size: int,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
+    encoder_mask: Optional[torch.Tensor] = None,
+    decoder_prompt_codes: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    cache_dtype=torch.bfloat16,
+    device=None,
+) -> GenerateOutput:
+    """Decoder-only generation (port of the JAX package's
+    `generate_tokens_decoder_only`): no text encoder and no prompt prefix;
+    cross-attention reads the precomputed `encoder_hidden_states` (B, S_enc,
+    D) under `encoder_mask` (B, S_enc), or one zero state it masks out; the
+    decoder prompt is BOS and any `decoder_prompt_codes` (B, K, T0). The
+    decode steps run over K1 as in `generate_tokens`. It runs on the device
+    of the given tensors, else on `device` (`cuda` unless named)."""
+    side = _decoder_only_side(model, gen, batch_size, encoder_hidden_states, encoder_mask,
+                              decoder_prompt_codes, device)
+    pre = _prefill_decoder(model, gen, *side, cache_dtype)
+    return _run(model, gen, _ar_state(model, gen, pre, generator, None))
 
 
 def make_stream_functions(model: ParlerTTS, gen: GenerationConfig,

@@ -18,6 +18,14 @@ codes with the fp32 codec's encoder; they go to `generate` as
 trailing window of frames each time (`runtime/generate.py:
 make_stream_functions`; `runtime/streamer.py` wraps them for a player).
 
+Speculative decoding (the JAX package's default B=1 serving mode):
+`speculative_window=W` verifies W candidate columns per decoder forward
+(`runtime/speculative.py`) in `generate_codes`, `stream` and `stream_batch`;
+`speculative_per_row=True` advances each row by its own accepted prefix;
+`speculative_lookup=g` drafts from the stream's own history. Greedy tokens
+are the AR loop's. It composes with `weight_quant` and excludes
+`fused_decode`.
+
 Serving modes of the JAX pipeline: a model built with `weight_quant=True`
 (int8 weight-only decoder layers over kernel K2) or `"xla"` (the same int8
 weights over a plain matmul) is served unchanged; `fused_decode=True` sends
@@ -54,28 +62,22 @@ from ..ops.fused_decode_step import prepare_fused_params
 from ..utils.quantize import quantize_decoder_params_torch
 from .checkpoint import load_hf_config, load_safetensors_dir
 from ..ops.delay_pattern import undelay_pattern, valid_frame_lengths
+from .speculative import (
+    SpecStats,
+    generate_tokens_speculative,
+    make_stream_functions_speculative,
+)
 from .generate import (
     GenerateOutput,
     generate_tokens,
     generate_tokens_fused,
     make_stream_functions,
+    resolve_device,
 )
 
 
 def _round_up(x: int, m: int) -> int:
     return max(m, ((x + m - 1) // m) * m)
-
-
-def resolve_device(device=None) -> torch.device:
-    """`cuda` unless the caller names a device; raises when CUDA is asked for
-    and absent (the port has no silent CPU fallback)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: parler_tts_tpu_torch runs on the GPU; pass device='cpu' "
-            "to run on the CPU"
-        )
-    return dev
 
 
 def _as_ids(x, device) -> Optional[torch.Tensor]:
@@ -123,7 +125,15 @@ class ParlerTTSPipeline:
         fused_decode: bool = False,
         fused_qkv: bool = False,
         codec_dtype: Optional[torch.dtype] = None,
+        speculative_window: Optional[int] = None,
+        speculative_per_row: bool = False,
+        speculative_lookup: int = 3,
     ):
+        if speculative_per_row and speculative_window is None:
+            raise ValueError("speculative_per_row=True requires speculative_window (per-row "
+                             "advance is a property of the speculative decoder)")
+        if speculative_window is not None and fused_decode:
+            raise ValueError("speculative_window and fused_decode are exclusive")
         if fused_decode and model.weight_quant:
             raise ValueError(
                 "fused_decode and weight_quant are exclusive: the fused step quantizes the "
@@ -152,6 +162,15 @@ class ParlerTTSPipeline:
         )
         # B=1 requests run the fused decode step over int8 weights stacked once
         self.fused = prepare_fused_params(self.model.decoder.decoder) if fused_decode else None
+        # speculative decoding: W candidate columns verified per forward
+        # (runtime/speculative.py), per row or over the batch's shared
+        # horizon, with a history-lookup draft of `speculative_lookup`
+        # columns (0: self-drafts only); stats of the last call in
+        # `last_spec_stats`
+        self.spec_window = speculative_window
+        self.spec_per_row = speculative_per_row
+        self.spec_lookup = speculative_lookup
+        self.last_spec_stats: Optional[SpecStats] = None
         self._stream_fns = None
 
     @classmethod
@@ -296,6 +315,14 @@ class ParlerTTSPipeline:
             ids = [None if x is None else x.repeat_interleave(n, dim=0) for x in ids]
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
+        if self.spec_window is not None:
+            out, self.last_spec_stats = generate_tokens_speculative(
+                self.model, gen, ids[0], ids[1], ids[2], ids[3], generator,
+                decoder_prompt_codes=ids[4], cache_dtype=self.cache_dtype,
+                window=self.spec_window, per_row=self.spec_per_row,
+                lookup_ngram=self.spec_lookup,
+            )
+            return out
         if self.fused is not None and ids[0].shape[0] == 1:
             return generate_tokens_fused(
                 self.model, gen, self.fused, ids[0], ids[1], ids[2], ids[3], generator,
@@ -379,12 +406,19 @@ class ParlerTTSPipeline:
 
     # --------------------------------------------------------------- streaming
     def _ensure_stream_fns(self):
-        """The (prefill, chunk step) pair of `make_stream_functions`, made once.
-        Streams take the eager decode step whatever `fused_decode` says, as in
-        the JAX package."""
+        """The (prefill, chunk step) pair, made once: speculative
+        (`make_stream_functions_speculative`) when the pipeline has a window,
+        else `make_stream_functions`. Streams take the eager decode step
+        whatever `fused_decode` says, as in the JAX package."""
         if self._stream_fns is None:
-            self._stream_fns = make_stream_functions(self.model, self.generation_config,
-                                                     self.cache_dtype)
+            if self.spec_window is not None:
+                self._stream_fns = make_stream_functions_speculative(
+                    self.model, self.generation_config, window=self.spec_window,
+                    cache_dtype=self.cache_dtype, per_row=self.spec_per_row,
+                    lookup_ngram=self.spec_lookup)
+            else:
+                self._stream_fns = make_stream_functions(self.model, self.generation_config,
+                                                         self.cache_dtype)
         return self._stream_fns
 
     def warmup_stream_async(self, desc_ids, desc_mask, prompt_ids, prompt_mask,
@@ -429,17 +463,47 @@ class ParlerTTSPipeline:
 
     def _stream_frames(self, state, step_fn, play_steps: int):
         """Advance `state` a chunk at a time; yields (codes (B, K, t - K) of
-        the columns so far, frame lengths (B,) numpy, done)."""
+        the columns so far, frame lengths (B,) numpy, done). Flush i shows
+        the columns below t_start + i * play_steps, or below the row's end
+        if that comes first: a speculative chunk, which runs past its
+        target, shows the columns a plain stream shows, and those past it at
+        the next flush (with no forward if they are already there). Each
+        chunk runs until the slowest unfinished row reaches that limit; a
+        finished row's columns past its own end hold the pattern's fill (its
+        unverified candidates stay hidden)."""
         dcfg = self.config.decoder
-        max_len = self.generation_config.max_length
+        gen = self.generation_config
+        max_len = gen.max_length
+
+        def progress():
+            t_raw = np.atleast_1d(torch.as_tensor(state.t).cpu().numpy())
+            eos_rows = state.eos.eos_seen.all(dim=1).cpu().numpy()
+            return t_raw, (t_raw >= max_len) | (eos_rows if t_raw.size > 1 else eos_rows.all())
+
+        t_raw, row_done = progress()
+        limit = int(t_raw.min())
         while True:
-            step_fn(state, play_steps)
-            done = state.t >= max_len or bool(state.eos.eos_seen.all())
-            if state.t <= dcfg.num_codebooks:
+            limit += play_steps
+            if not row_done.all():
+                n_steps = limit - int(t_raw[~row_done].min())
+                if n_steps > 0:
+                    step_fn(state, n_steps)
+                    t_raw, row_done = progress()
+            t_vis = np.minimum(t_raw, limit)
+            done = bool(row_done.all()) and int(t_raw.max()) <= limit
+            t = int(t_vis.max())
+            if t <= dcfg.num_codebooks:
                 if done:
                     return
                 continue
-            codes = undelay_pattern(state.out_ids[:, :, :state.t], dcfg.num_codebooks)
+            cols = state.out_ids[:, :, :t]
+            if (t_vis < t).any():
+                pat = state.pattern[:, :, :t]
+                tail = torch.where(pat == -1, torch.full_like(pat, gen.pad_token_id), pat)
+                shown = torch.arange(t, device=pat.device)[None, None, :] < torch.as_tensor(
+                    t_vis, device=pat.device)[:, None, None]
+                cols = torch.where(shown, cols, tail)
+            codes = undelay_pattern(cols, dcfg.num_codebooks)
             lengths = valid_frame_lengths(codes, dcfg.pad_token_id).cpu().numpy()
             yield codes, lengths, done
             if done:
@@ -458,6 +522,9 @@ class ParlerTTSPipeline:
         flush, the new ones and `context_frames` before the first sample
         still to emit (`_decode_stream_window`), so a flush costs the same
         all along an utterance."""
+        if self.spec_per_row and len(desc_ids) > 1:
+            raise ValueError("stream() is the single-stream surface; with "
+                             "speculative_per_row=True and B>1 use stream_batch()")
         hop = self.config.audio_encoder.hop_length
         stride = hop * max(play_steps - self.config.decoder.num_codebooks, 1) // 6
         state, step_fn = self._stream_state(desc_ids, desc_mask, prompt_ids, prompt_mask, seed,
@@ -499,12 +566,13 @@ class ParlerTTSPipeline:
                      play_steps: int = 86, seed: int = 0, decoder_prompt_codes=None,
                      incremental: bool = True, context_frames: int = 64):
         """B streams from one chunked loop (port of the JAX package's
-        `stream_batch`, without its speculative branch). Yields `(chunk,
-        valid)` pairs on one sample grid: `chunk` (B, S) float32 numpy, and
-        `valid[i]` the count of this chunk's samples that are real for
-        stream i (0 once stream i has ended; chunks go on until the longest
-        stream ends). The stride hold-back and the decode window are those
-        of `stream`."""
+        `stream_batch`). Yields `(chunk, valid)` pairs on one sample grid:
+        `chunk` (B, S) float32 numpy, and `valid[i]` the count of this
+        chunk's samples that are real for stream i (0 once stream i has
+        ended; chunks go on until the longest stream ends). The stride
+        hold-back and the decode window are those of `stream`. With
+        `speculative_per_row=True` each stream advances by its own accepted
+        prefix, and a flush shows what every stream has finalized."""
         hop = self.config.audio_encoder.hop_length
         stride = hop * max(play_steps - self.config.decoder.num_codebooks, 1) // 6
         state, step_fn = self._stream_state(desc_ids, desc_mask, prompt_ids, prompt_mask, seed,

@@ -3,7 +3,9 @@
 against their plain versions, the pipeline on the GPU in its eager, int8 and
 fused modes, checkpoints loaded onto the GPU (the default device, a BF16
 shard bit for bit), the fused_qkv and weight_quant="xla" modes on CUDA
-tensors, and the launch counts of a remat'd train step. Marked `cuda`; without a GPU each test
+tensors, the launch counts of a remat'd train step, and speculative
+decoding (K1 at the W=24 window, K2 at M = 24 and 48, a greedy fp32 run
+equal to the AR run but at near-ties within 2e-4). Marked `cuda`; without a GPU each test
 skips (a CUDA kernel has no CPU mode). This file imports no JAX, since the
 machine with the card has none. Run there with
 
@@ -282,10 +284,29 @@ def test_pipeline_on_the_gpu_launches_the_kernel_every_decode_step(cuda):
     assert (lengths == (gen.max_length - 4) * cfg.audio_encoder.hop_length).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2])
+def test_kernel_at_the_speculative_window(cuda, dtype, b):
+    """K1 at mini-v1's speculative window: W=24 columns at H=16, G=1 (three
+    row tiles per kv head), over the stacked cache of s_p + L + W slots,
+    with (B,) limits that differ and row 1 left-padded; a result whose last
+    column lacks its last slot fails the fp32 tolerance."""
+    q, k, v = case(cuda, dtype, b=b, w=24, layers=24, s=892, seed=b)
+    starts = torch.tensor([0, 3][:b], dtype=torch.int32, device=cuda)
+    limits = torch.tensor([531, 434][:b], dtype=torch.int32, device=cuda)
+    got = check(q, k, v, starts, limits, layer=23)
+    if dtype == torch.float32:
+        wrong = got.clone()
+        wrong[:, -1] = flash_decode_attention_plain(
+            q[:, -1:].contiguous(), k, v, starts, limits + 22, layer=23,
+            splits=splits_of(q[:, :1], k, 23))[:, 0]
+        assert not torch.allclose(got, wrong, **TOL[dtype])
+
+
 # ------------------------------------------------------------------ K2
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 1040)])
-@pytest.mark.parametrize("m", [1, 2, 18, 32])
+@pytest.mark.parametrize("m", [1, 2, 18, 24, 32, 48])
 def test_quant_matmul_matches_plain(cuda, m, k, n, dtype):
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     x = (torch.randn(m, k, generator=g, device=cuda) * 0.3).to(dtype)
@@ -680,3 +701,50 @@ def test_pcm_stream_on_the_gpu(cuda):
     chunks = list(pipe.stream(*request, play_steps=8))
     pcm = b"".join(ParlerTTSStreamer(pipe, play_steps=8).pcm_stream(*request))
     assert pcm and pcm == b"".join(float_to_pcm16(c[0]) for c in chunks)
+
+
+# ------------------------------------------------------------ speculative
+def ar_top_two(pipe, request, monkeypatch):
+    """The AR run of `request` with each column's top two processed logits."""
+    import parler_tts_tpu_torch.runtime.generate as tgen
+
+    real, seen = tgen._sample_column, {}
+
+    def recording(logits, t, eos_state, pattern, gen, k, prompt_cols=1, **kw):
+        x, _ = tgen._process_column(logits, t, eos_state, gen, k, prompt_cols)
+        seen[t] = x.topk(2, dim=-1)
+        return real(logits, t, eos_state, pattern, gen, k, prompt_cols=prompt_cols, **kw)
+
+    monkeypatch.setattr(tgen, "_sample_column", recording)
+    out = pipe.generate_codes(*request)
+    monkeypatch.undo()
+    return out, seen
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_speculative_pipeline_on_the_gpu(cuda, per_row, monkeypatch):
+    """Greedy W=4 speculation on the card (fp32, tiny config, B=2): K1 once
+    a layer per forward run, and each row equal to the AR run's up to its
+    first parting, where the parting tokens are the AR run's top two within
+    2e-4 (a near-tie the W-row matmuls may round the other way)."""
+    ar = ParlerTTSPipeline.from_random(tiny_config(), seed=0, generation_config=TINY_GEN,
+                                       frame_bucket=8, cache_dtype=torch.float32)
+    spec = ParlerTTSPipeline(ar.model, ar.dac, TINY_GEN, cache_dtype=torch.float32,
+                             speculative_window=4, speculative_per_row=per_row)
+    request = tiny_request()
+    want, top2 = ar_top_two(ar, request, monkeypatch)
+    before = flash_decode_attention.launches
+    got = spec.generate_codes(*request)
+    st = spec.last_spec_stats
+    assert flash_decode_attention.launches - before == 2 * (st.forwards + st.frozen)
+    assert got.steps == TINY_GEN.max_length and st.forwards < st.columns
+    for b in range(2):
+        diff = (got.delayed_ids[b] != want.delayed_ids[b]).any(dim=0).nonzero()
+        if not diff.numel():
+            continue
+        t = int(diff[0, 0])
+        vals, idx = top2[t]
+        for k in (got.delayed_ids[b, :, t] != want.delayed_ids[b, :, t]).nonzero()[:, 0]:
+            pair = {int(got.delayed_ids[b, k, t]), int(want.delayed_ids[b, k, t])}
+            assert pair == {int(idx[b, k, 0]), int(idx[b, k, 1])}
+            assert float(vals[b, k, 0] - vals[b, k, 1]) <= 2e-4

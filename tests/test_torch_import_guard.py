@@ -44,4 +44,5 @@ def test_imports_without_jax(target):
     assert len(modules) > (10 if target == "package" else 0)
     if target == "package":
         assert {"parler_tts_tpu_torch.native", "parler_tts_tpu_torch.runtime.streamer",
-                "parler_tts_tpu_torch.runtime.generate"} <= set(modules)
+                "parler_tts_tpu_torch.runtime.generate",
+                "parler_tts_tpu_torch.runtime.speculative"} <= set(modules)
