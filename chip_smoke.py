@@ -147,12 +147,44 @@ Builds the port's CUDA kernels with nvcc, then:
       against phase (e); large-v1 W=16 over 256 columns against phase (l);
       decoder-only in fp32 over 256 columns, AR against speculative; K1 24
       (large-v1 30) launches and K2 192 a forward run, exactly.
+  (n) trains through the CLI at mini-v1 width (random weights from a seed,
+      dropout 0, saved in the native layout): `run_training.main` over an in-memory
+      stand-in dataset of 22 seeded synthetic clips of 2-8 s at 44.1 kHz
+      (one 8 s long, so the labels pass 512 frames and the trainer turns on
+      K4 and remat) plus a too-short row and an over-long description, the
+      stub tokenizer, bf16, `attention_impl="pallas_flash"`, B=2 with two
+      micro-batches, `group_by_length`, 6 steps at lr 5e-4, checkpoints
+      every 3 kept to 1, eval loss and eval generation of 2 samples at step
+      6, the export: each clip's labels equal `build_labels_from_codes` of
+      its encode alone but at near-ties, the filters drop the two rows, K4
+      launches 96 / 48 / 48 a step on the wgmma route, K1 24 a decode step
+      of the eval generation, finite losses, an eval loss at step 6 below the
+      initial parameters', checkpoint-3 then checkpoint-6 with one left; a
+      second uninterrupted run and one resumed from checkpoint-3 (every saved
+      tensor restored bit for bit, losses within the two uninterrupted runs'
+      spread); `final/` loaded by `from_pretrained` with every parameter
+      equal to the last checkpoint's and 64 greedy columns served; then
+      remat_policy="dots" against full remat and bf16 Adam moments over 3
+      steps of phase (i)'s batch (losses within phase (i)'s bf16 gap, K4 48 /
+      24 / 24 a step, peak memory and ms a step printed);
+  (o) runs Encodec at the JAX package's default geometry (32 kHz, 64 filters,
+      ratios 8 5 4 4, 4 codebooks of 2048; random weights from a seed), causal
+      and not: two seeded 3 s clips encoded on the card, latents within 1e-4
+      of the same fp32 codec on the CPU and codes equal but at its
+      near-ties, the CPU's codes decoded within 1e-4; a stereo normalising
+      variant through `encode_voice_prompt(return_scales=True)` (scales
+      within 1e-6) and `decode_codes(audio_scales=)` (frames x hop x 2
+      interleaved samples within 1e-4); a mini-v1-width decoder over its 4
+      codebooks served bf16 B=2 over 256 greedy columns (K1 24 a decode
+      step), decoded to 32 kHz, saved in the native layout and served again
+      from disk with equal parameters and columns.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
 line of kernel numbers (K1, K2 and K3 with their large-v1 numbers under
 `large_v1`, K1's window numbers under `window` and phase (m)'s runs under
-`speculative`), the `nvidia-smi` name/power-limit line, and last
+`speculative`, phase (n)'s under `training_cli` and phase (o)'s under
+`encodec`), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 there is no CUDA device, when the port is not beside this script, or when
 any check fails.
@@ -161,13 +193,14 @@ any check fails.
 import json
 import math
 import statistics
-import struct
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+
+from parler_tts_tpu_torch.runtime.checkpoint import write_safetensors
 
 S_PROMPT, MAX_LENGTH, BATCH = 8, 860, 2
 S_CACHE = S_PROMPT + MAX_LENGTH
@@ -185,38 +218,6 @@ BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
 # phase (i), fp32: the chunked route against K4, loss, gradient norm and each
 # gradient leaf, relative; the CPU tests hold each leaf to the JAX package so
 TRAIN_FP32_LIMIT = 1e-4
-
-
-SAFETENSORS_CODES = {
-    torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
-    torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8",
-    torch.uint8: "U8", torch.bool: "BOOL",
-}
-
-
-def write_safetensors(filename, tensors) -> int:
-    """A small numpy writer of the `.safetensors` format: an 8-byte
-    little-endian header length, a JSON header (name -> dtype, shape,
-    data_offsets), padded with spaces to 8 bytes, then each tensor's bytes
-    in order; BF16 written as its raw 16-bit words. Tensors may live on the
-    card; each is copied to the host and written in turn. Returns the bytes
-    written."""
-    header, offset = {}, 0
-    for name, t in tensors.items():
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": SAFETENSORS_CODES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + nbytes]}
-        offset += nbytes
-    head = json.dumps(header, separators=(",", ":")).encode()
-    head += b" " * (-len(head) % 8)
-    with open(filename, "wb") as f:
-        f.write(struct.pack("<Q", len(head)))
-        f.write(head)
-        for t in tensors.values():
-            host = t.detach().contiguous().cpu()
-            f.write((host.view(torch.int16) if host.dtype == torch.bfloat16 else host)
-                    .numpy().tobytes())
-    return 8 + len(head) + offset
 
 
 def card_line() -> str:
@@ -1445,8 +1446,9 @@ def profile_train_step(step, state, batch, step_ms, card):
 
 def phase_i(dev, card):
     """mini-v1 trained for 5 steps over K4; returns K4's launches by route and
-    kernel: the tensor-core kernels' over the 5 bf16 steps, the SIMT kernels'
-    over the fp32 step."""
+    kernel (the tensor-core kernels' over the 5 bf16 steps, the SIMT kernels'
+    over the fp32 step) and step 1's loss gap between K4 in fp32 and in bf16,
+    the noise bf16 compute puts on a loss (phase n's limit)."""
     from parler_tts_tpu_torch.config import mini_v1_config
     from parler_tts_tpu_torch.models.layers import init_weights
     from parler_tts_tpu_torch.models.parler import ParlerTTS
@@ -1561,7 +1563,7 @@ def phase_i(dev, card):
         fail.append(f"gradient {worst}")
     if fail:
         raise AssertionError(f"chunked route vs K4 at step 1: {fail}")
-    return total
+    return total, abs(again["K4 fp32"][0] - k4_run[0])
 
 
 # ------------------------------------------------------- checkpoint side
@@ -1715,6 +1717,15 @@ def check_disk(path, need: int) -> None:
     if free < need * 1.25:
         raise AssertionError(f"{path}: {free / 1e9:.2f} GB free, the checkpoint needs "
                              f"{need / 1e9:.2f} GB (x1.25): not writing it")
+
+
+def stub_tokenizer(texts):
+    """A stand-in tokenizer, one id a byte (mod 32000): a string -> {"input_ids":
+    [...]}, as the training CLI calls it; a list of strings -> one list each,
+    as the pipeline does."""
+    if isinstance(texts, str):
+        return {"input_ids": [b % 32000 for b in texts.encode()]}
+    return {"input_ids": [[b % 32000 for b in t.encode()] for t in texts]}
 
 
 def hf_config_json(cfg) -> dict:
@@ -2117,11 +2128,9 @@ def phase_j(dev, card, source, out_b, stream_e, stream_g):
     del static
 
     # ---- text input through a stub tokenizer: bytes mod 32000
-    def tokenizer(texts):
-        return {"input_ids": [[b % 32000 for b in t.encode()] for t in texts]}
-
     text_gen = dataclasses.replace(gen, max_length=TEXT_COLUMNS, min_new_tokens=TEXT_COLUMNS)
-    p = ParlerTTSPipeline(source.model, source.dac, text_gen, tokenizer=tokenizer, **pipe_kw)
+    p = ParlerTTSPipeline(source.model, source.dac, text_gen, tokenizer=stub_tokenizer,
+                          **pipe_kw)
     descs = ["A calm female voice, close to the microphone.", "A fast, bright male voice."]
     prompts = ["Hello from the card.", "Served from a saved checkpoint, through a tokenizer."]
     a_text, l_text = p.generate(descs, prompts)
@@ -2144,13 +2153,13 @@ VOICE_SECONDS, PLAY_STEPS, PCM_COLUMNS = 3.0, 86, 256
 
 def encode_gaps(quantizer, latents, codes):
     """(B, K, T') gaps between the best and the second-best distance of each
-    choice of the greedy quantization that gave `codes` from `latents`."""
+    choice of the greedy quantization that gave `codes` from `latents`
+    (either codec's quantizer: its `distances` and `quantized`)."""
     residual, gaps = latents, []
     for k in range(codes.shape[1]):
         two = quantizer.distances(residual, k).topk(2, dim=-1, largest=False).values
         gaps.append(two[..., 1] - two[..., 0])
-        residual = residual - (quantizer.codebooks[k][codes[:, k]] @ quantizer.out_proj_kernel[k]
-                               + quantizer.out_proj_bias[k])
+        residual = residual - quantizer.quantized(k, codes[:, k])
     return torch.stack(gaps, dim=1)
 
 
@@ -3044,10 +3053,690 @@ def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
     return numbers
 
 
+# ------------------------------------------------------------ training CLI
+CLI = dict(
+    clips=22, eval_clips=2, seconds=(2.0, 8.0), short_seconds=0.5, min_seconds=1.0,
+    max_seconds=10.0, max_desc_tokens=200, steps=6, save_steps=3, max_length=704,
+    # a constant 5e-4 from step 1 (no warmup): six steps lower mini-v1's eval
+    # loss from its random initialisation
+    learning_rate=5e-4, accumulate=2, batch=2,
+)
+
+
+STAGE1_BATCH = 8  # clips a stage-1 encode batch
+
+
+class Rows:
+    """An in-memory stand-in for `training.data.load_multiple_datasets`'s
+    dataset: rows by index, `len`, `select`."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        return self.rows[i]
+
+    def select(self, idx):
+        return Rows([self.rows[i] for i in idx])
+
+
+def cli_rows(sampling_rate, n, seconds, seed, bad=None):
+    """`n` seeded synthetic clips (a glide over a noise floor) of
+    `seconds` = (low, high) s each, the last one `high` long, with their
+    descriptions and prompts; `bad` = (short_s, long description) adds the
+    two rows the filters must drop: one too short, one whose description is
+    over the token cap."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        sec = seconds[1] if i == n - 1 else float(rng.uniform(*seconds))
+        t = np.arange(int(sec * sampling_rate)) / sampling_rate
+        f0 = rng.uniform(90, 260)
+        audio = (0.3 * np.sin(2 * np.pi * f0 * t * (1 + 0.05 * np.sin(2 * np.pi * 0.7 * t)))
+                 + 0.02 * rng.normal(size=t.size))
+        rows.append({"audio": {"array": audio.astype(np.float32)},
+                     "description": f"voice {seed}-{i}: a calm speaker at {f0:.0f} Hz",
+                     "text": f"This is sentence {i} of split {seed}."})
+    if bad is not None:
+        short_s, long_description = bad
+        rows.insert(3, {"audio": {"array": np.zeros(int(short_s * sampling_rate), np.float32)},
+                        "description": "too short", "text": "x"})
+        rows.insert(7, {"audio": {"array": rows[0]["audio"]["array"]},
+                        "description": long_description, "text": "a long description"})
+    return rows
+
+
+class Patches:
+    """Attributes set for a while (check instruments around the CLI's
+    functions), put back by `undo`."""
+
+    def __init__(self):
+        self.saved = []
+
+    def set(self, obj, name, value):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def undo(self):
+        while self.saved:
+            obj, name, value = self.saved.pop()
+            setattr(obj, name, value)
+
+
+def stay_offline() -> None:
+    """Eval generation's metrics look their models up on the hub when
+    `transformers` is installed: keep every lookup offline."""
+    import os
+
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+
+
+def stage1_codes(labels, k):
+    """The codes (K, n) a stage-1 label array (n + 1 + K, K) was built from."""
+    n = labels.shape[0] - 1 - k
+    return torch.stack([torch.as_tensor(labels[1 + i: 1 + i + n, i]) for i in range(k)])
+
+
+def phase_n(dev, card, loss_gap, cfg=None, cli=None, batch_fn=None, tokenizer=stub_tokenizer):
+    """The training CLI at mini-v1 width (`cfg`, random weights from a seed):
+    `run_training.main` over a stand-in dataset (stage 1, the filters, six
+    steps over K4, checkpoints, eval loss and eval generation over K1, the
+    export), a second uninterrupted run and a run resumed from step 3, the
+    export served back, then item 21b's remat_policy="dots" and bf16 Adam
+    moments beside phase (i)'s trainer. `loss_gap` is phase (i)'s bf16 loss
+    gap; `cfg`, `cli`, `batch_fn` and `tokenizer` shrink the phase for a
+    rehearsal on the CPU. Returns the phase's numbers."""
+    import copy
+    import dataclasses
+    import json
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from parler_tts_tpu_torch.config import GenerationConfig, mini_v1_config
+    from parler_tts_tpu_torch.models.layers import init_weights
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.ops.flash_attention import flash_attention
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.runtime import generate as gen_mod
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from parler_tts_tpu_torch.training import checkpoints as ck
+    from parler_tts_tpu_torch.training import data as data_mod
+    from parler_tts_tpu_torch.training import run_training as rt
+    from parler_tts_tpu_torch.training.arguments import parse_args
+    from parler_tts_tpu_torch.training.data import (
+        DataCollatorEncodecWithPadding,
+        DataCollatorParlerTTSWithPadding,
+    )
+
+    stay_offline()
+    # dropout 0: a resumed run restarts the dropout seeds, as the JAX loop its RNG
+    cfg = cfg or dataclasses.replace(mini_v1_config(), decoder=dataclasses.replace(
+        mini_v1_config().decoder, dropout=0.0))
+    cli = cli or CLI
+    batch_fn = batch_fn or train_batch
+    sr, n_layers = cfg.sampling_rate, cfg.decoder.num_hidden_layers
+    k_cb, hop = cfg.decoder.num_codebooks, cfg.audio_encoder.hop_length
+    k4, k4w = flash_attention.launches, flash_attention.launches_wgmma
+    fails = []
+
+    def need(ok, what):
+        if not ok:
+            fails.append(what)
+        return ok
+
+    src = ParlerTTSPipeline.from_random(cfg, seed=0, device=dev)  # fp32, as from_pretrained
+    param_bytes = sum(p.numel() * 4 for p in src.model.parameters())
+    train_rows = cli_rows(sr, cli["clips"], cli["seconds"], seed=1,
+                          bad=(cli["short_seconds"], "y" * (cli["max_desc_tokens"] + 50)))
+    eval_rows = cli_rows(sr, cli["eval_clips"], cli["seconds"], seed=2)
+
+    with tempfile.TemporaryDirectory() as root:
+        # the init checkpoint, run A's two checkpoints, its export, run B's
+        # and the resumed run's: checkpoints hold the parameters and both moments
+        check_disk(root, 12 * param_bytes)
+        paths = {name: os.path.join(root, name) for name in
+                 ("init", "run_a", "run_b", "resumed", "features")}
+        src.save_pretrained(paths["init"])
+        blob = dict(
+            model_name_or_path=paths["init"], train_dataset_name="synthetic/train",
+            train_dataset_config_name="default", eval_dataset_name="synthetic/eval",
+            eval_split_name="eval", max_eval_samples=cli["eval_clips"],
+            min_duration_in_seconds=cli["min_seconds"], max_duration_in_seconds=cli["max_seconds"],
+            max_description_token_length=cli["max_desc_tokens"], output_dir=paths["run_a"],
+            save_to_disk=paths["features"], per_device_train_batch_size=cli["batch"],
+            per_device_eval_batch_size=cli["eval_clips"],
+            gradient_accumulation_steps=cli["accumulate"], gradient_accumulation_mode="microbatch",
+            group_by_length=True, learning_rate=cli["learning_rate"], warmup_steps=0,
+            max_steps=cli["steps"], num_train_epochs=2, logging_steps=1,
+            save_steps=cli["save_steps"], save_total_limit=1, eval_steps=cli["steps"],
+            max_length=cli["max_length"], do_sample=False, compute_clap_similarity_metric=False,
+            compute_noise_level_metric=False, report_to="none", dtype="bfloat16",
+            attention_impl="pallas_flash", audio_encoder_per_device_batch_size=STAGE1_BATCH,
+            seed=0)
+        cfg_path = os.path.join(root, "train.json")
+        with open(cfg_path, "w") as f:
+            json.dump(blob, f)
+
+        # ---- the check instruments around the CLI's functions
+        steps, saves, evals, gens, restores, stage1 = [], [], [], [], [], {}
+        patches = Patches()
+
+        def make_counted(model, tx, **kw):
+            real_step = real["make_train_step"](model, tx, **kw)
+
+            def counted(state, batch, seed):
+                for key in k4:
+                    k4[key] = k4w[key] = 0
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                state, metrics = real_step(state, batch, seed)
+                end.record()
+                torch.cuda.synchronize()
+                steps.append(dict(ms=start.elapsed_time(end), loss=float(metrics["loss"]),
+                                  k4=dict(k4), k4_wgmma=dict(k4w),
+                                  frames=batch.labels.shape[0] * batch.labels.shape[1],
+                                  valid=float(metrics["num_items"]) / k_cb))
+                return state, metrics
+            return counted
+
+        def save_linked(state, output_dir, step, epoch, limit=None):
+            t0 = time.perf_counter()
+            path = real["save_train_state"](state, output_dir, step, epoch, limit)
+            write_s = time.perf_counter() - t0  # the state is on the host once it returns
+            saves.append((output_dir, os.path.basename(path), ck.sorted_checkpoints(output_dir),
+                          write_s, dir_bytes(path)))
+            keep = os.path.join(paths["resumed"], os.path.basename(path))
+            if output_dir == paths["run_a"] and step == cli["save_steps"]:
+                os.makedirs(keep)  # run A's step-3 checkpoint, kept past its rotation
+                for name in os.listdir(path):
+                    os.link(os.path.join(path, name), os.path.join(keep, name))
+            return path
+
+        def eval_counted(*a, **kw):
+            for key in k4:
+                k4[key] = 0
+            loss = real["run_eval"](*a, **kw)
+            evals.append((loss, dict(k4)))
+            return loss
+
+        def gen_counted(*a, **kw):
+            advances = [0]
+
+            def advance(*aa, **kk):
+                advances[0] += 1
+                return real_advance(*aa, **kk)
+
+            flash_decode_attention.launches = 0
+            patches.set(gen_mod, "_advance", advance)
+            t0 = time.perf_counter()
+            try:
+                out = real["run_eval_generation"](*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                setattr(gen_mod, "_advance", real_advance)
+            gens.append(dict(seconds=time.perf_counter() - t0, advances=advances[0],
+                             k1=flash_decode_attention.launches))
+            return out
+
+        def restore_checked(path, state):
+            out = real["restore_train_state"](path, state)
+            saved = ck.load_state_dict(path)
+            opt = state.opt_state
+            odd = [(key, name) for key, tensors in (
+                ("params", dict(state.model.named_parameters())), ("mu", opt.mu), ("nu", opt.nu))
+                for name, t in tensors.items() if not torch.equal(t.cpu(), saved[key][name])]
+            restores.append((os.path.basename(path), odd, state.step, opt.count))
+            return out
+
+        def stage1_timed(*a, **kw):
+            t0 = time.perf_counter()
+            labels = real["encode_corpus_stage"](*a, **kw)
+            torch.cuda.synchronize()
+            stage1.setdefault("seconds", []).append(time.perf_counter() - t0)
+            return labels
+
+        real = {name: getattr(rt, name) for name in (
+            "make_train_step", "save_train_state", "run_eval", "run_eval_generation",
+            "restore_train_state", "encode_corpus_stage")}
+        real_advance = gen_mod._advance
+        for name, fn in (("make_train_step", make_counted), ("save_train_state", save_linked),
+                         ("run_eval", eval_counted), ("run_eval_generation", gen_counted),
+                         ("restore_train_state", restore_checked),
+                         ("encode_corpus_stage", stage1_timed)):
+            patches.set(rt, name, fn)
+        patches.set(data_mod, "load_multiple_datasets", lambda specs, sampling_rate, **kw: Rows(
+            eval_rows if specs[0]["split"] == "eval" else train_rows))
+        try:
+            # ---- run A: the CLI end to end
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rt.main([cfg_path], tokenizers=(tokenizer, tokenizer), device=dev)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            run_a = steps[:]
+            with open(os.path.join(paths["features"], "features.pkl"), "rb") as f:
+                feats = pickle.load(f)
+            margs, dargs, targs = parse_args([cfg_path])
+
+            # ---- run B, uninterrupted again; the resumed run from run A's step 3
+            # (the trainer updates the model it is given: each takes a copy)
+            steps.clear()
+            rt.run_training(margs, dargs, dataclasses.replace(
+                targs, output_dir=paths["run_b"], save_steps=100, eval_steps=100),
+                copy.deepcopy(src.model), feats["train"], device=dev)
+            run_b = steps[:]
+            steps.clear()
+            state_c, step_c = rt.run_training(margs, dargs, dataclasses.replace(
+                targs, output_dir=paths["resumed"], save_steps=100, eval_steps=100),
+                copy.deepcopy(src.model), feats["train"], device=dev)
+            run_c = steps[:]
+        finally:
+            patches.undo()
+        del state_c
+
+        # ---- stage 1: filters, and each clip's labels against its encode alone
+        audio_s = sum(len(r["audio"]["array"]) for r in train_rows + eval_rows) / sr
+        kept = [f["description_text"] for f in feats["train"]]
+        dropped = sorted({r["description"] for r in train_rows} - set(kept))
+        need(len(kept) == cli["clips"] and dropped == sorted(
+            ["too short", "y" * (cli["max_desc_tokens"] + 50)]),
+            f"filters kept {len(kept)} rows, dropped {[d[:12] for d in dropped]}")
+        # each clip alone, zero-padded as stage 1 padded its batch of
+        # `audio_encoder_per_device_batch_size` rows
+        coll = DataCollatorEncodecWithPadding(sampling_rate=sr, hop_length=hop,
+                                              max_length_seconds=cli["max_seconds"])
+        padded = {}
+        for rows in (train_rows, eval_rows[:cli["eval_clips"]]):
+            for i in range(0, len(rows), STAGE1_BATCH):
+                chunk = rows[i:i + STAGE1_BATCH]
+                width = coll(chunk)["input_values"].shape[-1]
+                padded.update({r["description"]: (r["audio"]["array"], width) for r in chunk})
+        parted = ties_ok = 0
+        for f in feats["train"] + feats["eval"]:
+            clip, width = padded[f["description_text"]]
+            x = torch.zeros((1, width, 1))
+            x[0, :clip.size, 0] = torch.from_numpy(clip)
+            with torch.inference_mode():
+                lat = src.dac.encoder(x.to(dev))
+                alone = src.dac.quantizer.encode(lat)
+                alone = (alone[0] if isinstance(alone, tuple) else alone)[:, :, :-(-clip.size // hop)]
+                gaps = encode_gaps(src.dac.quantizer, lat[:, :alone.shape[-1]], alone)
+            labels = np.asarray(f["labels"])
+            ok, n_parted = codes_agree(stage1_codes(labels, k_cb)[None], alone, gaps)
+            parted += n_parted
+            ties_ok += ok
+            want_shape = rt.build_labels_from_codes(
+                alone[0].cpu().numpy(), cfg.decoder.bos_token_id, cfg.decoder.eos_token_id,
+                cli["max_length"]).shape
+            need(ok and labels.shape == want_shape,
+                 f"stage-1 labels of {f['description_text'][:20]}: {labels.shape}, "
+                 f"near-ties only {ok}")
+        n_feats = len(feats["train"]) + len(feats["eval"])
+        print(f"  stage 1: {len(train_rows) + len(eval_rows)} clips, {audio_s:.1f} s of audio at "
+              f"{sr} Hz, encoded in {sum(stage1['seconds']):.2f} s "
+              f"({audio_s / sum(stage1['seconds']):.1f} audio-s/s) ({card}); filters dropped "
+              f"{dropped[:1]} and a {len(dropped[-1])}-byte description; each clip's labels "
+              f"equal to build_labels_from_codes of its encode alone but at near-ties: "
+              f"{ties_ok}/{n_feats} clips, {parted} frames parted")
+
+        # ---- the steps: K4 launches, losses, time
+        g = cli["accumulate"]
+        want = {"fwd": 2 * n_layers * g, "dq": n_layers * g, "dkv": n_layers * g}
+        for label, run in (("run A", run_a), ("run B", run_b), ("resumed", run_c)):
+            for i, st in enumerate(run):
+                need(st["k4"] == want and st["k4_wgmma"] == want and math.isfinite(st["loss"]),
+                     f"{label} step {i + 1}: K4 {st['k4']} (wgmma {st['k4_wgmma']}), "
+                     f"loss {st['loss']}")
+        need(len(run_a) == len(run_b) == cli["steps"] and len(run_c) == cli["steps"]
+             - cli["save_steps"] and step_c == cli["steps"],
+             f"steps: A {len(run_a)}, B {len(run_b)}, resumed {len(run_c)} to {step_c}")
+        step_ms = statistics.median(st["ms"] for st in run_a[1:])
+        frames = statistics.median(st["frames"] for st in run_a[1:])
+        print(f"  run A: losses {[round(st['loss'], 5) for st in run_a]}; K4 launches {want} "
+              f"a step ({g} micro-batches of {cli['batch']}), all on the wgmma route: "
+              f"{all(st['k4_wgmma'] == want for st in run_a)}; {step_ms:.1f} ms a step (median "
+              f"of steps 2-{cli['steps']}, CUDA events), {frames / step_ms * 1e3:.0f} label "
+              f"frames/s ({frames:.0f} padded frames a step), peak memory {peak_gib:.2f} GiB, "
+              f"main() {main_s:.1f} s ({card})")
+
+        # ---- evals: the initial parameters' eval loss, then step 6's
+        model0 = ParlerTTS(cfg, device=dev, dtype=torch.bfloat16, param_dtype=torch.float32,
+                           use_chunked_attention="pallas", remat_layers=True)
+        model0.load_state_dict(src.model.state_dict())
+        coll = DataCollatorParlerTTSWithPadding(
+            prompt_padding_side="left", max_total_length=cfg.decoder.max_position_embeddings)
+        loss0 = rt.run_eval(TrainState(0, model0, None), coll, feats["eval"], targs, None, 0, 0)
+        del model0
+        (loss6, k4_eval), = evals
+        need(loss6 < loss0, f"eval loss {loss6} at step {cli['steps']}, {loss0} at step 0")
+        need(k4_eval == {"fwd": n_layers, "dq": 0, "dkv": 0}, f"eval K4 {k4_eval}")
+        (gen,) = gens
+        need(gen["k1"] == n_layers * gen["advances"] and gen["advances"] > 0,
+             f"eval generation: K1 {gen['k1']}, decode steps {gen['advances']}")
+        print(f"  eval loss {loss0:.5f} at step 0 -> {loss6:.5f} at step {cli['steps']} (K4 "
+              f"{k4_eval}); eval generation of {cli['eval_clips']} samples: "
+              f"{gen['advances']} decode steps, K1 launches {gen['k1']} = {n_layers} x "
+              f"{gen['advances']}, {gen['seconds']:.2f} s ({card})")
+
+        # ---- checkpoints, rotation, resume
+        a_saves = [(name, left) for d, name, left, _, _ in saves if d == paths["run_a"]]
+        writes = [(name, write_s, size) for d, name, _, write_s, size in saves
+                  if d == paths["run_a"]]
+        per_epoch = cli["clips"] // (cli["batch"] * cli["accumulate"])
+        first_a, last_a = (f"checkpoint-{n}-epoch-{(n - 1) // per_epoch}"
+                           for n in (cli["save_steps"], cli["steps"]))
+        need([n for n, _ in a_saves] == [first_a, last_a]
+             and a_saves[-1][1] == [last_a], f"run A's saves {a_saves}")
+        (r_name, odd, r_step, r_count), = restores
+        need(r_name == first_a and not odd
+             and r_step == r_count == cli["save_steps"], f"restore {r_name}: {odd[:3]}")
+        spread = max(abs(a["loss"] - b["loss"]) for a, b in zip(run_a, run_b))
+        gap_c = max(abs(a["loss"] - c["loss"]) for a, c in zip(run_a[cli["save_steps"]:], run_c))
+        need(gap_c <= spread, f"resumed losses {gap_c} from run A's, spread {spread}")
+        print(f"  checkpoints of run A: {[n for n, _ in a_saves]}, left after rotation "
+              f"{a_saves[-1][1]}; written in "
+              f"{', '.join(f'{w:.2f} s ({b / 1e9:.2f} GB)' for _, w, b in writes)} "
+              f"(save_train_state's wall time) ({card}); "
+              f"the resumed run restored {r_name} bit for bit: {not odd}; "
+              f"its losses at steps {cli['save_steps'] + 1}-{cli['steps']} within "
+              f"{gap_c:.3e} of run A's (two uninterrupted runs: {spread:.3e})")
+
+        # ---- the export, served back
+        final = os.path.join(paths["run_a"], "final")
+        saved = ck.load_state_dict(ck.get_last_checkpoint(paths["run_a"]))["params"]
+        gen64 = GenerationConfig(max_length=64, min_new_tokens=64, do_sample=False,
+                                 bos_token_id=cfg.decoder.bos_token_id,
+                                 pad_token_id=cfg.decoder.pad_token_id,
+                                 eos_token_id=cfg.decoder.eos_token_id,
+                                 codebook_guard=cfg.audio_encoder.codebook_size)
+        t0 = time.perf_counter()
+        pipe = ParlerTTSPipeline.from_pretrained(final, generation_config=gen64, device=dev,
+                                                 cache_dtype=torch.float32)
+        load_s = time.perf_counter() - t0
+        unequal = [n for n, p in pipe.model.named_parameters() if not torch.equal(
+            p.cpu(), saved[n])]
+        flash_decode_attention.launches = 0
+        vocab = min(cfg.vocab_size, cfg.text_encoder.vocab_size)
+        request = tuple(x % vocab for x in request_ids(0))
+        out = pipe.generate_codes(*request)
+        torch.cuda.synchronize()
+        k1 = flash_decode_attention.launches
+        need(not unequal and k1 == n_layers * (out.steps - 2) and out.steps == 64,
+             f"export: {len(unequal)} parameters differ, K1 {k1}, {out.steps} columns")
+        print(f"  export {dir_bytes(final) / 1e9:.2f} GB loaded by from_pretrained in "
+              f"{load_s:.2f} s: every parameter equal to the last checkpoint's: {not unequal}; "
+              f"64 greedy fp32 columns, K1 {k1} = {n_layers} x {out.steps - 2} ({card})")
+        del pipe, saved, src
+        torch.cuda.empty_cache()
+
+    # ---- item 21b on the card: remat_policy="dots" and bf16 Adam moments
+    batch = batch_fn(dev)
+    runs = {}
+    for label, policy, mu in (("full", None, None), ("dots", "dots", None),
+                              ("full, bf16 mu", None, torch.bfloat16)):
+        model = ParlerTTS(cfg, device=dev, dtype=torch.bfloat16, param_dtype=torch.float32,
+                          use_chunked_attention="pallas", remat_layers=True, remat_policy=policy)
+        init_weights(model, torch.Generator(device=dev).manual_seed(0))
+        tx = make_optimizer(warmup_steps=1, mu_dtype=mu)
+        state, step = TrainState.create(model, tx), make_train_step(model, tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, counts = [], [], []
+        for i in range(3):
+            for key in k4:
+                k4[key] = 0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            state, metrics = step(state, batch, i)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(metrics["loss"]))
+            counts.append(dict(k4))
+        mu_dtypes = {m.dtype for m in state.opt_state.mu.values()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # what the forward leaves held for the backward: the layer inputs
+        # under full remat, and under "dots" also the products it keeps
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        out, _ = model(*batch, deterministic=False, dropout_key=0)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        del out
+        runs[label] = dict(losses=losses, ms=statistics.median(times[1:]), peak_gib=peak,
+                           held_gib=held / 2**30)
+        want1 = {"fwd": 2 * n_layers, "dq": n_layers, "dkv": n_layers}
+        need(all(c == want1 for c in counts) and all(map(math.isfinite, losses))
+             and mu_dtypes == {mu or torch.float32},
+             f"21b {label}: K4 {counts}, losses {losses}, mu {mu_dtypes}")
+        print(f"  {label}: losses {[round(x, 5) for x in losses]}, {runs[label]['ms']:.1f} ms a "
+              f"step (median of steps 2-3), peak memory {runs[label]['peak_gib']:.2f} GiB, "
+              f"held after a forward {runs[label]['held_gib']:.3f} GiB, "
+              f"K4 {counts[-1]} a step, exp_avg {sorted(map(str, mu_dtypes))} ({card})")
+        del model, state, step
+        torch.cuda.empty_cache()
+    dots_gap = max(abs(a - b) for a, b in zip(runs["dots"]["losses"], runs["full"]["losses"]))
+    need(dots_gap <= loss_gap, f"dots vs full: {dots_gap} over the bf16 gap {loss_gap}")
+    # "dots" keeps at least the 7 products a layer that full remat recomputes
+    # (q, k, v, out, cross q, cross out: hidden wide; fc1: ffn wide) for each
+    # label frame, in bf16
+    dcfg = cfg.decoder
+    kept_gib = (n_layers * batch.labels.shape[0] * batch.labels.shape[1] * 2
+                * (6 * dcfg.hidden_size + dcfg.ffn_dim)) / 2**30
+    extra_gib = runs["dots"]["held_gib"] - runs["full"]["held_gib"]
+    need(extra_gib >= kept_gib, f"dots holds {extra_gib:.3f} GiB more than full after a "
+         f"forward, under the {kept_gib:.3f} GiB of the products it keeps")
+    print(f"  remat dots vs full over 3 steps: losses within {dots_gap:.3e} (phase i's bf16 "
+          f"gap {loss_gap:.3e}): {dots_gap <= loss_gap}; dots holds {extra_gib:.3f} GiB more "
+          f"after a forward, against at least {kept_gib:.3f} GiB of kept products "
+          f"({extra_gib >= kept_gib})")
+    if fails:
+        raise AssertionError(f"phase n: {fails}")
+    return dict(step_ms=step_ms, label_frames_per_s=frames / step_ms * 1e3, peak_gib=peak_gib,
+                stage1_s=sum(stage1["seconds"]), stage1_audio_s_per_s=audio_s / sum(
+                    stage1["seconds"]), eval_generation_s=gen["seconds"],
+                k4_per_step=run_a[-1]["k4_wgmma"], k1_eval_generation=gen["k1"],
+                eval_loss=[loss0, loss6], checkpoint_write_s=[w for _, w, _ in writes],
+                remat=runs)
+
+
+# ------------------------------------------------------------ Encodec
+ENCODEC_REL = 1e-4   # Encodec latents and audio against the CPU's, norm-relative
+SCALE_REL = 1e-6     # normalising Encodec's scales against the CPU's
+ENCODEC_COLUMNS = 256
+
+
+def encodec_composite(codec_cfg, decoder):
+    """A Parler-TTS config over an Encodec: the ids of
+    `helpers/model_init_scripts/init_dummy_model_with_encodec.py` (vocab
+    codebook_size + 64, pad and eos codebook_size, bos codebook_size + 1)."""
+    import dataclasses
+
+    from parler_tts_tpu_torch.config import ParlerTTSConfig, mini_v1_config
+
+    size = codec_cfg.codebook_size
+    return ParlerTTSConfig(
+        text_encoder=mini_v1_config().text_encoder, audio_encoder=codec_cfg,
+        decoder=dataclasses.replace(decoder, vocab_size=size + 64,
+                                    num_codebooks=codec_cfg.num_codebooks, pad_token_id=size,
+                                    eos_token_id=size, bos_token_id=size + 1),
+        vocab_size=32128, pad_token_id=size, decoder_start_token_id=size + 1)
+
+
+def encodec_check(codec, clips, card, label):
+    """Encode `clips` (B, T, C) on the card against the same fp32 codec on the
+    CPU (latents within ENCODEC_REL, codes equal but at the CPU's near-ties),
+    and decode the CPU's codes on both (within ENCODEC_REL)."""
+    import copy
+
+    cpu = copy.deepcopy(codec).cpu()
+    x = torch.from_numpy(clips)
+    with torch.inference_mode():
+        if codec.config.normalize:
+            x = x / cpu._scale(x)[:, None, None]
+        lat_cpu = cpu.encoder(x)
+        codes_cpu = cpu.quantizer.encode(lat_cpu)
+        gaps = encode_gaps(cpu.quantizer, lat_cpu, codes_cpu)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = codec.encoder(x.to(codec.quantizer.codebooks.device))
+        codes = codec.quantizer.encode(lat)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        audio = codec.decode(codes_cpu.to(lat.device))
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        audio_cpu = cpu.decode(codes_cpu)
+    lat_rel, audio_rel = norm_rel(lat.cpu(), lat_cpu), norm_rel(audio.cpu(), audio_cpu)
+    ok, parted = codes_agree(codes, codes_cpu, gaps)
+    print(f"  {label}: encode {tuple(x.shape)} -> codes {tuple(codes.shape)} in "
+          f"{enc_s * 1e3:.1f} ms, decode in {dec_s * 1e3:.1f} ms ({card}); latents vs the CPU "
+          f"norm-rel {lat_rel:.2e}, codes equal to the CPU's: {torch.equal(codes.cpu(), codes_cpu)}"
+          f" (frames parted {parted}, all at near-ties: {ok}), audio norm-rel {audio_rel:.2e} "
+          f"(limit {ENCODEC_REL:g})")
+    if lat_rel > ENCODEC_REL or audio_rel > ENCODEC_REL or not ok:
+        raise AssertionError(f"{label}: latents {lat_rel:.2e}, audio {audio_rel:.2e}, codes "
+                             f"parted at {parted} frames, near-ties only: {ok}")
+    return codes_cpu
+
+
+def phase_o(dev, card, codec_cfg=None, decoder=None, columns=ENCODEC_COLUMNS):
+    """Encodec on the card: the JAX package's default geometry (32 kHz, the
+    `facebook/encodec_32khz` codec) with causal and non-causal convs against
+    the CPU, a normalising stereo variant through the pipeline's
+    `encode_voice_prompt` and `decode_codes`, and a mini-v1-width decoder over
+    4 Encodec codebooks served, decoded, saved and served again. Returns the
+    phase's numbers."""
+    import copy
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from parler_tts_tpu_torch.codec.encodec_model import EncodecCodecConfig
+    from parler_tts_tpu_torch.codec.registry import build_codec, init_codec_params
+    from parler_tts_tpu_torch.config import GenerationConfig, mini_v1_decoder_config
+    from parler_tts_tpu_torch.models.layers import init_weights
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+
+    base = codec_cfg or EncodecCodecConfig()
+    decoder = decoder or mini_v1_decoder_config()
+    sr, hop = base.sampling_rate, base.hop_length
+    mono = voice_clips(sr, int(VOICE_SECONDS * sr))          # (2, T)
+    for causal in (True, False):
+        ccfg = dataclasses.replace(base, use_causal_conv=causal)
+        codec = init_codec_params(build_codec(ccfg, dev), torch.Generator(dev).manual_seed(7))
+        encodec_check(codec.eval(), mono[:, :, None], card,
+                      f"Encodec {'causal' if causal else 'non-causal'}")
+        del codec
+
+    # ---- stereo with normalisation, through the pipeline on both devices
+    scfg = dataclasses.replace(base, audio_channels=2, normalize=True)
+    small = dataclasses.replace(decoder, num_hidden_layers=2)
+    pcfg = encodec_composite(scfg, small)
+    gen = GenerationConfig(max_length=32, do_sample=False, bos_token_id=pcfg.decoder.bos_token_id,
+                           pad_token_id=pcfg.pad_token_id, eos_token_id=pcfg.pad_token_id)
+    model = ParlerTTS(pcfg)
+    init_weights(model, torch.Generator().manual_seed(8))
+    codec = init_codec_params(build_codec(scfg), torch.Generator().manual_seed(9))
+    cpu = ParlerTTSPipeline(model, codec, gen, device="cpu")
+    card_pipe = ParlerTTSPipeline(copy.deepcopy(model), copy.deepcopy(codec), gen, device=dev)
+    clip = np.stack([mono, mono[:, ::-1] * 0.5], axis=-1).copy()
+    clip[1] *= 5.0
+    with torch.inference_mode():
+        x = torch.from_numpy(clip)
+        gaps = encode_gaps(codec.quantizer, codec.encoder(x / codec._scale(x)[:, None, None]),
+                           codec.encode(x))
+    codes_cpu, scales_cpu = cpu.encode_voice_prompt(clip, return_scales=True)
+    codes, scales = card_pipe.encode_voice_prompt(clip, return_scales=True)
+    scale_rel = float(((scales.cpu() - scales_cpu).abs() / scales_cpu).max())
+    ok, parted = codes_agree(codes, codes_cpu, gaps)
+    lengths = torch.tensor([codes.shape[-1], codes.shape[-1] - 7])
+    audio, n = card_pipe.decode_codes(codes_cpu.to(dev), lengths, audio_scales=scales_cpu)
+    audio_cpu, n_cpu = cpu.decode_codes(codes_cpu, lengths, audio_scales=scales_cpu)
+    audio_rel = norm_rel(torch.from_numpy(audio), torch.from_numpy(audio_cpu))
+    shape_ok = (audio.shape == (2, codes.shape[-1] * hop * 2) and np.array_equal(n, n_cpu)
+                and np.array_equal(n, lengths.numpy() * hop * 2))
+    print(f"  Encodec stereo, normalize: scales {scales.cpu().numpy().round(5)} within "
+          f"{scale_rel:.2e} of the CPU's (limit {SCALE_REL:g}); codes equal but at near-ties: "
+          f"{ok} ({parted} frames parted); decode_codes with audio_scales: {audio.shape} "
+          f"interleaved samples, lengths {n} = frames x {hop} x 2: {shape_ok}, norm-rel "
+          f"{audio_rel:.2e} to the CPU's")
+    if scale_rel > SCALE_REL or not ok or audio_rel > ENCODEC_REL or not shape_ok:
+        raise AssertionError(f"Encodec stereo: scales {scale_rel:.2e}, codes {ok}, audio "
+                             f"{audio_rel:.2e}, shapes {shape_ok}")
+    del cpu, card_pipe, model, codec
+
+    # ---- a mini-v1-width decoder over 4 Encodec codebooks, served and saved
+    cfg = encodec_composite(base, decoder)
+    n_layers, size = cfg.decoder.num_hidden_layers, base.codebook_size
+    gen = GenerationConfig(max_length=columns, min_new_tokens=columns, do_sample=False,
+                           bos_token_id=size + 1, pad_token_id=size, eos_token_id=size,
+                           codebook_guard=size)
+    pipe = ParlerTTSPipeline.from_random(cfg, seed=3, generation_config=gen, device=dev,
+                                         dtype=torch.bfloat16)
+    request = request_ids(0)
+    warm = ParlerTTSPipeline(pipe.model, pipe.dac, dataclasses.replace(
+        gen, max_length=40, min_new_tokens=40), device=dev)
+    warm.decode_codes(*warm.generate_codes(*request)[1:3])
+    torch.cuda.synchronize()
+    flash_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    out = pipe.generate_codes(*request)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    audio, n = pipe.decode_codes(out.codes, out.lengths)
+    t2 = time.perf_counter()
+    k1, steps = flash_decode_attention.launches, out.steps - 2
+    seconds = float(n.max()) / sr
+    rtf = (t2 - t0) / seconds
+    print(f"  mini-v1-width decoder ({n_layers} x {cfg.decoder.hidden_size}, "
+          f"{cfg.decoder.num_attention_heads} heads) over Encodec {base.num_codebooks} x {size}, "
+          f"bf16 B=2: {out.steps} greedy columns, {steps / (t1 - t0):.1f} decode steps/s, K1 "
+          f"launches {k1} = {n_layers} x {steps}: {k1 == n_layers * steps}; decode_codes "
+          f"{audio.shape} at {sr} Hz ({seconds:.2f} s) in {t2 - t1:.2f} s, RTF {rtf:.4f} "
+          f"({card})")
+    if k1 != n_layers * steps or not np.isfinite(audio).all() or out.steps != columns:
+        raise AssertionError(f"Encodec serving: K1 {k1}, steps {steps}, finite "
+                             f"{np.isfinite(audio).all()}")
+    with tempfile.TemporaryDirectory() as path:
+        check_disk(tempfile.gettempdir(), 2 * sum(p.numel() * 4 for p in pipe.model.parameters()))
+        pipe.save_pretrained(path)
+        loaded = ParlerTTSPipeline.from_pretrained(path, generation_config=gen, device=dev,
+                                                   dtype=torch.bfloat16)
+        unequal, _ = param_mismatches(loaded.model, loaded.dac, pipe.model, pipe.dac)
+        flash_decode_attention.launches = 0
+        again = loaded.generate_codes(*request)
+        same = torch.equal(again.delayed_ids, out.delayed_ids)
+        print(f"  saved ({dir_bytes(path) / 1e9:.2f} GB, native layout) and loaded: parameters "
+              f"equal {not unequal}, the same {again.steps} columns {same}, K1 "
+              f"{flash_decode_attention.launches}")
+        if unequal or not same or flash_decode_attention.launches != k1:
+            raise AssertionError(f"Encodec checkpoint: {unequal[:3]}, columns equal {same}")
+    return dict(steps_per_s=steps / (t1 - t0), rtf=rtf, k1=k1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    stay_offline()
     from parler_tts_tpu_torch.ops._cuda import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3102,8 +3791,17 @@ def main() -> int:
     k4_timing = phase_h(dev, card)
     print(f"[phase h] K4 vs plain: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
-    k4_launches = phase_i(dev, card)
+    k4_launches, loss_gap = phase_i(dev, card)
     print(f"[phase i] mini-v1 trainer: {time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    cli = phase_n(dev, card, loss_gap)
+    torch.cuda.empty_cache()
+    print(f"[phase n] the training CLI at mini-v1 width: {time.perf_counter() - t0:.2f} s "
+          f"({card})")
+    t0 = time.perf_counter()
+    encodec = phase_o(dev, card)
+    torch.cuda.empty_cache()
+    print(f"[phase o] Encodec on the card: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
     large, large_eager, large_out = phase_l(dev, card)
     print(f"[phase l] large-v1 kernels and serving: {time.perf_counter() - t0:.2f} s ({card})")
@@ -3122,7 +3820,8 @@ def main() -> int:
              source="parler_tts_tpu_torch/csrc/flash_decode.cu",
              replaces="parler_tts_tpu/ops/pallas/flash_decode.py:192",
              launches=launches, max_abs_err=max_err, **timing, large_v1=large["k1"],
-             window=spec.pop("k1"), speculative=spec),
+             window=spec.pop("k1"), speculative=spec,
+             training_cli_eval_generation=cli["k1_eval_generation"], encodec=encodec),
         dict(name="quant_matmul", route="cuda",
              source="parler_tts_tpu_torch/csrc/quant_matmul.cu",
              replaces="parler_tts_tpu/ops/pallas/quant_matmul.py:39",
@@ -3136,10 +3835,12 @@ def main() -> int:
         dict(name=f"flash_attention{tag}_{name}", route="cuda",
              source=f"parler_tts_tpu_torch/csrc/flash_attention{tag}.cu",
              replaces=f"parler_tts_tpu/ops/pallas/flash_attention.py:{line}",
-             launches=k4_launches[route][name], **k4_timing[route][name])
+             launches=k4_launches[route][name], **k4_timing[route][name],
+             **({"training_cli_per_step": cli["k4_per_step"][name]} if route == "wgmma" else {}))
         for route, tag in (("wgmma", "_wgmma"), ("simt", ""))
         for name, line in (("fwd", 67), ("dq", 144), ("dkv", 180))
     ]
+    kernels[3]["training_cli"] = {k: v for k, v in cli.items() if k != "k4_per_step"}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

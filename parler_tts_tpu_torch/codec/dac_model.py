@@ -242,6 +242,11 @@ class ResidualVQ(nn.Module):
         return (enc.square().sum(dim=-1, keepdim=True) - 2.0 * enc @ cbn.t()
                 + cbn.square().sum(dim=-1))
 
+    def quantized(self, k: int, idx: torch.Tensor) -> torch.Tensor:
+        """Codebook k's out-projected vectors for the codes `idx` (B, T'),
+        which leave the residual."""
+        return self.codebooks[k][idx] @ self.out_proj_kernel[k] + self.out_proj_bias[k]
+
     def encode(self, latents: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Greedy residual quantization: latents (B, T', D) -> (codes (B, K, T')
         int64, z_q (B, T', D)). Codebook k takes the entry nearest to the
@@ -251,7 +256,7 @@ class ResidualVQ(nn.Module):
         residual, codes, z_q = latents, [], 0
         for k in range(self.codebooks.shape[0]):
             idx = torch.argmin(self.distances(residual, k), dim=-1)  # (B, T')
-            z_q_k = self.codebooks[k][idx] @ self.out_proj_kernel[k] + self.out_proj_bias[k]
+            z_q_k = self.quantized(k, idx)
             residual = residual - z_q_k
             codes.append(idx)
             z_q = z_q + z_q_k

@@ -127,7 +127,9 @@ class DecoderConfig:
 
 @dataclass(frozen=True)
 class ParlerTTSConfig:
-    """Composite config: text encoder + codec + decoder."""
+    """Composite config: text encoder + codec + decoder. `audio_encoder` is a
+    `DACConfig` or an `EncodecCodecConfig` (`codec/encodec_model.py`),
+    told apart by its `codec_type`."""
 
     text_encoder: T5Config = field(default_factory=T5Config)
     audio_encoder: DACConfig = field(default_factory=DACConfig)
@@ -151,12 +153,15 @@ class ParlerTTSConfig:
         raw = json.loads(text)
         ae_raw = _tuples(raw["audio_encoder"])
         if ae_raw.get("codec_type", "dac") == "encodec":
-            raise NotImplementedError(
-                "an Encodec codec is not ported yet (ROADMAP.md, item 17)"
-            )
+            # imported here: the codec modules import this module
+            from .codec.encodec_model import EncodecCodecConfig
+
+            audio_encoder = EncodecCodecConfig(**ae_raw)
+        else:
+            audio_encoder = DACConfig(**ae_raw)
         return cls(
             text_encoder=T5Config(**raw["text_encoder"]),
-            audio_encoder=DACConfig(**ae_raw),
+            audio_encoder=audio_encoder,
             decoder=DecoderConfig(**_tuples(raw["decoder"])),
             **{k: v for k, v in raw.items()
                if k not in ("text_encoder", "audio_encoder", "decoder")},

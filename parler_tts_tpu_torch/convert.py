@@ -132,9 +132,9 @@ def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
 
 
 def dac_to_jax_tree(dac: nn.Module) -> Dict[str, Any]:
-    """The reverse of `load_jax_dac_params`: a `DACModel`'s parameters as the
-    JAX codec's tree (names and layouts; encoder, quantizer and decoder),
-    numpy fp32."""
+    """The reverse of `load_jax_dac_params`: a codec's parameters (`DACModel`
+    or `EncodecCodec`) as the JAX codec's tree (names and layouts; encoder,
+    quantizer and decoder), numpy fp32."""
     return _numpy(tensor_tree(dac))
 
 
@@ -146,6 +146,6 @@ def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
 
 
 def load_jax_dac_params(dac: nn.Module, dac_params: Mapping[str, Any]) -> None:
-    """`DACModel` <- the JAX codec's params, every leaf (encoder, quantizer,
-    decoder)."""
+    """A codec (`DACModel` or `EncodecCodec`) <- the JAX codec's params, every
+    leaf (encoder, quantizer, decoder)."""
     _load(dac, dac_params)

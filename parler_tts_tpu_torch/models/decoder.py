@@ -22,6 +22,11 @@
     after each sub-block and on the MLP activation; LayerDrop as a select;
     `remat_layers` recomputes each layer in the backward
     (`torch.utils.checkpoint`, the JAX package's `remat_policy=None`);
+    `remat_policy="dots"` keeps the outputs of the layer's matrix products
+    that have no batch dimension (`aten.mm`/`aten.addmm`: the projections
+    and the MLP, `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`)
+    and recomputes the rest: the batched attention products, kernel K4's
+    launches and the elementwise work;
   - `weight_quant=True` (int8 serving) makes every layer's attention
     projections and MLP a `QuantDense` over kernel K2 (`ops/quant_matmul.py`):
     int8 `w_q` (in, out) and fp32 per-output-channel `scale` (out,), the
@@ -36,13 +41,18 @@
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..config import DecoderConfig
 from ..ops.chunked_attention import chunked_attention
@@ -311,19 +321,36 @@ class DecoderLayer(nn.Module):
         h = self.fc2(dropout(h, cfg.activation_dropout, fold_in(key, "activation")))
         return x + dropout(h, cfg.dropout, fold_in(key, "fc2"))
 
+
+# the matrix products with no batch dimension, whose outputs remat_policy="dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {None: {}, "dots": dict(
+    context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))}
+
+
 class ParlerDecoder(nn.Module):
     """The decoder stack, over a static cache (serving) or without one
     (training). `remat_layers` recomputes each layer of the training route in
-    the backward instead of keeping its activations."""
+    the backward instead of keeping its activations; `remat_policy` (None or
+    "dots") says what the recompute may keep."""
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
                  use_chunked_attention: Any = False, remat_layers: bool = False,
-                 fused_qkv: bool = False):
+                 fused_qkv: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r} (expected None or 'dots')")
         self.config = config
         self.dtype = dtype
         self.remat_layers = remat_layers
+        self.remat_policy = remat_policy
         self.embed_tokens = new_param(config.num_codebooks, config.embed_rows,
                                       config.hidden_size, device=device,
                                       dtype=param_dtype or dtype)
@@ -397,7 +424,8 @@ class ParlerDecoder(nn.Module):
             if self.remat_layers and torch.is_grad_enabled():
                 # the layer's dropout masks come from `key`, so the recompute
                 # draws the same ones without restoring any generator state
-                out = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False, **kw)
+                out = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False,
+                                 **REMAT_POLICIES[self.remat_policy], **kw)
             else:
                 out = layer(x, **kw)
             if layerdrop:
@@ -416,12 +444,13 @@ class ParlerForCausalLM(nn.Module):
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
                  use_chunked_attention: Any = False, remat_layers: bool = False,
-                 fused_qkv: bool = False):
+                 fused_qkv: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
         self.decoder = ParlerDecoder(config, device, dtype, weight_quant, param_dtype,
-                                     use_chunked_attention, remat_layers, fused_qkv)
+                                     use_chunked_attention, remat_layers, fused_qkv,
+                                     remat_policy)
         self.lm_heads = new_param(config.num_codebooks, config.hidden_size, config.vocab_size,
                                   device=device, dtype=param_dtype or dtype)
         self._serving_heads: Optional[Tuple[Any, torch.Tensor]] = None

@@ -37,13 +37,14 @@ class ParlerTTS(nn.Module):
     over a plain matmul; the parameters then follow
     `utils.quantize.quantize_decoder_params`. `fused_qkv=True`: one q|k|v
     projection per decoder self-attention, parameters as `fuse_qkv_params`
-    lays them out. `use_chunked_attention` (False | True | int | "pallas")
-    and `remat_layers` shape the training forward as in the JAX package."""
+    lays them out. `use_chunked_attention` (False | True | int | "pallas"),
+    `remat_layers` and `remat_policy` (None or "dots") shape the training
+    forward as in the JAX package."""
 
     def __init__(self, config: ParlerTTSConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
                  use_chunked_attention: Any = False, remat_layers: bool = False,
-                 fused_qkv: bool = False):
+                 fused_qkv: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -51,13 +52,16 @@ class ParlerTTS(nn.Module):
         self.weight_quant = weight_quant
         self.fused_qkv = fused_qkv
         self.use_chunked_attention = use_chunked_attention
+        self.remat_layers = remat_layers
+        self.remat_policy = remat_policy
         dcfg = config.decoder
         self.text_encoder = T5Encoder(config.text_encoder, device=device, dtype=dtype,
                                       param_dtype=param_dtype)
         self.decoder = ParlerForCausalLM(dcfg, device=device, dtype=dtype,
                                          weight_quant=weight_quant, param_dtype=param_dtype,
                                          use_chunked_attention=use_chunked_attention,
-                                         remat_layers=remat_layers, fused_qkv=fused_qkv)
+                                         remat_layers=remat_layers, fused_qkv=fused_qkv,
+                                         remat_policy=remat_policy)
         self.embed_prompts = Embed(config.vocab_size, dcfg.hidden_size,
                                    std=dcfg.initializer_factor, device=device, dtype=dtype,
                                    param_dtype=param_dtype)

@@ -9,7 +9,8 @@ header mapping each tensor's name to its `dtype`, `shape` and
 `__metadata__` entry holds strings), then the raw little-endian bytes. The
 reader maps the file copy-on-write and returns tensors that view the
 mapping, so the weights occupy host memory once, as the page cache's pages;
-BF16 loads bit for bit as `torch.bfloat16`.
+BF16 loads bit for bit as `torch.bfloat16`. `write_safetensors` writes the
+format (the training CLI's export).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict
 
 import torch
 
+from ..codec.encodec_model import EncodecCodecConfig
 from ..config import DACConfig, DecoderConfig, ParlerTTSConfig, T5Config
 
 SAFETENSORS_DTYPES = {
@@ -36,33 +38,36 @@ SAFETENSORS_DTYPES = {
 def load_hf_config(path: str) -> ParlerTTSConfig:
     """Parse an HF-layout `config.json` into the config tree, with the JAX
     package's defaults for absent fields (`feed_forward_proj` defaults to
-    "relu", as in HF's T5Config)."""
+    "relu", as in HF's T5Config). The codec is Encodec when its section's
+    `model_type` (HF) or `codec_type` (`ParlerTTSConfig.to_json`) says so."""
     with open(os.path.join(path, "config.json")) as f:
         raw = json.load(f)
     te, ae, de = raw["text_encoder"], raw["audio_encoder"], raw["decoder"]
     mt = ae.get("model_type")
-    if mt == "encodec":
-        raise NotImplementedError("an Encodec codec is not ported yet (ROADMAP.md, item 17)")
-    if mt not in (None, "dac", "dac_on_the_hub"):
+    if mt == "encodec" or ae.get("codec_type") == "encodec":  # HF's name, or to_json's
+        audio_encoder = _encodec_config(ae, de)
+    elif mt not in (None, "dac", "dac_on_the_hub"):
         raise ValueError(
             f"unsupported audio_encoder model_type {mt!r}; "
             "supported codecs: dac_on_the_hub, encodec"
         )
-    # geometry fields beyond HF's DACConfig (which fixes them to the 44.1 kHz
-    # model) are read when present, so other DAC variants round-trip
-    dac = DACConfig()
-    audio_encoder = DACConfig(
-        num_codebooks=ae.get("num_codebooks", 9),
-        codebook_size=ae.get("codebook_size", 1024),
-        codebook_dim=ae.get("codebook_dim", dac.codebook_dim),
-        latent_dim=ae.get("latent_dim", 1024),
-        encoder_dim=ae.get("encoder_dim", dac.encoder_dim),
-        encoder_rates=tuple(ae.get("encoder_rates", dac.encoder_rates)),
-        decoder_dim=ae.get("decoder_dim", dac.decoder_dim),
-        decoder_rates=tuple(ae.get("decoder_rates", dac.decoder_rates)),
-        frame_rate=int(ae.get("frame_rate", 86)),
-        sampling_rate=ae.get("sampling_rate", 44100),
-    )
+    else:
+        # geometry fields beyond HF's DACConfig (which fixes them to the
+        # 44.1 kHz model) are read when present, so other DAC variants
+        # round-trip
+        dac = DACConfig()
+        audio_encoder = DACConfig(
+            num_codebooks=ae.get("num_codebooks", 9),
+            codebook_size=ae.get("codebook_size", 1024),
+            codebook_dim=ae.get("codebook_dim", dac.codebook_dim),
+            latent_dim=ae.get("latent_dim", 1024),
+            encoder_dim=ae.get("encoder_dim", dac.encoder_dim),
+            encoder_rates=tuple(ae.get("encoder_rates", dac.encoder_rates)),
+            decoder_dim=ae.get("decoder_dim", dac.decoder_dim),
+            decoder_rates=tuple(ae.get("decoder_rates", dac.decoder_rates)),
+            frame_rate=int(ae.get("frame_rate", 86)),
+            sampling_rate=ae.get("sampling_rate", 44100),
+        )
     return ParlerTTSConfig(
         text_encoder=T5Config(
             vocab_size=te["vocab_size"],
@@ -102,6 +107,42 @@ def load_hf_config(path: str) -> ParlerTTSConfig:
         prompt_cross_attention=raw.get("prompt_cross_attention", False),
         pad_token_id=raw.get("pad_token_id", 1024),
         decoder_start_token_id=raw.get("decoder_start_token_id", 1025),
+    )
+
+
+def _encodec_config(ae: dict, de: dict) -> EncodecCodecConfig:
+    """An HF `EncodecConfig` section -> `EncodecCodecConfig`, with HF's
+    defaults; without `num_codebooks` the quantizer count comes from the top
+    target bandwidth (HF's `EncodecConfig.num_quantizers`), else from the
+    decoder's codebook count."""
+    up = tuple(ae.get("upsampling_ratios", (8, 5, 4, 4)))
+    frame_rate = -(-ae.get("sampling_rate", 32000) // math.prod(up))  # ceil
+    if "num_codebooks" in ae:
+        n_q = ae["num_codebooks"]
+    elif ae.get("target_bandwidths"):
+        n_q = int(1000 * ae["target_bandwidths"][-1] // (frame_rate * 10))
+    else:
+        n_q = de.get("num_codebooks", 4)
+    return EncodecCodecConfig(
+        sampling_rate=ae.get("sampling_rate", 32000),
+        audio_channels=ae.get("audio_channels", 1),
+        num_filters=ae.get("num_filters", 64),
+        hidden_size=ae.get("hidden_size", 128),
+        num_residual_layers=ae.get("num_residual_layers", 1),
+        upsampling_ratios=up,
+        codebook_size=ae.get("codebook_size", 2048),
+        codebook_dim=ae.get("codebook_dim", ae.get("hidden_size", 128)),
+        num_codebooks=n_q,
+        num_lstm_layers=ae.get("num_lstm_layers", 2),
+        kernel_size=ae.get("kernel_size", 7),
+        last_kernel_size=ae.get("last_kernel_size", 7),
+        residual_kernel_size=ae.get("residual_kernel_size", 3),
+        dilation_growth_rate=ae.get("dilation_growth_rate", 2),
+        use_causal_conv=ae.get("use_causal_conv", True),
+        trim_right_ratio=ae.get("trim_right_ratio", 1.0),
+        pad_mode=ae.get("pad_mode", "reflect"),
+        compress=ae.get("compress", 2),
+        normalize=ae.get("normalize", False),
     )
 
 
@@ -185,3 +226,32 @@ def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{name} is in two shards of {path} (the second: {fname})")
             tensors[name] = tensor
     return tensors
+
+
+SAFETENSORS_CODES = {dtype: code for code, dtype in SAFETENSORS_DTYPES.items()}
+
+
+def write_safetensors(filename: str, tensors: Dict[str, torch.Tensor]) -> int:
+    """A writer of the `.safetensors` format (the inverse of
+    `read_safetensors`, without the safetensors package): an 8-byte
+    little-endian header length, a JSON header (name -> dtype, shape,
+    data_offsets), padded with spaces to 8 bytes, then each tensor's bytes
+    in order; BF16 written as its raw 16-bit words. Tensors may live on the
+    card; each is copied to the host and written in turn. Returns the bytes
+    written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_CODES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(filename, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu()
+            f.write((host.view(torch.int16) if host.dtype == torch.bfloat16 else host)
+                    .numpy().tobytes())
+    return 8 + len(head) + offset

@@ -11,9 +11,13 @@ package reads (native: `config.json` + pickled numpy trees; HF:
 `config.json` + `.safetensors`, read without the safetensors package), and
 `save_pretrained` writes the native layout, which the JAX package loads.
 
-Voice steering: `encode_voice_prompt` turns a reference clip into codec
-codes with the fp32 codec's encoder; they go to `generate` as
-`decoder_prompt_codes`. Streaming: `stream` (B=1 or the batch's row 0) and
+The codec is DAC or Encodec, as the config's `audio_encoder.codec_type`
+says (`codec/registry.py`). Voice steering: `encode_voice_prompt` turns a
+reference clip into codec codes with the fp32 codec's encoder; they go to
+`generate` as `decoder_prompt_codes`. A scale-normalised Encodec returns
+each clip's scale beside its codes, for `generate(..., audio_scales=)` and
+`decode_codes`; a stereo codec's audio comes back interleaved,
+PCM-style. Streaming: `stream` (B=1 or the batch's row 0) and
 `stream_batch` yield waveform chunks every `play_steps` columns, decoding a
 trailing window of frames each time (`runtime/generate.py:
 make_stream_functions`; `runtime/streamer.py` wraps them for a player).
@@ -52,8 +56,7 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..codec.convert import convert_dac_params
-from ..codec.dac_model import DACModel
+from ..codec.registry import build_codec, codec_channels, convert_codec_params, init_codec_params
 from ..config import GenerationConfig, ParlerTTSConfig
 from ..convert import dac_to_jax_tree, load_jax_dac_params, load_jax_params, to_jax_tree
 from ..models.layers import init_weights
@@ -115,7 +118,7 @@ class ParlerTTSPipeline:
     def __init__(
         self,
         model: ParlerTTS,
-        dac: DACModel,
+        dac: torch.nn.Module,
         generation_config: Optional[GenerationConfig] = None,
         tokenizer: Any = None,
         frame_bucket: int = 256,
@@ -185,7 +188,8 @@ class ParlerTTSPipeline:
         **kw,
     ) -> "ParlerTTSPipeline":
         """Randomly initialised pipeline, built and filled on the device from a
-        `torch.Generator` seeded with `seed` (the codec stays fp32). With
+        `torch.Generator` seeded with `seed` (the codec, encoder and decoder,
+        stays fp32). With
         `weight_quant` (True or "xla") each decoder projection draws its
         `dtype` weights on the device and quantizes them there to int8."""
         dev = resolve_device(device)
@@ -193,8 +197,7 @@ class ParlerTTSPipeline:
         generator.manual_seed(seed)
         model = ParlerTTS(config, device=dev, dtype=dtype, weight_quant=weight_quant)
         init_weights(model, generator)
-        dac = DACModel(config.audio_encoder, device=dev)
-        init_weights(dac, generator)
+        dac = init_codec_params(build_codec(config.audio_encoder, dev), generator)
         return cls(model, dac, generation_config, device=dev, **kw)
 
     @classmethod
@@ -213,11 +216,15 @@ class ParlerTTSPipeline:
           - native (`params.pkl` present): `config.json` as `to_json` writes
             it, `params.pkl` (the flax-named numpy tree), `dac_params.pkl`
             (the JAX codec's tree; without it the codec is drawn from a
-            `torch.Generator` seeded with 0);
+            `torch.Generator` seeded with 0), whatever the codec;
           - HF: `config.json` with `text_encoder`/`audio_encoder`/`decoder`
-            sections and `*.safetensors` holding `text_encoder.*`,
-            `decoder.*`, `embed_prompts.*`, `enc_to_dec_proj.*` and
-            `audio_encoder.model.*` (weight-norm folded on load).
+            sections (an `audio_encoder` of `model_type` "encodec" is an
+            Encodec) and `*.safetensors` holding `text_encoder.*`,
+            `decoder.*`, `embed_prompts.*`, `enc_to_dec_proj.*` and the
+            codec's `audio_encoder.*` (weight-norm folded on load), or, with
+            no codec tensors, the codec's tree in `dac_params.pkl` (the
+            layout `training.run_training.export_and_push` writes, its
+            `config.json` that of `to_json`).
 
         `generation_config.json`, when present and no `generation_config` is
         given, fills the fields `GenerationConfig` knows. The model is built
@@ -237,8 +244,12 @@ class ParlerTTSPipeline:
             cfg = load_hf_config(path)
             tensors = load_safetensors_dir(path)
             params = convert_composite_params(tensors, cfg)
-            dac_params = convert_dac_params(tensors, cfg.audio_encoder,
-                                            prefix="audio_encoder.model.")
+            dac_path = os.path.join(path, "dac_params.pkl")
+            if not any(n.startswith("audio_encoder.") for n in tensors) and os.path.exists(
+                    dac_path):  # the training CLI's export: the codec beside the tensors
+                dac_params = _load_pickle(dac_path)
+            else:
+                dac_params = convert_codec_params(tensors, cfg.audio_encoder)
         gen_path = os.path.join(path, "generation_config.json")
         if generation_config is None and os.path.exists(gen_path):
             with open(gen_path) as f:
@@ -249,9 +260,9 @@ class ParlerTTSPipeline:
         if weight_quant:
             params = quantize_decoder_params_torch(params, dev)
         load_jax_params(model, params)
-        dac = DACModel(cfg.audio_encoder, device=dev)
+        dac = build_codec(cfg.audio_encoder, dev)
         if dac_params is None:
-            init_weights(dac, torch.Generator(device=dev).manual_seed(0))
+            init_codec_params(dac, torch.Generator(device=dev).manual_seed(0))
         else:
             load_jax_dac_params(dac, dac_params)
         return cls(model, dac, generation_config, tokenizer=tokenizer, device=dev, **kw)
@@ -338,35 +349,49 @@ class ParlerTTSPipeline:
         """A reference clip -> codec codes (B, K, T / hop) int64 on the
         pipeline's device, for `generate(..., decoder_prompt_codes=...)`.
         `audio` is (B, T) or (T,) float (numpy or a tensor), mono, replicated
-        to the codec's channels (B, T, C) if 2-D and zero-padded to a multiple
-        of `hop_length`. The fp32 codec encodes, whatever `codec_dtype` says
-        (as the JAX package's encode keeps its fp32 parameters). On the card,
-        fp32 convolutions follow `torch.backends.cudnn.allow_tf32` (PyTorch
-        turns it on by default), which moves the latents by about 1e-3 and
-        with them the codes at near-ties; turn it off for fp32 codes. With
-        `return_scales=True` also returns the per-clip audio scales (B,): ones,
-        since DAC does not normalise its input."""
-        if getattr(self.config.audio_encoder, "normalize", False):
-            raise NotImplementedError("scale-normalised Encodec codecs are ROADMAP item 17")
+        to the codec's channels, or (B, T, C); it is zero-padded to a
+        multiple of `hop_length`. The fp32 codec encodes, whatever
+        `codec_dtype` says (as the JAX package's encode keeps its fp32
+        parameters). On the card, fp32 convolutions follow
+        `torch.backends.cudnn.allow_tf32` (PyTorch turns it on by default),
+        which moves the latents by about 1e-3 and with them the codes at
+        near-ties; turn it off for fp32 codes.
+
+        With `return_scales=True` also returns the per-clip audio scales
+        (B,): a scale-normalised Encodec's, to pass to `generate(...,
+        audio_scales=)` or `decode_codes`, else ones. Such a codec raises
+        ValueError without `return_scales`: dropping the scales would give
+        wrongly scaled audio."""
+        normalize = getattr(self.config.audio_encoder, "normalize", False)
+        if normalize and not return_scales:
+            raise ValueError(
+                "this codec is scale-normalized (Encodec normalize=True): call "
+                "encode_voice_prompt(audio, return_scales=True) and pass the scales to "
+                "generate(..., audio_scales=...); dropping them would give wrongly-scaled audio"
+            )
         audio = (audio.float() if isinstance(audio, torch.Tensor)
                  else torch.from_numpy(np.array(audio, np.float32)))
         if audio.dim() == 1:
             audio = audio[None]
-        if audio.dim() == 2:  # (B, T) mono: one channel, the DAC codec's
-            audio = audio[:, :, None]
+        if audio.dim() == 2:  # (B, T) mono: replicated across the codec's channels
+            audio = audio[:, :, None].expand(-1, -1, codec_channels(self.config.audio_encoder))
         hop = self.config.audio_encoder.hop_length
-        audio = torch.nn.functional.pad(audio, (0, 0, 0, -audio.shape[1] % hop))
-        codes = self.dac.encode(audio.to(self.device))
-        if return_scales:
-            return codes, torch.ones((codes.shape[0],), dtype=torch.float32,
-                                     device=self.device)
-        return codes
+        audio = torch.nn.functional.pad(audio, (0, 0, 0, -audio.shape[1] % hop)).to(self.device)
+        if normalize:
+            codes, scales = self.dac.encode_with_scale(audio)
+        else:
+            codes = self.dac.encode(audio)
+            scales = torch.ones((codes.shape[0],), dtype=torch.float32, device=self.device)
+        return (codes, scales) if return_scales else codes
 
     @torch.inference_mode()
-    def decode_codes(self, codes: torch.Tensor, lengths: torch.Tensor
+    def decode_codes(self, codes: torch.Tensor, lengths: torch.Tensor, audio_scales=None
                      ) -> Tuple[np.ndarray, np.ndarray]:
-        """Bucketed DAC decode: (B, K, T) codes -> (B, samples) waveform and
-        sample lengths."""
+        """Bucketed codec decode: (B, K, T) codes -> (B, samples) waveform and
+        sample lengths. `audio_scales` (B,) multiplies each clip back to the
+        amplitude a normalising Encodec's encode divided away. A stereo
+        codec's channels come interleaved, PCM-style: samples = frames x hop
+        x channels."""
         hop = self.config.audio_encoder.hop_length
         lengths = lengths.cpu().numpy().astype(np.int64)
         b = codes.shape[0]
@@ -377,8 +402,12 @@ class ParlerTTSPipeline:
         # invalid tail ids would index past the codebooks; clamp them (those
         # samples are cut by `lengths`)
         sliced = codes[:, :, :bucket].clamp(0, self.config.audio_encoder.codebook_size - 1)
-        audio = self.dac_decode.decode(sliced.to(self.device)).float()  # (B, T*hop, 1)
-        return audio[:, :, 0].cpu().numpy(), lengths * hop
+        audio = self.dac_decode.decode(sliced.to(self.device)).float()  # (B, T*hop, C)
+        if audio_scales is not None:
+            audio = audio * torch.as_tensor(audio_scales, dtype=audio.dtype,
+                                            device=audio.device)[:, None, None]
+        channels = audio.shape[-1]
+        return audio.reshape(b, -1).cpu().numpy(), lengths * hop * channels
 
     def generate(
         self,
@@ -388,10 +417,13 @@ class ParlerTTSPipeline:
         prompt_mask=None,
         seed: int = 0,
         decoder_prompt_codes=None,
+        audio_scales=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """(waveform (B, samples), audio lengths (B,)). `description` and
         `prompt` are strings or lists of strings (tokenized, their masks
-        made here) or token-id arrays."""
+        made here) or token-id arrays; `audio_scales` (B,), from
+        `encode_voice_prompt(..., return_scales=True)`, restores a
+        normalising codec's amplitude."""
         if isinstance(description, str):
             description = [description]
         if isinstance(prompt, str):
@@ -402,7 +434,7 @@ class ParlerTTSPipeline:
             prompt, prompt_mask = self._encode_text(prompt, left_pad=True)
         out = self.generate_codes(description, desc_mask, prompt, prompt_mask, seed,
                                   decoder_prompt_codes=decoder_prompt_codes)
-        return self.decode_codes(out.codes, out.lengths)
+        return self.decode_codes(out.codes, out.lengths, audio_scales=audio_scales)
 
     # --------------------------------------------------------------- streaming
     def _ensure_stream_fns(self):

@@ -5,9 +5,15 @@ The optimizer reproduces the JAX package's optax chain, not torch's
 defaults:
   * `clip_by_global_norm(max_norm)`: the trained gradients are scaled by
     max_norm / norm when their global norm reaches max_norm (no epsilon);
-  * AdamW: moments mu, nu; bias correction by the incremented count;
+  * AdamW: moments mu, nu; bias correction by the incremented count, fp32's
+    1 - b^count as optax computes it;
     update mu_hat / (sqrt(nu_hat) + eps) plus weight_decay x param
     (decoupled), times -lr; every parameter decays;
+  * `mu_dtype=torch.bfloat16` keeps the first moment in bf16, in optax's
+    order: b1 x mu is taken in bf16 (b1 itself rounded to bf16, as JAX
+    casts a Python scalar to the array's dtype), added in fp32 to the fp32
+    (1 - b1) x g, bias-corrected and used in fp32, and stored rounded to
+    bf16;
   * the learning-rate schedules of `make_optimizer`, evaluated at the count
     before the increment: with warmup, step 1 runs at lr 0;
   * with `freeze_text_encoder` the text encoder's parameters get no update
@@ -30,6 +36,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.layers import fold_in
@@ -85,6 +92,7 @@ class AdamW:
     weight_decay: float
     max_grad_norm: float
     freeze_text_encoder: bool
+    mu_dtype: Optional[torch.dtype] = None
 
     def trains(self, name: str) -> bool:
         return not (self.freeze_text_encoder and name.split(".")[0] == "text_encoder")
@@ -93,7 +101,7 @@ class AdamW:
         trained = {n: p for n, p in model.named_parameters() if self.trains(n)}
         return OptState(
             count=0,
-            mu={n: torch.zeros_like(p) for n, p in trained.items()},
+            mu={n: torch.zeros_like(p, dtype=self.mu_dtype) for n, p in trained.items()},
             nu={n: torch.zeros_like(p) for n, p in trained.items()},
         )
 
@@ -111,18 +119,37 @@ class AdamW:
         clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                            self.max_grad_norm / norm)
         g = torch._foreach_mul(g, clip)
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
         lr = self.learning_rate(state.count)
         state.count += 1
-        mu_hat = torch._foreach_div(mu, 1.0 - self.b1 ** state.count)
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, 1.0 - self.b2 ** state.count))
+        if self.mu_dtype is None:
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+            mu_hat = torch._foreach_div(mu, _bias_correction(self.b1, state.count))
+        else:
+            b1_low = torch.tensor(self.b1, dtype=self.mu_dtype).item()
+            mu_hat = torch._foreach_mul(g, 1.0 - self.b1)
+            for m_new, m in zip(mu_hat, mu):  # one tensor's temporaries at a time
+                m_new.add_((m * b1_low).float())
+            torch._foreach_copy_(mu, mu_hat)
+            torch._foreach_div_(mu_hat, _bias_correction(self.b1, state.count))
+        nu_hat = torch._foreach_div(nu, _bias_correction(self.b2, state.count))
+        denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, ADAM_EPS)
         upd = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(upd, p, alpha=self.weight_decay)
         torch._foreach_add_(p, upd, alpha=-lr)
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """optax's fp32 1 - decay^count (an integer power by squaring)."""
+    power, base, n = np.float32(1.0), np.float32(decay), count
+    while n:
+        if n & 1:
+            power = np.float32(power * base)
+        base, n = np.float32(base * base), n >> 1
+    return float(np.float32(1.0) - power)
 
 
 def make_optimizer(
@@ -135,10 +162,12 @@ def make_optimizer(
     weight_decay: float = 0.01,
     max_grad_norm: float = 1.0,
     freeze_text_encoder: bool = True,
+    mu_dtype: Optional[torch.dtype] = None,
 ) -> AdamW:
     """AdamW + clip + schedule, the JAX package's defaults (the reference
-    recipe's). `mu_dtype` is not ported: the moments have the parameters'
-    dtype."""
+    recipe's). `mu_dtype` (None or torch.bfloat16) is the first moment's
+    dtype, as optax's `adamw(mu_dtype=)`; the second moment has the
+    parameters' dtype."""
     warmup = _linear(0.0, learning_rate, warmup_steps)
     if schedule == "constant_with_warmup":
         lr = _join(warmup, lambda count: learning_rate, warmup_steps)
@@ -149,7 +178,7 @@ def make_optimizer(
                    warmup_steps)
     else:
         raise ValueError(f"unknown schedule {schedule}")
-    return AdamW(lr, b1, b2, weight_decay, max_grad_norm, freeze_text_encoder)
+    return AdamW(lr, b1, b2, weight_decay, max_grad_norm, freeze_text_encoder, mu_dtype)
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:

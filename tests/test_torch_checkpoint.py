@@ -40,6 +40,7 @@ import torch
 import chip_smoke
 from parler_tts_tpu import config as jc
 from parler_tts_tpu.codec.convert import export_dac_params as jax_export_dac
+from parler_tts_tpu.codec.encodec_model import EncodecCodecConfig as JEncodecConfig
 from parler_tts_tpu.runtime.generate import make_generate
 from parler_tts_tpu.runtime.pipeline import ParlerTTSPipeline as JPipeline
 from parler_tts_tpu.runtime.pipeline import load_hf_config as jax_load_hf_config
@@ -48,6 +49,7 @@ from parler_tts_tpu.utils.quantize import quantize_decoder_params as jax_quantiz
 from parler_tts_tpu_torch import config as tc
 from parler_tts_tpu_torch.codec.convert import export_dac_params
 from parler_tts_tpu_torch.codec.dac_model import DACModel
+from parler_tts_tpu_torch.codec.encodec_model import EncodecCodecConfig
 from parler_tts_tpu_torch.convert import load_jax_dac_params, load_jax_params, tensor_tree
 from parler_tts_tpu_torch.models.parler import ParlerTTS
 from parler_tts_tpu_torch.runtime.checkpoint import (
@@ -135,10 +137,15 @@ def test_config_json_round_trips_between_packages(name):
 
 
 def test_config_json_encodec_names_its_roadmap_item():
-    raw = json.loads(CFG.to_json())
-    raw["audio_encoder"]["codec_type"] = "encodec"
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tc.ParlerTTSConfig.from_json(json.dumps(raw))
+    """An Encodec composite's JSON (ROADMAP item 17, ported) loads in the
+    port to the JAX package's config, and back."""
+    jcfg = dataclasses.replace(CFG, audio_encoder=JEncodecConfig(
+        audio_channels=2, num_codebooks=4, upsampling_ratios=(4, 4), normalize=True))
+    pcfg = tc.ParlerTTSConfig.from_json(jcfg.to_json())
+    assert isinstance(pcfg.audio_encoder, EncodecCodecConfig)
+    assert pcfg == port_config(jcfg)
+    assert isinstance(pcfg.audio_encoder.upsampling_ratios, tuple)
+    assert jc.ParlerTTSConfig.from_json(pcfg.to_json()) == jcfg
 
 
 # ------------------------------------------------------------ load_hf_config
@@ -186,10 +193,13 @@ def test_load_hf_config_matches_jax(tmp_path, name):
 
 
 def test_load_hf_config_encodec_and_unknown_codecs(tmp_path):
+    """An `audio_encoder` of model_type "encodec" loads as the JAX package
+    loads it (ROADMAP item 17, ported); an unknown codec raises in both."""
     write_config(tmp_path / "encodec", hf_config(model_type="encodec"))
-    assert jax_load_hf_config(str(tmp_path / "encodec")).audio_encoder.codec_type == "encodec"
-    with pytest.raises(NotImplementedError, match="item 17"):
-        load_hf_config(str(tmp_path / "encodec"))
+    want = jax_load_hf_config(str(tmp_path / "encodec"))
+    got = load_hf_config(str(tmp_path / "encodec"))
+    assert want.audio_encoder.codec_type == got.audio_encoder.codec_type == "encodec"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
     write_config(tmp_path / "other", hf_config(model_type="snac"))
     for load in (load_hf_config, jax_load_hf_config):
         with pytest.raises(ValueError, match="snac"):

@@ -3,7 +3,8 @@
 against their plain versions, the pipeline on the GPU in its eager, int8 and
 fused modes, checkpoints loaded onto the GPU (the default device, a BF16
 shard bit for bit), the fused_qkv and weight_quant="xla" modes on CUDA
-tensors, the launch counts of a remat'd train step, and speculative
+tensors, the launch counts of a remat'd train step, what remat_policy="dots"
+keeps on the card, and speculative
 decoding (K1 at the W=24 window, K2 at M = 24 and 48, a greedy fp32 run
 equal to the AR run but at near-ties within 2e-4). Marked `cuda`; without a GPU each test
 skips (a CUDA kernel has no CPU mode). This file imports no JAX, since the
@@ -39,8 +40,8 @@ tile must fail them. K4's launch counters show the route: bf16 at head dim
 64 on the tensor-core kernels, fp32 and other head dims on the SIMT ones.
 """
 
+import copy
 import dataclasses
-
 
 import pytest
 import torch
@@ -592,6 +593,52 @@ def test_train_step_launch_counts(cuda, hidden):
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
 
 
+def test_remat_dots_keeps_the_matrix_products_on_the_gpu(cuda):
+    """What `remat_policy="dots"` sees on the card, in bf16 over K4
+    (`tests/test_torch_training.py` holds the same counts on the CPU): a
+    forward and backward under full remat runs 7 non-batched products
+    (`aten.mm`) a layer more than under "dots", which keeps them; the
+    batched products and K4's forward are recomputed under both."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func] = self.ops.get(func, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = tiny_config(256)
+    g = torch.Generator().manual_seed(1)
+    inputs = (torch.randint(0, 120, (2, 9), generator=g), torch.ones(2, 9, dtype=torch.int64),
+              torch.randint(0, 256, (2, 5), generator=g), torch.ones(2, 5, dtype=torch.int64),
+              torch.randint(0, 88, (2, 30, 4), generator=g))
+    counts, k4 = {}, {}
+    for policy in (None, "dots"):
+        model = ParlerTTS(cfg, device=cuda, dtype=torch.bfloat16, param_dtype=torch.float32,
+                          use_chunked_attention="pallas", remat_layers=True,
+                          remat_policy=policy)
+        init_weights(model, torch.Generator(device=cuda).manual_seed(0))
+        model.requires_grad_(True)
+        for key in flash_attention.launches:
+            flash_attention.launches[key] = 0
+        with Count() as mode:
+            logits, _ = model(*(x.to(cuda) for x in inputs))
+            logits.float().sum().backward()
+        torch.cuda.synchronize()
+        counts[policy], k4[policy] = mode.ops, dict(flash_attention.launches)
+    layers = cfg.decoder.num_hidden_layers
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    assert counts[None][mm] - counts["dots"][mm] == 7 * layers, (counts[None][mm],
+                                                                counts["dots"][mm])
+    assert counts[None].get(bmm, 0) == counts["dots"].get(bmm, 0)
+    assert k4[None] == k4["dots"] == {"fwd": 2 * layers, "dq": layers, "dkv": layers}
+
+
 # ------------------------------------------------------------ checkpoints
 def test_from_pretrained_defaults_to_the_gpu(cuda, tmp_path):
     cfg = tiny_config()
@@ -748,3 +795,93 @@ def test_speculative_pipeline_on_the_gpu(cuda, per_row, monkeypatch):
             pair = {int(got.delayed_ids[b, k, t]), int(want.delayed_ids[b, k, t])}
             assert pair == {int(idx[b, k, 0]), int(idx[b, k, 1])}
             assert float(vals[b, k, 0] - vals[b, k, 1]) <= 2e-4
+
+
+# ------------------------------------------------------------ training CLI
+def test_run_training_over_k4_on_the_gpu(cuda, tmp_path, monkeypatch):
+    """`run_training` on the card at tiny size (hidden 256, Dh 64: the
+    tensor-core route) with `attention_impl="pallas_flash"` and two
+    micro-batches: K4 launches 2 x 2L forward, 2L dq and 2L dk/dv kernels a
+    step, all on the wgmma route, finite losses; a run resumed from its
+    step-2 checkpoint ends with the uninterrupted run's parameters; the
+    export loads onto the card with the last checkpoint's parameters."""
+    from parler_tts_tpu_torch.codec.registry import build_codec, init_codec_params
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.training import arguments as ta
+    from parler_tts_tpu_torch.training import checkpoints as ck
+    from parler_tts_tpu_torch.training import run_training as rt
+
+    cfg = tiny_config(256)
+    model = ParlerTTS(cfg, use_chunked_attention="pallas", remat_layers=True)
+    init_weights(model, torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    feats = [{"labels": torch.randint(0, 88, (int(t), 4), generator=g).numpy(),
+              "input_ids": torch.randint(0, 120, (7,), generator=g).tolist(),
+              "prompt_input_ids": torch.randint(0, 256, (4,), generator=g).tolist()}
+             for t in torch.randint(20, 40, (12,), generator=g)]
+    counts, real = [], rt.make_train_step
+
+    def counted(model, tx, **kw):
+        step = real(model, tx, **kw)
+
+        def run(state, batch, seed):
+            for key in flash_attention.launches:
+                flash_attention.launches[key] = flash_attention.launches_wgmma[key] = 0
+            state, metrics = step(state, batch, seed)
+            counts.append((dict(flash_attention.launches), dict(flash_attention.launches_wgmma),
+                           float(metrics["loss"])))
+            return state, metrics
+        return run
+
+    monkeypatch.setattr(rt, "make_train_step", counted)
+
+    def args(out, steps):
+        return ta.TrainingArguments(
+            output_dir=str(out), per_device_train_batch_size=4, gradient_accumulation_steps=2,
+            gradient_accumulation_mode="microbatch", learning_rate=1e-3, warmup_steps=0,
+            max_steps=steps, save_steps=2, save_total_limit=1, logging_steps=1,
+            report_to="none", dtype="bfloat16", attention_impl="pallas_flash")
+
+    margs, dargs = ta.ModelArguments(max_length=64), ta.DataTrainingArguments()
+    # each run trains the model it is given in place: give each one a copy
+    whole, step = rt.run_training(margs, dargs, args(tmp_path / "whole", 3),
+                                  copy.deepcopy(model), feats)
+    n = cfg.decoder.num_hidden_layers
+    want = {"fwd": 4 * n, "dq": 2 * n, "dkv": 2 * n}
+    assert step == 3 and all(c == want and w == want for c, w, _ in counts)
+    assert all(torch.isfinite(torch.tensor(loss)) for _, _, loss in counts)
+    rt.run_training(margs, dargs, args(tmp_path / "cut", 2), copy.deepcopy(model), feats)
+    resumed, step = rt.run_training(margs, dargs, args(tmp_path / "cut", 3), model, feats)
+    assert step == 3 and abs(counts[-1][2] - counts[2][2]) <= 1e-5 * abs(counts[2][2])
+    for (name, p), (_, q) in zip(resumed.model.named_parameters(),
+                                 whole.model.named_parameters()):
+        # equal but for the summation order of the card's reductions
+        assert p.is_cuda
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=name)
+    codec = init_codec_params(build_codec(cfg.audio_encoder), torch.Generator().manual_seed(5))
+    final = rt.export_and_push(str(tmp_path / "whole"), str(tmp_path / "final"), cfg, codec)
+    pipe = ParlerTTSPipeline.from_pretrained(final)
+    saved = ck.load_state_dict(ck.get_last_checkpoint(str(tmp_path / "whole")))["params"]
+    for name, p in pipe.model.named_parameters():
+        assert p.is_cuda and torch.equal(p.cpu(), saved[name]), name
+
+
+# ------------------------------------------------------------ Encodec
+@pytest.mark.parametrize("causal", [True, False])
+def test_encodec_on_the_gpu_matches_the_cpu(cuda, causal):
+    """A small Encodec (16 kHz, ratios 4 x 4) on the card against the same
+    fp32 codec on the CPU (`chip_smoke.encodec_check`): latents and the
+    decode of the CPU's codes within 1e-4 (norm-relative), codes equal but
+    at the CPU's near-ties."""
+    import numpy as np
+
+    from chip_smoke import encodec_check
+    from parler_tts_tpu_torch.codec.encodec_model import EncodecCodecConfig
+    from parler_tts_tpu_torch.codec.registry import build_codec, init_codec_params
+
+    cfg = EncodecCodecConfig(sampling_rate=16000, num_filters=8, hidden_size=16,
+                             upsampling_ratios=(4, 4), codebook_size=64, codebook_dim=16,
+                             use_causal_conv=causal)
+    codec = init_codec_params(build_codec(cfg, cuda), torch.Generator(cuda).manual_seed(0))
+    clips = (np.random.default_rng(1).normal(size=(2, 16 * 301, 1)) * 0.2).astype(np.float32)
+    encodec_check(codec.eval(), clips, torch.cuda.get_device_name(0), "small Encodec")

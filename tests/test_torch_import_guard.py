@@ -1,7 +1,7 @@
 """The port stands alone: every module of `parler_tts_tpu_torch`, and
 `chip_smoke.py`, imports in a fresh interpreter where `jax`, `flax`,
-`safetensors`, `transformers` and the JAX package `parler_tts_tpu` cannot be
-imported (`sys.modules[name] = None` makes any import of them raise). A leak
+`optax`, `orbax`, `safetensors`, `transformers`, `datasets`, `wandb` and the
+JAX package `parler_tts_tpu` cannot be imported (`sys.modules[name] = None` makes any import of them raise). A leak
 then fails here on the CPU rather than on the machine with the card, which
 has none of them."""
 
@@ -13,7 +13,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "flax", "safetensors", "transformers", "parler_tts_tpu")
+BLOCKED = ("jax", "flax", "optax", "orbax", "safetensors", "transformers", "datasets", "wandb",
+           "parler_tts_tpu")
 
 
 def port_modules():
@@ -45,4 +46,10 @@ def test_imports_without_jax(target):
     if target == "package":
         assert {"parler_tts_tpu_torch.native", "parler_tts_tpu_torch.runtime.streamer",
                 "parler_tts_tpu_torch.runtime.generate",
-                "parler_tts_tpu_torch.runtime.speculative"} <= set(modules)
+                "parler_tts_tpu_torch.runtime.speculative",
+                "parler_tts_tpu_torch.codec.registry", "parler_tts_tpu_torch.codec.encodec_model",
+                "parler_tts_tpu_torch.training.run_training",
+                "parler_tts_tpu_torch.training.data", "parler_tts_tpu_torch.training.arguments",
+                "parler_tts_tpu_torch.training.checkpoints",
+                "parler_tts_tpu_torch.training.eval_metrics",
+                "parler_tts_tpu_torch.utils.logging_utils"} <= set(modules)

@@ -21,6 +21,7 @@ from parler_tts_tpu.models.t5_encoder import T5Encoder as JT5
 from parler_tts_tpu.ops.masks import causal_self_attention_bias, padding_cross_attention_bias
 from parler_tts_tpu_torch import config as tc
 from parler_tts_tpu_torch.codec.dac_model import ConvTranspose1d, DACModel
+from parler_tts_tpu_torch.codec.encodec_model import EncodecCodecConfig
 from parler_tts_tpu_torch.convert import load_jax_dac_params, load_jax_params
 from parler_tts_tpu_torch.models.decoder import DecoderCache, ParlerForCausalLM
 from parler_tts_tpu_torch.models.t5_encoder import T5Encoder
@@ -33,10 +34,12 @@ def port_config(cfg):
     if isinstance(cfg, jc.ParlerTTSConfig):
         return tc.ParlerTTSConfig(
             text_encoder=tc.T5Config(**d.pop("text_encoder")),
-            audio_encoder=tc.DACConfig(**d.pop("audio_encoder")),
+            audio_encoder=port_config(cfg.audio_encoder),
             decoder=tc.DecoderConfig(**d.pop("decoder")),
-            **d,
+            **{k: v for k, v in d.items() if k != "audio_encoder"},
         )
+    if getattr(cfg, "codec_type", None) == "encodec":
+        return EncodecCodecConfig(**d)
     return getattr(tc, type(cfg).__name__)(**d)
 
 

@@ -488,3 +488,118 @@ def test_layerdrop_is_a_select():
         got = dec(x, pos, self_attn_bias=None, cross_attn_bias=None, dropout_key=3)
         want = dec.layer_norm(x + dec.positions[pos])
     torch.testing.assert_close(got, want)
+
+
+# ------------------------------------------------- item 21b: dots and mu_dtype
+def test_remat_dots_gradients_match_jax_and_full_remat():
+    """remat_policy="dots" (the matrix products' outputs kept, the rest
+    recomputed) on the chunked route: every gradient leaf within 1e-4 of the
+    JAX package's "dots" gradients, and of the port's full remat to 1e-6."""
+    jm, params = jax_init(seed=21, use_chunked_attention=True, remat_layers=True,
+                          remat_policy="dots")
+    arrays = batch_np(seed=22)
+    want = flat(host(jax_loss_fn(jm)(params, JBatch(*map(jnp.asarray, arrays)),
+                                     jax.random.key(0))))
+    got = {}
+    for policy in (None, "dots"):
+        port = port_model(params, use_chunked_attention=True, remat_layers=True,
+                          remat_policy=policy)
+        tx = make_optimizer(learning_rate=0.0, warmup_steps=0)
+        make_train_step(port, tx)(TrainState.create(port, tx),
+                                  Batch(*map(torch.from_numpy, arrays)), 0)
+        got[policy] = port_grads(port)
+    assert got["dots"].keys() == want.keys()
+    for name, w in want.items():
+        assert norm_rel(got["dots"][name], w) <= GRAD_TOL, name
+        assert norm_rel(got["dots"][name], got[None][name]) <= 1e-6, name
+
+
+@pytest.mark.parametrize("route", [True, "pallas"], ids=["chunked", "k4"])
+def test_remat_dots_keeps_the_matrix_products(route):
+    """What the policy sees: a forward and backward under full remat runs
+    each decoder layer's non-batched products (`aten.mm`) that the backward
+    needs once more than under "dots", which keeps them; the batched products are recomputed
+    under both. A policy that kept nothing, or that never saw the
+    projections (`F.linear` on 3-D inputs reaches `aten.mm` through a
+    view), would fail the first count."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func] = self.ops.get(func, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    _, params = jax_init(seed=23)
+    arrays = batch_np(seed=24)
+    counts = {}
+    for policy in (None, "dots"):
+        port = port_model(params, use_chunked_attention=route, remat_layers=True,
+                          remat_policy=policy)
+        port.requires_grad_(True)
+        with Count() as mode:
+            logits, _ = port(*map(torch.from_numpy, arrays))
+            logits.sum().backward()
+        counts[policy] = mode.ops
+    mm = torch.ops.aten.mm.default
+    layers = CFG.decoder.num_hidden_layers
+    # q, k, v, out, cross q, cross out and fc1 are recomputed under full
+    # remat; fc2's output is not, as nothing in the backward reads it (the
+    # recompute stops once it has what the backward needs)
+    assert counts[None][mm] - counts["dots"][mm] == 7 * layers, (counts[None][mm],
+                                                                counts["dots"][mm])
+    bmm = torch.ops.aten.bmm.default
+    assert counts[None].get(bmm, 0) == counts["dots"].get(bmm, 0)
+
+
+def test_mu_dtype_bfloat16_matches_optax():
+    """make_optimizer(mu_dtype=torch.bfloat16) against optax's
+    `adamw(mu_dtype=jnp.bfloat16)` over 3 updates of gradients drawn from a
+    seed (lr 1e-2, warmup 0, the trained leaves clipped in step 2): the
+    first moments stay bf16 and equal optax's bit for bit but at rounding
+    ties (at most 1e-3 of a leaf's entries, each within one bf16 unit in
+    the last place), the second moments within 1e-6, the params within 1e-6
+    (relative) + 1e-5 x lr but at those ties (at most 1e-3 of the entries,
+    each within 1e-2 x lr: a first moment one bf16 unit off moves its
+    entry's update by up to 2^-8 of m / sqrt(v) x lr a step). Rounding b1 x mu with an fp32 b1, or keeping mu in
+    fp32 and rounding only the stored copy, fails these."""
+    rng = np.random.default_rng(25)
+    _, params = jax_init(seed=26)
+    kw = dict(learning_rate=1e-2, warmup_steps=0, max_grad_norm=0.5, weight_decay=0.1)
+    jtx = jax_optimizer(mu_dtype=jnp.bfloat16, **kw)
+    jopt = jtx.init(params)
+    port = port_model(params)
+    tx = make_optimizer(mu_dtype=torch.bfloat16, **kw)
+    state = TrainState.create(port, tx)
+    assert all(m.dtype == torch.bfloat16 for m in state.opt_state.mu.values())
+    assert all(v.dtype == torch.float32 for v in state.opt_state.nu.values())
+    jparams = params
+    for scale in (0.05, 3.0, 0.2):
+        grads = jax.tree.map(lambda x: (rng.normal(size=x.shape) * scale / x.size ** 0.5)
+                             .astype(np.float32), host(params))
+        updates, jopt = jtx.update(jax.tree.map(jnp.asarray, grads), jopt, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        tx.update(port, dict(port_model(grads).named_parameters()), state.opt_state)
+    adam = jopt.inner_states["train"].inner_state[1][0]
+    for moment, got_state in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
+        want = flat(host(getattr(adam, moment)))
+        got = flat(to_jax_tree(got_state.items()))
+        for name, g in got.items():
+            w = want[name].astype(np.float32)
+            if moment == "mu":
+                assert getattr(adam, moment)["decoder"]["lm_heads"].dtype == jnp.bfloat16
+                # the clip factors differ in fp32's last place (norms summed
+                # in another order), which can tip a bf16 rounding tie
+                off = g != w
+                assert off.mean() <= 1e-3, name
+                np.testing.assert_allclose(g[off], w[off], rtol=2.0 ** -7, err_msg=name)
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-12, err_msg=name)
+    got, want = flat(to_jax_tree(port.named_parameters())), flat(host(jparams))
+    for name, w in want.items():
+        diff, lr = np.abs(got[name] - w), kw["learning_rate"]
+        assert diff.max() <= 1e-2 * lr, name
+        assert (diff > 1e-6 * np.abs(w) + 1e-5 * lr).mean() <= 1e-3, name
