@@ -178,13 +178,45 @@ Builds the port's CUDA kernels with nvcc, then:
       codebooks served bf16 B=2 over 256 greedy columns (K1 24 a decode
       step), decoded to 32 kHz, saved in the native layout and served again
       from disk with equal parameters and columns.
+  (p, after m) parallelism: (p0) K1 against its plain version at the shapes
+      tensor and data parallelism give it (mini-v1 TP=2: H=8, B=2; large-v1
+      TP=2: H=12; the W=24 window at H=8; a DP=2 rank's row: B=1), fp32 and
+      bf16 within TOL, repeats bit for bit, a dropped last slot failing fp32
+      TOL, each timed by graph replay beside its plain version and SDPA with
+      the equal boolean mask; K2 at a DP rank's M=1 within `k2_close`; K4
+      forward, dq and dk/dv on both routes at H=8 B=2 and H=16 B=1 within
+      `k4_limits`; (p1) NCCL at world size 1 in this process:
+      `make_generate(mesh=make_mesh(1, 1))` over (b)'s request bit-identical
+      to (b)'s ids, and one train step over the mesh and under FSDP
+      bit-identical (loss, grad_norm, every parameter) to the step without a
+      mesh; (p2) two ranks of this script (`--phase-p-rank`) sharing the
+      card over gloo on CUDA tensors (NCCL refuses two ranks on one GPU):
+      DP=2 bf16 B=2 over 128 columns and TP=2 bf16 over 64 (cut from 860
+      for time) each equal to the single-process run up to its first parting
+      in a row, which must be a near-tie within 4 x the decode step's
+      largest logit move under that partition (measured here); TP=2 fp32
+      B=2 over 128 columns and TP=2 speculative fp32 W=24 B=1 equal to the
+      fp32 AR run but at near-ties of 2e-4, with fewer forwards than
+      columns; DP=2 int8 over K2 at M=1 with exact launch counts; one fp32
+      train step at dropout 0.1 under DP=2, TP=2 and FSDP=2 against the
+      single-process fp32 step: loss and grad_norm within this run's gaps
+      between its bf16 and fp32 steps, num_items exact, the sampled
+      parameters' updates parting on no larger a share than the bf16 and
+      fp32 steps', K4 48 / 24 / 24 a rank on the SIMT route; the CLI at
+      world 2 (`mesh_data=2`, fp32) over (n)'s features for 3 steps and a
+      gathered checkpoint, resumed at world 1 against an uninterrupted
+      world-1 run (losses within phase (i)'s bf16 gap, parameters as the
+      train steps'); decode steps/s, collectives a decode step, host ms a
+      collective, train ms and peak GiB a rank printed as two processes on
+      one card, not a scaling figure. A collective that gloo lacks for CUDA
+      tensors is named, and its check rests on the CPU tests.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
 line of kernel numbers (K1, K2 and K3 with their large-v1 numbers under
 `large_v1`, K1's window numbers under `window` and phase (m)'s runs under
-`speculative`, phase (n)'s under `training_cli` and phase (o)'s under
-`encodec`), the `nvidia-smi` name/power-limit line, and last
+`speculative`, phase (n)'s under `training_cli`, phase (o)'s under
+`encodec`, and phase (p)'s under `parallel` for K1, K2 and K4), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 there is no CUDA device, when the port is not beside this script, or when
 any check fails.
@@ -1215,7 +1247,8 @@ def k4_inputs(dev, dtype, b, tq, tk, h, h_kv, pad, dh=64, seed=0):
     k, v = (torch.randn(b, tk, h_kv, dh, generator=g, device=dev).to(dtype) for _ in range(2))
     do = torch.randn(b, tq, h, dh, generator=g, device=dev).to(dtype)
     mask = torch.ones(b, tk, dtype=torch.bool, device=dev)
-    mask[1, :pad] = False
+    if pad:
+        mask[1, :pad] = False
     return q, k, v, mask, do
 
 
@@ -1774,8 +1807,8 @@ def decode_prefix(model, dev, dtype, n_after):
                                             for x in request_ids(1))
     g = torch.Generator(device=dev).manual_seed(1)
     n_pre = MAX_LENGTH // 2
-    cols = torch.randint(0, 1024, (BATCH, dcfg.num_codebooks, n_pre + n_after), generator=g,
-                         device=dev)
+    cols = torch.randint(0, min(1024, dcfg.vocab_size), (BATCH, dcfg.num_codebooks,
+                                                         n_pre + n_after), generator=g, device=dev)
     kv_valid = torch.cat([prompt_mask.bool(),
                           torch.ones(BATCH, MAX_LENGTH, dtype=torch.bool, device=dev)], 1)
     pos = torch.arange(S_CACHE, device=dev)[None].expand(BATCH, -1)
@@ -1783,7 +1816,8 @@ def decode_prefix(model, dev, dtype, n_after):
     t = S_PROMPT + n_pre
     with torch.inference_mode():
         enc = model.encode_description(desc, desc_mask)
-        cache = DecoderCache.zeros(dcfg, BATCH, S_CACHE, enc.shape[1], dtype, dev)
+        cache = DecoderCache.zeros(dcfg, BATCH, S_CACHE, enc.shape[1], dtype, dev,
+                                   model.model_shards)
         cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc)
         pre = torch.cat([model.prompt_hidden(prompt),
                          model.decoder.embed_ids(cols[:, :, :n_pre])], dim=1)
@@ -3550,7 +3584,7 @@ def phase_n(dev, card, loss_gap, cfg=None, cli=None, batch_fn=None, tokenizer=st
                     stage1["seconds"]), eval_generation_s=gen["seconds"],
                 k4_per_step=run_a[-1]["k4_wgmma"], k1_eval_generation=gen["k1"],
                 eval_loss=[loss0, loss6], checkpoint_write_s=[w for _, w, _ in writes],
-                remat=runs)
+                remat=runs, cfg=cfg, args=(margs, dargs, targs), features=feats)
 
 
 # ------------------------------------------------------------ Encodec
@@ -3732,6 +3766,729 @@ def phase_o(dev, card, codec_cfg=None, decoder=None, columns=ENCODEC_COLUMNS):
     return dict(steps_per_s=steps / (t1 - t0), rtf=rtf, k1=k1)
 
 
+# ----------------------------------------------------------- parallelism
+# (p2)'s runs, cut for time: at TP=2 each of the 73 collectives of a decode step
+# goes through the host (gloo on CUDA tensors; 1.5-2.2 ms each on an H100 80GB
+# HBM3 at 700 W), and the whole script ran 1,058 s of its 1,200 with bf16 runs
+# of 128 / 256 columns and fp32 ones of 256
+P_FP32_COLUMNS = 128      # fp32 greedy TP=2 and speculative runs
+P_INT8_COLUMNS = 128      # int8 DP=2 run
+P_TP_COLUMNS, P_DP_COLUMNS = 64, 128  # bf16 greedy runs (phase (b): 860)
+P_WARM_COLUMNS = 16       # a warm-up run before each timed bf16 run (> 9 codebooks)
+P_WINDOW = 24
+P_TRAIN_LR = 1e-4         # (p1, p2) one train step at a constant lr (no warmup)
+P_SAMPLES = 4096          # (p2) sampled entries a leaf in the parameter comparisons
+P_RANKS_TIMEOUT_S = 540
+# a collective the gloo backend may lack for CUDA tensors: (p2) names it and the
+# check that needs it rests on the CPU tests (tests/test_torch_parallel_*.py)
+GLOO_LACKS = ("not supported", "unsupported", "does not support", "not implemented")
+
+
+def k1_sharded(dev, card, label, h, b, n_layers, w=None):
+    """K1 against its plain version at a tensor-parallel rank's head count
+    (fp32 and bf16 within TOL at the kernel's split count, a second call
+    bit for bit, a dropped last slot failing fp32 TOL), then timed in bf16
+    by CUDA-graph replay over the stacked cache beside its plain version
+    and SDPA. Returns the numbers for the kernels line."""
+    import torch.nn.functional as F
+
+    from parler_tts_tpu_torch.ops.flash_decode import (
+        flash_decode_attention,
+        flash_decode_attention_plain,
+        split_count,
+    )
+
+    dh, cols = 64, w or 1
+    g = torch.Generator(device=dev).manual_seed(h * 100 + b)
+    starts = torch.tensor([0, 3][:b], dtype=torch.int32, device=dev)
+    limit = S_CACHE - cols + 1
+    splits = split_count(b, h, S_CACHE, cols)
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        ck, cv = ((torch.randn(n_layers, b, S_CACHE, h * dh, generator=g, device=dev) * 0.3)
+                  .to(dtype) for _ in range(2))
+        shape = (b, h, dh) if w is None else (b, w, h, dh)
+        q = (torch.randn(shape, generator=g, device=dev) * 0.3).to(dtype)
+        for layer in (0, n_layers - 1):
+            got = flash_decode_attention(q, ck, cv, starts, limit, layer=layer)
+            want = flash_decode_attention_plain(q, ck, cv, starts, limit, layer=layer,
+                                                splits=splits)
+            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+            if not torch.equal(flash_decode_attention(q, ck, cv, starts, limit, layer=layer),
+                               got):
+                raise AssertionError(f"K1 {label}: a second call gave other bits")
+            max_err = max(max_err, (got.float() - want.float()).abs().max().item())
+            if dtype == torch.float32 and layer == 0:
+                short = flash_decode_attention_plain(q, ck, cv, starts, limit - 1, layer=layer,
+                                                     splits=splits)
+                if torch.allclose(got, short, **TOL[dtype]):
+                    raise AssertionError(f"K1 {label}: fp32 TOL misses a dropped last slot")
+        if dtype == torch.bfloat16:
+            def k1(i):
+                return flash_decode_attention(q, ck, cv, starts, limit, layer=i % n_layers)
+
+            kernel_ms = graph_ms(k1, n_layers)
+            plain_ms = cuda_ms(lambda i: flash_decode_attention_plain(
+                q, ck, cv, starts, limit, layer=i % n_layers, splits=splits), iters=48)
+            # SDPA over the same slots: column j of row r sees [start_r, limit + j)
+            q4 = q.view(b, h, 1, dh) if w is None else q.transpose(1, 2)
+            top = limit + cols - 1
+            kv = [(ck[i].view(b, S_CACHE, h, dh)[:, :top].transpose(1, 2),
+                   cv[i].view(b, S_CACHE, h, dh)[:, :top].transpose(1, 2))
+                  for i in range(n_layers)]
+            slot = torch.arange(top, device=dev)
+            mask = ((slot[None, None, :] >= starts[:, None, None])
+                    & (slot[None, None, :] < limit + torch.arange(cols, device=dev)[None, :, None]))
+            library_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+                q4, *kv[i % n_layers], attn_mask=mask[:, None], scale=1.0), n_layers)
+            slots = sum(limit + cols - 1 - int(s) for s in starts.tolist())
+            bound_ms, bound_by = bound(2 * b * cols * h * dh * 2 + 2 * slots * h * dh * 2,
+                                       4 * h * dh * slots * cols, BF16_OPS_PER_S)
+        del ck, cv
+    print(f"  K1 {label}: B={b}, H={h}, W={cols}, {S_CACHE} slots, {splits} splits: max_abs_err "
+          f"{max_err:.3e} (fp32 and bf16 within TOL, repeats bit for bit, a dropped last slot "
+          f"fails fp32 TOL); bf16 {kernel_ms * 1e3:.2f} us (graph replay), plain "
+          f"{plain_ms * 1e3:.2f} us, SDPA "
+          + f"{library_ms * 1e3:.2f} us (boolean mask), bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
+    return dict(shape=dict(b=b, h=h, w=cols, slots=S_CACHE, splits=splits), max_abs_err=max_err,
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_p0(dev, card):
+    """K1, K2 and K4 at the shapes parallelism gives them."""
+    import parler_tts_tpu_torch.ops.flash_attention as fa
+    from parler_tts_tpu_torch.utils.quantize import quantize_kernel_torch
+
+    k1 = {
+        "mini_v1_tp2": k1_sharded(dev, card, "mini-v1 TP=2", 8, BATCH, 24),
+        "large_v1_tp2": k1_sharded(dev, card, "large-v1 TP=2", 12, BATCH, 30),
+        "mini_v1_tp2_window": k1_sharded(dev, card, "mini-v1 TP=2 W=24", 8, 1, 24, w=P_WINDOW),
+        "mini_v1_dp2": k1_sharded(dev, card, "mini-v1 DP=2 (a rank's row)", 16, 1, 24),
+    }
+    g = torch.Generator(device=dev).manual_seed(7)
+    k2 = {}
+    for k, n in ((1024, 1024), (1024, 4096), (4096, 1024)):
+        w, s = quantize_kernel_torch(torch.randn(k, n, generator=g, device=dev) * 0.02)
+        x = torch.randn(1, k, generator=g, device=dev).to(torch.bfloat16)
+        err, slices, _ = k2_check(x, w, s, f"K2 DP=2 M=1 {k}x{n}")
+        k2[f"{k}x{n}"] = dict(m=1, max_abs_err=err, slices=slices)
+    print(f"  K2 at a DP=2 rank's M=1 (int8 serving's K x N): "
+          + ", ".join(f"{kn} error {v['max_abs_err']:.3e} over {v['slices']} slices"
+                      for kn, v in k2.items()) + " within k2_close, repeats bit for bit, a "
+          f"dropped K slice caught ({card})")
+    t = T_PROMPT_TRAIN + T_FRAMES_TRAIN
+    k4, fails = {}, []
+    for label, b, h, pad in (("TP=2 rank", 2, 8, 5), ("DP=2 rank", 1, 16, 0)):
+        for dtype in (torch.bfloat16, torch.float32):
+            route, errs, failure = k4_case_check(fa, f"mini-v1 {label}", dtype, b, t, t, h, h,
+                                                 True, 0, pad, 64, dev)
+            k4[f"{label.split()[0]}_{route}"] = dict(b=b, h=h, t=t, max_abs_err=errs)
+            if failure:
+                fails.append(failure)
+    if fails:
+        raise AssertionError(f"K4 at the sharded shapes: {fails}")
+    return dict(k1=k1, k2=k2, k4=k4)
+
+
+def p_train_model(dev, dtype, cfg=None):
+    """phase (i)'s trainer (mini-v1, fp32 parameters, K4, remat) at `dtype`
+    compute, from seed 0, with the optimizer of the (p) steps."""
+    from parler_tts_tpu_torch.config import mini_v1_config
+    from parler_tts_tpu_torch.models.layers import init_weights
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.training import TrainState, make_optimizer
+
+    model = ParlerTTS(cfg or mini_v1_config(), device=dev, dtype=dtype,
+                      param_dtype=torch.float32, use_chunked_attention="pallas",
+                      remat_layers=True)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    tx = make_optimizer(learning_rate=P_TRAIN_LR, warmup_steps=0)
+    return model, tx, TrainState.create(model, tx)
+
+
+def phase_p1(dev, card, source, out_b, backend="nccl"):
+    """NCCL at world size 1: `make_generate(mesh=)` over phase (b)'s request
+    and one train step over a mesh and under FSDP, each bit-identical to the
+    run without a mesh (`backend` is for a rehearsal on the CPU)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from parler_tts_tpu_torch.parallel import make_mesh
+    from parler_tts_tpu_torch.runtime.generate import make_generate
+    from parler_tts_tpu_torch.training import make_train_step
+    from parler_tts_tpu_torch.training.train_state import shard_train_state
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
+        t0 = time.perf_counter()
+        out = make_generate(source.model, source.generation_config, torch.bfloat16,
+                            mesh=mesh)(*request)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        same_gen = torch.equal(out.delayed_ids, out_b.delayed_ids) and out.steps == out_b.steps
+        print(f"  NCCL world 1: make_generate(mesh=make_mesh(1, 1)) over phase (b)'s request, "
+              f"{out.steps} columns in {gen_s:.2f} s: delayed ids bit-identical to phase (b)'s: "
+              f"{same_gen}")
+        batch = train_batch(dev)
+        results = {}
+        for mode in ("no mesh", "mesh", "fsdp"):
+            model, tx, state = p_train_model(dev, torch.bfloat16)
+            m = None
+            if mode != "no mesh":
+                m = mesh
+                shard_train_state(state, mesh, fsdp=mode == "fsdp")
+            _, metrics = make_train_step(model, tx, mesh=m)(state, batch, 0)
+            torch.cuda.synchronize()
+            params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            if mode == "no mesh":
+                results[mode] = (float(metrics["loss"]), float(metrics["grad_norm"]), params)
+            else:
+                want = results["no mesh"]
+                same = (float(metrics["loss"]) == want[0] and float(metrics["grad_norm"]) == want[1]
+                        and all(torch.equal(p, want[2][n]) for n, p in params.items()))
+                results[mode] = same
+                print(f"  NCCL world 1: one train step {mode}: loss {float(metrics['loss']):.6f}, "
+                      f"grad_norm {float(metrics['grad_norm']):.6f}, loss, grad_norm and every "
+                      f"parameter bit-identical to the step without a mesh: {same}")
+            del model, tx, state, params
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if not (same_gen and results["mesh"] and results["fsdp"]):
+        raise AssertionError(f"NCCL world 1 is not the run without a mesh: generate {same_gen}, "
+                             f"train {results['mesh']}, fsdp {results['fsdp']}")
+    del results
+    torch.cuda.empty_cache()
+
+
+def sampled_entries(named, positions):
+    """{name: the flat entries at `positions[name]`} of (name, tensor) pairs."""
+    return {n: t.detach().reshape(-1)[positions[n].to(t.device)].float().cpu()
+            for n, t in named if n in positions}
+
+
+def sample_positions(model):
+    """P_SAMPLES seeded flat positions a parameter of `model` (all of a small one)."""
+    g = torch.Generator().manual_seed(5)
+    out = {}
+    for n, p in model.named_parameters():
+        out[n] = (torch.arange(p.numel()) if p.numel() <= P_SAMPLES
+                  else torch.randint(0, p.numel(), (P_SAMPLES,), generator=g))
+    return out
+
+
+def update_flips(a, b, lr):
+    """(share of sampled entries whose values differ by more than lr / 2,
+    largest difference): two AdamW steps from one point differ there by an
+    update's sign."""
+    n = flips = 0
+    worst = 0.0
+    for name, x in a.items():
+        d = (x - b[name]).abs()
+        n, flips = n + d.numel(), flips + int((d > lr / 2).sum())
+        worst = max(worst, float(d.max()))
+    return flips / n, worst
+
+
+def phase_p2_refs(dev, card, source, out_b):
+    """The main process's references for (p2): the fp32 AR run over 256
+    columns, the bf16 decode-step logit gaps of DP (a row alone) and of
+    the whole model, and one single-process train step in bf16 and fp32."""
+    import dataclasses
+
+    from parler_tts_tpu_torch.models.decoder import DecoderCache
+    from parler_tts_tpu_torch.runtime.generate import make_generate
+    from parler_tts_tpu_torch.training import Batch, make_train_step
+
+    request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
+    gen32 = dataclasses.replace(source.generation_config, max_length=P_FP32_COLUMNS,
+                                min_new_tokens=P_FP32_COLUMNS)
+    fp32 = fp32_copy(source.model, dev)
+    with torch.inference_mode():
+        ar32 = make_generate(fp32, gen32, torch.float32)(*request).delayed_ids
+    ar16 = {}
+    for cols in (P_TP_COLUMNS, P_DP_COLUMNS):
+        g = dataclasses.replace(source.generation_config, max_length=cols, min_new_tokens=cols)
+        ar16[cols] = (g, make_generate(source.model, g, torch.bfloat16)(*request).delayed_ids)
+
+    # DP: a rank's decode step over its row alone (M = 1) against the B=2 step
+    model = source.model
+    cache, pos, starts, t, cols = decode_prefix(model, dev, torch.bfloat16, 1)
+    rows = [DecoderCache(cache.self_k[:, r:r + 1].clone(), cache.self_v[:, r:r + 1].clone(),
+                         cache.cross_k[:, r:r + 1], cache.cross_v[:, r:r + 1], cache.index)
+            for r in range(BATCH)]
+    with torch.inference_mode():
+        both = model.decoder(model.decoder.embed_ids(cols), pos[:, t:t + 1],
+                             self_attn_bias=None, cross_attn_bias=None, cache=cache,
+                             decode_lengths=(starts, t + 1))
+        dp_gap = max(float((model.decoder(
+            model.decoder.embed_ids(cols[r:r + 1]), pos[r:r + 1, t:t + 1], self_attn_bias=None,
+            cross_attn_bias=None, cache=rows[r], decode_lengths=(starts[r:r + 1], t + 1))
+            - both[r:r + 1]).abs().max()) for r in range(BATCH))
+    whole = decode_step_logits(model, dev, torch.bfloat16)
+    del fp32, cache, rows
+    torch.cuda.empty_cache()
+
+    # one train step at dropout 0.1, in bf16 and in fp32 compute
+    batch, train = train_batch(dev), {}
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        model_t, tx, state = p_train_model(dev, dtype, p_train_config())
+        positions = sample_positions(model_t)
+        _, metrics = make_train_step(model_t, tx)(state, Batch(*batch), 0)
+        train[label] = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                            num_items=float(metrics["num_items"]),
+                            params=sampled_entries(model_t.named_parameters(), positions))
+        del model_t, tx, state
+        torch.cuda.empty_cache()
+    flips, worst = update_flips(train["fp32"]["params"], train["bf16"]["params"], P_TRAIN_LR)
+    train["flips"] = flips
+    print(f"  references: one mini-v1 train step at dropout 0.1, bf16 loss "
+          f"{train['bf16']['loss']:.6f} grad_norm {train['bf16']['grad_norm']:.6f}, fp32 loss "
+          f"{train['fp32']['loss']:.6f} grad_norm {train['fp32']['grad_norm']:.6f}; the bf16 "
+          f"and fp32 steps' updates part on {flips:.3%} of the sampled entries (largest "
+          f"{worst:.2e}); a bf16 decode step of one row alone moves the logits by "
+          f"{dp_gap:.3e} ({card})")
+    return dict(ar32=ar32, ar16=ar16, dp_gap=dp_gap, whole_logits=whole.float().cpu(),
+                train=train, positions=positions)
+
+
+def p_train_config():
+    import dataclasses
+
+    from parler_tts_tpu_torch.config import mini_v1_config
+
+    cfg = mini_v1_config()
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, dropout=0.1))
+
+
+def launch_ranks(payload, card):
+    """Two ranks of `chip_smoke.py --phase-p-rank` sharing the card over gloo
+    (LOCAL_RANK 0 for both); their results, in rank order. Each rank's
+    output is printed; a rank that fails, or a pair that outlives
+    P_RANKS_TIMEOUT_S, fails the phase (the ranks are killed)."""
+    import os
+    import pickle
+    import socket
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
+            pickle.dump(payload, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = str(s.getsockname()[1])
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--phase-p-rank", tmp],
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=port),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        deadline, logs = time.monotonic() + P_RANKS_TIMEOUT_S, []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise AssertionError(f"(p2) ranks did not finish in {P_RANKS_TIMEOUT_S} s")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines():
+                if r == 0 or p.returncode != 0 or "rank 1" in line:
+                    print(f"  [rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"(p2) rank {r} exited {p.returncode}")
+        out = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"result-{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def phase_p_rank(tmp):
+    """One of (p2)'s two ranks on the shared card (gloo, CUDA tensors)."""
+    import dataclasses
+    import os
+    import pickle
+
+    from parler_tts_tpu_torch.config import mini_v1_config
+    from parler_tts_tpu_torch.convert import tensor_tree
+    from parler_tts_tpu_torch.models.layers import init_weights
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.ops.flash_attention import flash_attention
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul
+    from parler_tts_tpu_torch.parallel import collectives, make_mesh, maybe_init_distributed
+    from parler_tts_tpu_torch.parallel.mesh import gather_full, shard_params
+    from parler_tts_tpu_torch.runtime.generate import make_generate
+    from parler_tts_tpu_torch.runtime.speculative import make_generate_speculative
+    from parler_tts_tpu_torch.training import Batch, make_train_step
+    from parler_tts_tpu_torch.training import run_training as rt
+    from parler_tts_tpu_torch.training.train_state import shard_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(tmp, "payload.pkl"), "rb") as f:
+        payload = pickle.load(f)
+    dev = torch.device(payload["device"])  # LOCAL_RANK 0 on both ranks: the one card
+    rank, _ = maybe_init_distributed(backend="gloo", device=dev.type)
+    res = {"lacks": []}
+    say = (lambda *a: print(*a, flush=True)) if rank == 0 else (lambda *a: None)
+    request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
+    gen = payload["gen"]
+    cfg = mini_v1_config()
+    n_layers = cfg.decoder.num_hidden_layers
+
+    def served(fn, args, columns):
+        collectives.STATS.update(calls=0, seconds=0.0)
+        flash_decode_attention.launches = quant_matmul.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        steps = columns - 2
+        return out, dict(seconds=s, steps_per_s=steps / s, k1=flash_decode_attention.launches,
+                         k1_want=n_layers * steps, k2=quant_matmul.launches,
+                         collectives_per_step=collectives.STATS["calls"] / steps,
+                         host_ms_per_collective=(collectives.STATS["seconds"]
+                                                 / max(collectives.STATS["calls"], 1) * 1e3))
+
+    def serve_modes(model, mesh, label, columns):
+        warm = dataclasses.replace(gen, max_length=P_WARM_COLUMNS, min_new_tokens=P_WARM_COLUMNS)
+        make_generate(model, warm, torch.bfloat16, mesh=mesh)(*request)
+        g = dataclasses.replace(gen, max_length=columns, min_new_tokens=columns)
+        out, num = served(make_generate(model, g, torch.bfloat16, mesh=mesh), request, columns)
+        say(f"{label} bf16 B=2 over {columns} columns: {num['steps_per_s']:.1f} decode "
+            f"steps/s, K1 {num['k1']} launches on this rank (24 x {columns - 2}: "
+            f"{num['k1'] == num['k1_want']}), {num['collectives_per_step']:.1f} collectives a "
+            f"decode step, {num['host_ms_per_collective']:.3f} host ms each")
+        return out.delayed_ids.cpu(), num
+
+    # ---- DP=2: each rank one row of (b)'s request, the whole bf16 model
+    model = ParlerTTS(cfg, device=dev, dtype=torch.bfloat16)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    dp = make_mesh(2, 1, device=dev)
+    res["dp2_bf16"] = serve_modes(model, dp, "DP=2", P_DP_COLUMNS)
+    # ---- TP=2 fp32: greedy B=2 and speculative W=24 B=1 (row 0)
+    tp = make_mesh(1, 2, device=dev)
+    fp32 = ParlerTTS(cfg, device=dev, dtype=torch.float32)
+    fp32_tree = tensor_tree(model)
+    shard_params(fp32, tp)
+    from parler_tts_tpu_torch.convert import load_jax_params
+
+    load_jax_params(fp32, fp32_tree)
+    del fp32_tree
+    gen32 = dataclasses.replace(gen, max_length=P_FP32_COLUMNS, min_new_tokens=P_FP32_COLUMNS)
+    out, num = served(make_generate(fp32, gen32, torch.float32, mesh=tp), request,
+                      P_FP32_COLUMNS)
+    res["tp2_fp32"] = (out.delayed_ids.cpu(), num)
+    say(f"TP=2 fp32 B=2 over {P_FP32_COLUMNS} columns: {num['steps_per_s']:.1f} decode steps/s, "
+        f"K1 {num['k1']} (want {num['k1_want']})")
+    spec = make_generate_speculative(fp32, gen32, window=P_WINDOW, cache_dtype=torch.float32,
+                                     mesh=tp)
+    (out, stats), num = served(spec, [x[:1] for x in request], P_FP32_COLUMNS)
+    res["tp2_spec_fp32"] = (out.delayed_ids.cpu(), num, tuple(stats))
+    say(f"TP=2 speculative fp32 W={P_WINDOW} B=1 over {P_FP32_COLUMNS} columns: {stats}, "
+        f"K1 {num['k1']} = 24 x (forwards + frozen): "
+        f"{num['k1'] == n_layers * (stats.forwards + stats.frozen)}")
+    del fp32, spec
+    # ---- TP=2 bf16 over (b)'s request, and its decode-step logits
+    shard_params(model, tp)
+    res["tp2_bf16"] = serve_modes(model, tp, "TP=2", P_TP_COLUMNS)
+    logits = decode_step_logits(model, dev, torch.bfloat16)
+    res["tp2_logits"] = logits.float().cpu()
+    del model
+    torch.cuda.empty_cache()
+    # ---- K2 under DP: int8 weights, each rank one row over 256 columns
+    q8 = ParlerTTS(cfg, device=dev, dtype=torch.bfloat16, weight_quant=True)
+    init_weights(q8, torch.Generator(device=dev).manual_seed(0))
+    g8 = dataclasses.replace(gen, max_length=P_INT8_COLUMNS, min_new_tokens=P_INT8_COLUMNS)
+    out, num = served(make_generate(q8, g8, torch.bfloat16, mesh=dp), request, P_INT8_COLUMNS)
+    steps = P_INT8_COLUMNS - 2
+    num["k2_want"] = 8 * n_layers * (steps + 1) + 2 * n_layers
+    res["dp2_int8"] = (out.delayed_ids.cpu(), num)
+    say(f"DP=2 int8 B=2 over {P_INT8_COLUMNS} columns: K2 {num['k2']} launches on this rank "
+        f"at M=1 (want {num['k2_want']}), K1 {num['k1']} (want {num['k1_want']})")
+    del q8
+    torch.cuda.empty_cache()
+
+    # ---- one fp32 train step per mode at dropout 0.1 over phase (i)'s batch (K4
+    # on its SIMT route): TP's partial sums round otherwise than one process's,
+    # so bf16 steps would differ by bf16 noise, which fp32 steps measure
+    batch = train_batch(dev)
+    res["train"] = {}
+    for mode, shape, fsdp in (("DP=2", (2, 1), False), ("TP=2", (1, 2), False),
+                              ("FSDP=2", (2, 1), True)):
+        mesh = make_mesh(*shape, device=dev)
+        tmodel, tx, state = p_train_model(dev, torch.float32, p_train_config())
+        positions = sample_positions(tmodel)
+        try:
+            shard_train_state(state, mesh, fsdp=fsdp)
+            rows = slice(mesh.data.rank * BATCH // mesh.data.size,
+                         (mesh.data.rank + 1) * BATCH // mesh.data.size)
+            for key in flash_attention.launches:
+                flash_attention.launches[key] = flash_attention.launches_wgmma[key] = 0
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = make_train_step(tmodel, tx, mesh=mesh)(
+                state, Batch(*(x[rows] for x in batch)), 0)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            specs = tmodel.shard_specs
+            params = sampled_entries(((n, gather_full(p.detach(), specs[n], mesh))
+                                      for n, p in tmodel.named_parameters()), positions)
+        except RuntimeError as e:
+            if not any(x in str(e) for x in GLOO_LACKS):
+                raise
+            res["lacks"].append(f"{mode}: {str(e).splitlines()[0]}")
+            say(f"{mode}: gloo lacks a collective for CUDA tensors: {str(e).splitlines()[0]}")
+            del tmodel, tx, state
+            torch.cuda.empty_cache()
+            continue
+        res["train"][mode] = dict(loss=float(metrics["loss"]),
+                                  grad_norm=float(metrics["grad_norm"]),
+                                  num_items=float(metrics["num_items"]), ms=ms, peak_gib=peak,
+                                  k4=dict(flash_attention.launches),
+                                  k4_wgmma=dict(flash_attention.launches_wgmma),
+                                  params=params if rank == 0 else None)
+        say(f"{mode} train step: loss {float(metrics['loss']):.6f}, grad_norm "
+            f"{float(metrics['grad_norm']):.6f}, {ms:.1f} ms, peak {peak:.2f} GiB on this "
+            f"rank, K4 {dict(flash_attention.launches)} on this rank")
+        del tmodel, tx, state, params
+        torch.cuda.empty_cache()
+
+    # ---- the CLI at world 2 (mesh_data=2) over phase (n)'s features, fp32: 3
+    # steps and a checkpoint at step 3
+    margs, dargs, targs = payload["cli_args"]
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+
+    cli_model = ParlerTTSPipeline.from_random(payload["cli_cfg"], seed=0, device=dev).model
+    losses = []
+    log = rt.log_metric
+
+    def record(tracker, metrics, *a, prefix="train", **k):
+        if prefix == "train":
+            losses.append(float(metrics["loss"]))
+        return log(tracker, metrics, *a, prefix=prefix, **k)
+
+    rt.log_metric = record
+    t0 = time.perf_counter()
+    try:
+        _, step = rt.run_training(margs, dargs, targs, cli_model, payload["cli_features"],
+                                  device=dev)
+        res["cli"] = dict(losses=losses, step=step, seconds=time.perf_counter() - t0)
+        say(f"CLI at world 2 (mesh_data=2): {step} steps, losses {losses}, "
+            f"{time.perf_counter() - t0:.1f} s with the checkpoint")
+    except RuntimeError as e:
+        if not any(x in str(e) for x in GLOO_LACKS):
+            raise
+        res["lacks"].append(f"CLI: {str(e).splitlines()[0]}")
+    with open(os.path.join(tmp, f"result-{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_p(dev, card, source, out_b, loss_gap, cli):
+    """(p): parallelism on the card. Returns the `parallel` entries of K1,
+    K2 and K4 for the kernels line."""
+    import copy
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from parler_tts_tpu_torch.runtime.generate import make_generate
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
+    from parler_tts_tpu_torch.training import run_training as rt
+    from parler_tts_tpu_torch.training.checkpoints import get_last_checkpoint
+
+    fails = []
+
+    def need(ok, what):
+        if not ok:
+            fails.append(what)
+        return ok
+
+    t0 = time.perf_counter()
+    p0 = phase_p0(dev, card)
+    print(f"  (p0) kernels at the sharded shapes: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_p1(dev, card, source, out_b)
+    print(f"  (p1) NCCL at world size 1: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    refs = phase_p2_refs(dev, card, source, out_b)
+    cfg_n, (margs, dargs, targs), feats = cli["cfg"], cli["args"], cli["features"]
+    root = tempfile.mkdtemp()
+    try:
+        lr = targs.learning_rate
+        # fp32, so that world 2's summation order is all that parts it from world 1
+        w2 = dataclasses.replace(targs, output_dir=os.path.join(root, "w2"), max_steps=3,
+                                 save_steps=3, save_total_limit=None, eval_steps=100,
+                                 mesh_data=2, dtype="float32")
+        payload = dict(device=str(dev), gen=source.generation_config, cli_cfg=cfg_n,
+                       cli_args=(margs, dargs, w2), cli_features=feats["train"])
+        ranks = launch_ranks(payload, card)
+        print(f"  (p2) two ranks on the shared card: {time.perf_counter() - t0:.2f} s")
+        r0, r1 = ranks
+        for lack in r0["lacks"] + r1["lacks"]:
+            print(f"  (p2) gloo lacks a collective for CUDA tensors, the check rests on the "
+                  f"CPU tests: {lack}")
+
+        # generation: every rank returns the global ids
+        for key in ("dp2_bf16", "tp2_bf16", "tp2_fp32", "tp2_spec_fp32", "dp2_int8"):
+            need(torch.equal(r0[key][0], r1[key][0]), f"{key}: the ranks' ids differ")
+            for r in (r0, r1):
+                num = r[key][1]
+                need(num["k1"] == (n := num["k1_want"]) or key == "tp2_spec_fp32",
+                     f"{key}: K1 {num['k1']} launches on a rank, want {n}")
+        tp_gap = float((r0["tp2_logits"] - refs["whole_logits"]).abs().max())
+        request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
+        for key, gap, cols in (("tp2_bf16", tp_gap, P_TP_COLUMNS),
+                               ("dp2_bf16", refs["dp_gap"], P_DP_COLUMNS)):
+            g, want = refs["ar16"][cols]
+            partings = first_partings(f"{key} vs one process", r0[key][0].to(dev), want, [0, 1])
+            near_ties(f"{key} vs one process", partings,
+                      lambda g=g: make_generate(source.model, g, torch.bfloat16)(*request),
+                      want, need, tie=4 * gap, top_two=False)
+            print(f"    {key}: bf16 near-tie bound 4 x {gap:.3e} (the decode step's largest "
+                  f"logit move under this partition, this run)")
+        fp32_model = fp32_copy(source.model, dev)
+        gen32 = dataclasses.replace(source.generation_config, max_length=P_FP32_COLUMNS,
+                                    min_new_tokens=P_FP32_COLUMNS)
+        pipe32 = ParlerTTSPipeline(fp32_model, source.dac, gen32, cache_dtype=torch.float32,
+                                   device=dev)
+        for key, rows in (("tp2_fp32", [0, 1]), ("tp2_spec_fp32", [0])):
+            got = r0[key][0].to(dev)
+            partings = first_partings(f"{key} vs the fp32 AR run", got, refs["ar32"], rows)
+            near_ties(f"{key} vs the fp32 AR run", partings,
+                      lambda: pipe32.generate_codes(*request_ids(0), seed=0), refs["ar32"],
+                      need)
+        forwards, columns, frozen = r0["tp2_spec_fp32"][2]
+        need(0 < forwards < columns, f"speculative TP=2: {forwards} forwards, {columns} columns")
+        del fp32_model, pipe32
+        torch.cuda.empty_cache()
+        for r in (r0, r1):
+            num = r["dp2_int8"][1]
+            need(num["k2"] == num["k2_want"], f"DP=2 int8: K2 {num['k2']}, want {num['k2_want']}")
+
+        # fp32 train steps against the single-process fp32 step, within this run's
+        # gaps between its bf16 and fp32 steps
+        t_ref = refs["train"]
+        one = t_ref["fp32"]
+        loss_tol = abs(t_ref["fp32"]["loss"] - t_ref["bf16"]["loss"])
+        norm_tol = abs(t_ref["fp32"]["grad_norm"] - t_ref["bf16"]["grad_norm"])
+        n_train = p_train_config().decoder.num_hidden_layers
+        k4_want = {"fwd": 2 * n_train, "dq": n_train, "dkv": n_train}
+        train_out = {}
+        for mode, m0 in r0["train"].items():
+            m1 = r1["train"][mode]
+            flips, worst = update_flips(m0["params"], one["params"], P_TRAIN_LR)
+            ok = [abs(m["loss"] - one["loss"]) <= loss_tol for m in (m0, m1)]
+            ok += [abs(m["grad_norm"] - one["grad_norm"]) <= norm_tol for m in (m0, m1)]
+            ok += [m["num_items"] == one["num_items"] for m in (m0, m1)]
+            ok += [flips <= max(t_ref["flips"], 1e-4), worst <= 2 * P_TRAIN_LR * 1.01]
+            ok += [m["k4"] == k4_want and not any(m["k4_wgmma"].values()) for m in (m0, m1)]
+            need(all(ok), f"{mode} train step: checks {ok}")
+            print(f"  {mode} fp32 train step: loss {m0['loss']:.6f} / {m1['loss']:.6f} (ranks) "
+                  f"vs {one['loss']:.6f}, within the bf16-fp32 gap {loss_tol:.3e}; "
+                  f"grad_norm {m0['grad_norm']:.6f} vs {one['grad_norm']:.6f} within "
+                  f"{norm_tol:.3e}; num_items {m0['num_items']:.0f}; updates part from the "
+                  f"single step's on {flips:.3%} of sampled entries (limit "
+                  f"{max(t_ref['flips'], 1e-4):.3%}, the bf16-fp32 steps' share), largest "
+                  f"{worst:.2e}; {m0['ms']:.1f} ms a step, peak {m0['peak_gib']:.2f} / "
+                  f"{m1['peak_gib']:.2f} GiB a rank; K4 {m0['k4']} a rank on the SIMT route; "
+                  f"all {all(ok)} "
+                  f"(two processes on one card, gloo through the host) ({card})")
+            train_out[mode] = dict(ms=m0["ms"], peak_gib=[m0["peak_gib"], m1["peak_gib"]],
+                                   k4=m0["k4"])
+
+        # the CLI: world 2's checkpoint resumed at world 1 against world 1 uninterrupted
+        cli_out = None
+        if "cli" in r0:
+            w1 = dataclasses.replace(w2, mesh_data=None, max_steps=4, save_steps=100,
+                                     per_device_train_batch_size=2 * w2.per_device_train_batch_size)
+            base = ParlerTTSPipeline.from_random(cfg_n, seed=0, device=dev).model
+            losses = []
+            log = rt.log_metric
+
+            def record(tracker, metrics, *a, prefix="train", **k):
+                if prefix == "train":
+                    losses.append(float(metrics["loss"]))
+                return log(tracker, metrics, *a, prefix=prefix, **k)
+
+            rt.log_metric = record
+            try:
+                state_a, _ = rt.run_training(margs, dargs, dataclasses.replace(
+                    w1, output_dir=os.path.join(root, "w1")), copy.deepcopy(base),
+                    feats["train"], device=dev)
+                run_a = losses[:]
+                params_a = sampled_entries(state_a.model.named_parameters(),
+                                           sample_positions(state_a.model))
+                del state_a
+                shutil.rmtree(os.path.join(root, "w1"))
+                torch.cuda.empty_cache()
+                losses.clear()
+                state_r, step_r = rt.run_training(margs, dargs, dataclasses.replace(
+                    w1, output_dir=os.path.join(root, "resumed"),
+                    resume_from_checkpoint=get_last_checkpoint(w2.output_dir)),
+                    copy.deepcopy(base), feats["train"], device=dev)
+                run_r = losses[:]
+                params_r = sampled_entries(state_r.model.named_parameters(),
+                                           sample_positions(state_r.model))
+                del state_r, base
+                torch.cuda.empty_cache()
+            finally:
+                rt.log_metric = log
+            flips, worst = update_flips(params_r, params_a, lr)
+            w2_losses = r0["cli"]["losses"]
+            gaps = [abs(a - b) for a, b in zip(w2_losses + run_r, run_a)]
+            ok = [len(w2_losses) == 3 and len(run_r) == 1 and step_r == 4,
+                  max(gaps) <= loss_gap, flips <= max(refs["train"]["flips"], 1e-4),
+                  worst <= 2 * lr * 1.01]
+            need(all(ok), f"CLI world 2 -> world 1: checks {ok}")
+            print(f"  CLI mesh_data=2: losses {w2_losses} at world 2, then {run_r} resumed at "
+                  f"world 1 from its step-3 checkpoint, against {run_a} uninterrupted at world "
+                  f"1: largest gap {max(gaps):.3e} within phase (i)'s bf16 gap {loss_gap:.3e}; "
+                  f"parameters after step 4 part on {flips:.3%} of sampled entries, largest "
+                  f"{worst:.2e} ({r0['cli']['seconds']:.1f} s at world 2) ({card})")
+            cli_out = dict(world2_losses=w2_losses, resumed_losses=run_r, world1_losses=run_a,
+                           seconds=r0["cli"]["seconds"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if fails:
+        raise AssertionError(f"phase p: {fails}")
+    rate = {k: r0[k][1]["steps_per_s"] for k in ("dp2_bf16", "tp2_bf16")}
+    coll = {k: (r0[k][1]["collectives_per_step"], r0[k][1]["host_ms_per_collective"])
+            for k in ("dp2_bf16", "tp2_bf16")}
+    print(f"  shared card, two processes, gloo through the host (not a scaling figure): "
+          f"TP=2 {rate['tp2_bf16']:.1f} and DP=2 {rate['dp2_bf16']:.1f} decode steps/s at B=2 "
+          f"bf16; TP=2 {coll['tp2_bf16'][0]:.1f} collectives a decode step at "
+          f"{coll['tp2_bf16'][1]:.3f} host ms each; train ms a step "
+          + ", ".join(f"{m} {v['ms']:.1f}" for m, v in train_out.items()) + f" ({card})")
+    return dict(
+        k1=dict(p0["k1"], launches_per_rank={k: r0[k][1]["k1"] for k in (
+            "dp2_bf16", "tp2_bf16", "tp2_fp32", "tp2_spec_fp32", "dp2_int8")},
+            steps_per_s=rate, collectives=coll),
+        k2=dict(p0["k2"], dp2_int8_launches_per_rank=r0["dp2_int8"][1]["k2"]),
+        k4=dict(p0["k4"], train=train_out, cli=cli_out, gloo_lacks=r0["lacks"] + r1["lacks"]),
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3795,6 +4552,7 @@ def main() -> int:
     print(f"[phase i] mini-v1 trainer: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
     cli = phase_n(dev, card, loss_gap)
+    cli_run = {k: cli.pop(k) for k in ("cfg", "args", "features")}  # for phase (p)
     torch.cuda.empty_cache()
     print(f"[phase n] the training CLI at mini-v1 width: {time.perf_counter() - t0:.2f} s "
           f"({card})")
@@ -3807,10 +4565,16 @@ def main() -> int:
     print(f"[phase l] large-v1 kernels and serving: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
     spec = phase_m(dev, card, source, out_b.delayed_ids, stream_e, large_eager, large_out)
-    del source, out_b, stream_e, large_eager, large_out
+    del stream_e, large_eager, large_out
     torch.cuda.empty_cache()
     print(f"[phase m] speculative and decoder-only serving: {time.perf_counter() - t0:.2f} s "
           f"({card})")
+    t0 = time.perf_counter()
+    parallel = phase_p(dev, card, source, out_b, loss_gap, cli_run)
+    del source, out_b, cli_run
+    torch.cuda.empty_cache()
+    print(f"[phase p] parallelism: sharded kernels, NCCL at world 1, two ranks on the card: "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
     print("  time to first chunk (phase k): " + "; ".join(
         f"{label} {v['first_chunk_s']:.3f} s, {v['steps_per_s']:.1f} decode steps/s, "
         f"{v['chunks']} chunks" for label, v in stream_k.items()) + f" ({card})")
@@ -3821,11 +4585,13 @@ def main() -> int:
              replaces="parler_tts_tpu/ops/pallas/flash_decode.py:192",
              launches=launches, max_abs_err=max_err, **timing, large_v1=large["k1"],
              window=spec.pop("k1"), speculative=spec,
-             training_cli_eval_generation=cli["k1_eval_generation"], encodec=encodec),
+             training_cli_eval_generation=cli["k1_eval_generation"], encodec=encodec,
+             parallel=parallel["k1"]),
         dict(name="quant_matmul", route="cuda",
              source="parler_tts_tpu_torch/csrc/quant_matmul.cu",
              replaces="parler_tts_tpu/ops/pallas/quant_matmul.py:39",
-             launches=k2_launches, max_abs_err=k2_err, **k2_timing, large_v1=large["k2"]),
+             launches=k2_launches, max_abs_err=k2_err, **k2_timing, large_v1=large["k2"],
+             parallel=parallel["k2"]),
         dict(name="fused_decode_layers", route="cuda",
              source="parler_tts_tpu_torch/csrc/fused_decode_step.cu",
              replaces="parler_tts_tpu/ops/pallas/fused_decode_step.py:352",
@@ -3841,6 +4607,8 @@ def main() -> int:
         for name, line in (("fwd", 67), ("dq", 144), ("dkv", 180))
     ]
     kernels[3]["training_cli"] = {k: v for k, v in cli.items() if k != "k4_per_step"}
+    for entry in kernels[3:]:
+        entry["parallel"] = parallel["k4"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3851,4 +4619,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase-p-rank"]:  # a rank of phase (p2), started by phase_p
+        phase_p_rank(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -14,6 +14,12 @@ parameter, of any float dtype, so fp32 trees load into bf16 or fp32
 parameters), and every parameter of the port's module must receive a leaf.
 `to_jax_tree` goes the other way, for parameters and their gradients;
 `tensor_tree` gives a module's own tensors under the flax names and layouts.
+
+A model sliced to a rank's shards (`parallel/mesh.py:shard_params`) loads
+the full tree by taking each leaf's shard under its plan, and
+`to_jax_tree(named, model=)` all-gathers each tensor of such a model to
+its full shape first, on every rank, so checkpoints and exports keep the
+full layout whatever the mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import Any, Dict, Iterable, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from .parallel.mesh import gather_full, local_part
 
 _INDEXED = re.compile(r"^(layers|block)_(\d+)$")
 
@@ -53,6 +61,7 @@ def _flatten(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
 def _load(root: nn.Module, tree: Mapping[str, Any]) -> None:
     modules = dict(root.named_modules())
     params = dict(root.named_parameters())
+    specs = getattr(root, "shard_specs", None)
     loaded = set()
     for path, leaf in _flatten(tree).items():
         arr = as_tensor(leaf)
@@ -68,6 +77,8 @@ def _load(root: nn.Module, tree: Mapping[str, Any]) -> None:
         param = params.get(name)
         if param is None:
             raise KeyError(f"JAX leaf {'/'.join(path)}: no parameter {name!r} in the port")
+        if specs is not None:
+            arr = local_part(arr, specs[name], root.mesh)
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(
                 f"JAX leaf {'/'.join(path)}: shape {tuple(arr.shape)} != "
@@ -123,11 +134,17 @@ def tensor_tree(module: nn.Module) -> Dict[str, Any]:
     return _tree(module.named_parameters(), dict(module.named_modules()))
 
 
-def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
+def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]], model: nn.Module = None
+                ) -> Dict[str, Any]:
     """The reverse of `load_jax_params` for modules that keep the flax
     layouts (not the codec): (port name, tensor) pairs, such as
     `model.named_parameters()` or their gradients, -> a nested dict of numpy
-    arrays under the flax names (`layers.3` -> `layers_3`), fp32 for floats."""
+    arrays under the flax names (`layers.3` -> `layers_3`), fp32 for floats.
+    With a sharded `model` the tensors are its shards, all-gathered to their
+    full shapes (a collective: every rank of the mesh calls it)."""
+    specs = getattr(model, "shard_specs", None)
+    if specs is not None:
+        named = [(n, gather_full(t.detach(), specs[n], model.mesh)) for n, t in named]
     return _numpy(_tree(named, {}))
 
 

@@ -36,7 +36,15 @@
   - `fused_qkv=True` (serving) gives each layer's self-attention one
     `qkv_proj` kernel, q|k|v concatenated along the output axis
     (`models/parler.py:fuse_qkv_params`); cross-attention keeps its separate
-    projections.
+    projections;
+  - under tensor parallelism (`parallel/mesh.py:shard_params` sets `tp`,
+    the `model` group) a rank holds H/n heads: q/k/v_proj are
+    column-parallel over heads, out_proj and fc2 row-parallel (their outputs
+    all-reduced), fc1 column-parallel over F, the LM heads sharded over V
+    (their logits all-gathered), and the self and cross KV caches hold the
+    rank's heads (`DecoderCache.zeros(model_shards=n)`). `embed_tokens`
+    (K, vocab+1, D) stays whole where n does not divide vocab+1, as it does
+    not at any Parler config.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.positions import apply_rope, rope_cos_sin, sinusoidal_embed, sinusoidal_table
 from ..ops.quant_matmul import quant_matmul
+from ..parallel.collectives import copy_to, gather_last, reduce_from
 from ..utils.quantize import quantize_kernel_torch
 from .layers import Dense, LayerNorm, bernoulli, dropout, fold_in, new_param
 
@@ -90,11 +99,15 @@ class DecoderCache:
 
     @classmethod
     def zeros(cls, config: DecoderConfig, batch_size: int, max_length: int,
-              encoder_length: int, dtype=torch.float32, device=None) -> "DecoderCache":
+              encoder_length: int, dtype=torch.float32, device=None,
+              model_shards: int = 1) -> "DecoderCache":
+        """An empty cache; `model_shards` = n holds a tensor-parallel rank's
+        H_kv/n heads."""
         n, dh = config.num_hidden_layers, config.head_dim
-        self_shape = (n, batch_size, max_length, config.num_key_value_heads * dh)
+        self_shape = (n, batch_size, max_length,
+                      config.num_key_value_heads // model_shards * dh)
         cross_shape = (n, batch_size, encoder_length,
-                       config.num_cross_attention_key_value_heads, dh)
+                       config.num_cross_attention_key_value_heads // model_shards, dh)
         return cls(
             self_k=torch.zeros(self_shape, dtype=dtype, device=device),
             self_v=torch.zeros(self_shape, dtype=dtype, device=device),
@@ -175,7 +188,10 @@ class Attention(nn.Module):
     an int (online-softmax scan, chunk 512 or that int) or "pallas" (K4).
     `fused_qkv=True` holds one `qkv_proj` in place of q/k/v_proj; only a
     self-attention takes it (`project_kv`, the cross-attention k/v, reads
-    `k_proj` and `v_proj`)."""
+    `k_proj` and `v_proj`). Head counts are read from the projections'
+    widths, so a tensor-parallel rank (`tp` set) runs its own heads."""
+
+    tp = None
 
     def __init__(self, config: DecoderConfig, num_kv_heads: int, device=None,
                  dtype=torch.float32, weight_quant: Any = False, param_dtype=None,
@@ -196,17 +212,26 @@ class Attention(nn.Module):
             self.v_proj = make_dense(d, num_kv_heads * dh, **kw)
         self.out_proj = make_dense(d, d, **kw)
 
-    def _split(self, x: torch.Tensor, heads: int) -> torch.Tensor:
-        return x.reshape(x.shape[0], x.shape[1], heads, self.config.head_dim)
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], x.shape[1], -1, self.config.head_dim)
+
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of the column-parallel projections."""
+        return x if self.tp is None else copy_to(x, self.tp)
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        """out_proj, summed over the model group when it is row-parallel."""
+        y = self.out_proj(x)
+        return y if self.tp is None else reduce_from(y, self.tp)
 
     def project_kv(self, states: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """k/v of (encoder) states, (B, S, H_kv, Dh) each."""
-        return (self._split(self.k_proj(states), self.num_kv_heads),
-                self._split(self.v_proj(states), self.num_kv_heads))
+        states = self._in(states)
+        return self._split(self.k_proj(states)), self._split(self.v_proj(states))
 
     def _scaled_query(self, q_raw, cos, sin):
         # scaled before RoPE like the reference (the rotation commutes with it)
-        q = self._split(q_raw, self.config.num_attention_heads)
+        q = self._split(q_raw)
         q = q * (self.config.head_dim ** -0.5)
         if cos is not None:
             q = apply_rope(q, cos, sin)
@@ -214,6 +239,7 @@ class Attention(nn.Module):
 
     def _qkv(self, x):
         """Raw q, k and v projections under either layout."""
+        x = self._in(x)
         if self.fused_qkv:
             kv = self.num_kv_heads * self.config.head_dim
             return self.qkv_proj(x).split([self.config.hidden_size, kv, kv], dim=-1)
@@ -231,7 +257,7 @@ class Attention(nn.Module):
         b, t, _ = x.shape
         q_raw, k_raw, v_raw = self._qkv(x)
         q = self._scaled_query(q_raw, cos, sin)
-        k, v = self._split(k_raw, self.num_kv_heads), self._split(v_raw, self.num_kv_heads)
+        k, v = self._split(k_raw), self._split(v_raw)
         if cos is not None:
             k = apply_rope(k, cos, sin)
         if cache is None:
@@ -245,7 +271,7 @@ class Attention(nn.Module):
                                         chunk_k=chunk)
             else:
                 out = _gqa_attention(q, k, v, bias)
-            return self.out_proj(out.reshape(b, t, -1))
+            return self._out(out.reshape(b, t, -1))
         i = cache.index
         ck, cv = cache.self_k, cache.self_v
         if isinstance(i, torch.Tensor):
@@ -267,20 +293,24 @@ class Attention(nn.Module):
                 out = out[:, None]
         else:
             s = ck.shape[2]
-            k_l = ck[layer_idx].reshape(b, s, self.num_kv_heads, -1)
-            v_l = cv[layer_idx].reshape(b, s, self.num_kv_heads, -1)
+            dh = self.config.head_dim
+            k_l = ck[layer_idx].reshape(b, s, -1, dh)
+            v_l = cv[layer_idx].reshape(b, s, -1, dh)
             out = _gqa_attention(q, k_l, v_l, bias)
-        return self.out_proj(out.reshape(b, t, -1))
+        return self._out(out.reshape(b, t, -1))
 
     def cross_attention(self, x, k, v, bias, cos, sin):
-        q = self._scaled_query(self.q_proj(x), cos, sin)
+        q = self._scaled_query(self.q_proj(self._in(x)), cos, sin)
         out = _gqa_attention(q, k, v, bias)
-        return self.out_proj(out.reshape(out.shape[0], out.shape[1], -1))
+        return self._out(out.reshape(out.shape[0], out.shape[1], -1))
 
 
 class DecoderLayer(nn.Module):
     """Pre-LN block: self-attn -> cross-attn -> MLP, with dropout after each
-    sub-block and on the MLP activation when given a dropout key."""
+    sub-block and on the MLP activation when given a dropout key. With `tp`
+    the MLP is fc1 column- and fc2 row-parallel over F."""
+
+    tp = None
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
@@ -317,8 +347,15 @@ class DecoderLayer(nn.Module):
                 self.encoder_attn_layer_norm(x), cross_k, cross_v, cross_attn_bias, cos, sin
             )
             x = x + dropout(h, cfg.dropout, fold_in(key, "encoder_attn"))
-        h = self.act(self.fc1(self.final_layer_norm(x)))
-        h = self.fc2(dropout(h, cfg.activation_dropout, fold_in(key, "activation")))
+        h = self.final_layer_norm(x)
+        cols = None
+        if self.tp is not None:
+            h = copy_to(h, self.tp)
+            cols = (cfg.ffn_dim, self.tp.span(cfg.ffn_dim).start)
+        h = self.act(self.fc1(h))
+        h = self.fc2(dropout(h, cfg.activation_dropout, fold_in(key, "activation"), cols))
+        if self.tp is not None:
+            h = reduce_from(h, self.tp)
         return x + dropout(h, cfg.dropout, fold_in(key, "fc2"))
 
 
@@ -338,7 +375,10 @@ class ParlerDecoder(nn.Module):
     """The decoder stack, over a static cache (serving) or without one
     (training). `remat_layers` recomputes each layer of the training route in
     the backward instead of keeping its activations; `remat_policy` (None or
-    "dots") says what the recompute may keep."""
+    "dots") says what the recompute may keep. With `tp` the rank holds its
+    rows of each codebook's embedding table."""
+
+    tp = None
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
@@ -372,10 +412,18 @@ class ParlerDecoder(nn.Module):
     def embed_ids(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Sum of the K codebook embeddings: (B, K, T) -> (B, T, D), one gather."""
         cfg = self.config
+        rows = self.embed_tokens.shape[1]
         flat = self.embed_tokens.reshape(-1, cfg.hidden_size)
         offsets = (torch.arange(cfg.num_codebooks, device=input_ids.device)
-                   * cfg.embed_rows)[None, :, None]
-        out = F.embedding(input_ids + offsets, flat).to(self.dtype).sum(dim=1)
+                   * rows)[None, :, None]
+        if self.tp is None:
+            out = F.embedding(input_ids + offsets, flat)
+        else:  # the rank's rows of every codebook's table, summed over the group
+            local = input_ids - self.tp.rank * rows
+            inside = (local >= 0) & (local < rows)
+            out = F.embedding(local.clamp(0, rows - 1) + offsets, flat)
+            out = reduce_from(out * inside[..., None].to(out.dtype), self.tp)
+        out = out.to(self.dtype).sum(dim=1)
         return out * cfg.hidden_size ** 0.5 if cfg.scale_embedding else out
 
     def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):
@@ -439,7 +487,11 @@ class ParlerDecoder(nn.Module):
 
 
 class ParlerForCausalLM(nn.Module):
-    """Decoder + stacked LM heads (never quantized, as in the JAX package)."""
+    """Decoder + stacked LM heads (never quantized, as in the JAX package).
+    With `tp` the rank holds V/n columns of each head, and the logits are
+    all-gathered over the model group."""
+
+    tp = None
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
@@ -473,7 +525,16 @@ class ParlerForCausalLM(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> (B, K, T, V) fp32, summed in fp32 from the
         compute-dtype hidden states and heads."""
-        return torch.einsum("btd,kdv->bktv", hidden.to(self.dtype).float(), self.heads_fp32())
+        if self.tp is None:
+            return torch.einsum("btd,kdv->bktv", hidden.to(self.dtype).float(),
+                                self.heads_fp32())
+        h = copy_to(hidden.to(self.dtype).float(), self.tp)
+        return gather_last(torch.einsum("btd,kdv->bktv", h, self.heads_fp32()), self.tp)
+
+    def full_heads(self) -> torch.Tensor:
+        """The (K, D, V) heads: all-gathered over the model group under
+        tensor parallelism (the gradient reaches the rank's columns)."""
+        return self.lm_heads if self.tp is None else gather_last(self.lm_heads, self.tp)
 
     def forward(self, inputs_embeds, position_ids, *, self_attn_bias, cross_attn_bias,
                 cache: Optional[DecoderCache] = None, decode_lengths=None,

@@ -15,17 +15,24 @@ with an integer key. The models derive one key per call site with `fold_in`
 from a per-step seed, the layer index and the site's name, so a layer run
 again under `torch.utils.checkpoint` draws the same masks: checkpoint's
 `preserve_rng_state` restores only the default generators, never these.
+Over a mesh a mask is drawn for the global tensor and the rank keeps its
+part (`parallel/rows.py`): its rows under data parallelism, and with `cols`
+its columns of a tensor-parallel activation, so the masks do not depend on
+the partition.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import vocab_embedding
+from ..parallel.rows import draw_sliced
 
 
 def new_param(*shape: int, device=None, dtype=torch.float32) -> nn.Parameter:
@@ -40,15 +47,19 @@ def fold_in(key: Optional[int], *data) -> Optional[int]:
     return int.from_bytes(digest, "little") >> 1
 
 
-def dropout(x: torch.Tensor, rate: float, key: Optional[int]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, key: Optional[int],
+            cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax `nn.Dropout`: keep each element with probability 1 - rate and
-    scale the kept ones by 1 / (1 - rate). `key=None` is deterministic."""
+    scale the kept ones by 1 / (1 - rate). `key=None` is deterministic.
+    `cols` = (global width, first column): `x` holds those columns of the
+    last dim of a wider activation, whose mask is drawn."""
     if key is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     gen = torch.Generator(device=x.device).manual_seed(key)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    keep = draw_sliced(lambda shape: torch.rand(shape, generator=gen, device=x.device),
+                       x.shape, cols=cols) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -109,7 +120,11 @@ class LayerNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """flax `nn.Embed`: an (num, features) table, rows cast to `dtype`."""
+    """flax `nn.Embed`: an (num, features) table, rows cast to `dtype`.
+    With `tp` (a `parallel.collectives.Shard`) the module holds the rank's
+    rows of the table and looks up vocab-parallel."""
+
+    tp = None
 
     def __init__(self, num: int, features: int, std: float = 1.0, device=None,
                  dtype=torch.float32, param_dtype=None):
@@ -122,6 +137,8 @@ class Embed(nn.Module):
         self.embedding.normal_(0.0, self.std, generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return vocab_embedding(ids, self.embedding, self.tp).to(self.dtype)
         return F.embedding(ids, self.embedding).to(self.dtype)
 
 

@@ -39,7 +39,14 @@ class ParlerTTS(nn.Module):
     projection per decoder self-attention, parameters as `fuse_qkv_params`
     lays them out. `use_chunked_attention` (False | True | int | "pallas"),
     `remat_layers` and `remat_policy` (None or "dots") shape the training
-    forward as in the JAX package."""
+    forward as in the JAX package.
+
+    `parallel.mesh.shard_params(model, mesh)` slices the parameters to a
+    rank's shards in place and sets `mesh` and `shard_specs` (the plan per
+    parameter); `model_shards` is then the `model` axis's size."""
+
+    mesh = None
+    shard_specs = None
 
     def __init__(self, config: ParlerTTSConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
@@ -73,6 +80,10 @@ class ParlerTTS(nn.Module):
             self.enc_to_dec_proj = Dense(config.text_encoder.d_model, dcfg.hidden_size,
                                          bias=True, device=device, dtype=dtype,
                                          param_dtype=param_dtype)
+
+    @property
+    def model_shards(self) -> int:
+        return 1 if self.mesh is None else self.mesh.model.size
 
     def encode_description(self, input_ids: torch.Tensor,
                            attention_mask: Optional[torch.Tensor],

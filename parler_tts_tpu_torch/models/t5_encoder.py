@@ -9,6 +9,12 @@ Dropout (`dropout_rate`) runs at the JAX package's five sites: after the
 embedding, after each block's attention, on the gated MLP's hidden state,
 after each block's MLP, and after the final norm. It is off unless
 `forward` gets a dropout key (`models/layers.py:dropout`).
+
+Under tensor parallelism (`tp`, set by `parallel/mesh.py:shard_params`) a
+rank runs H/n heads: q/k/v column-parallel and o row-parallel, wi_0/wi_1
+column- and wo row-parallel over d_ff, the shared embedding vocab-parallel
+where n divides its rows; the relative-position table stays whole and each
+rank takes its heads' columns of it.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import T5Config
+from ..parallel.collectives import copy_to, reduce_from, vocab_embedding
 from .layers import Dense, dropout, fold_in, new_param
 
 _ACTS = {
@@ -64,6 +71,8 @@ class T5LayerNorm(nn.Module):
 
 
 class T5SelfAttention(nn.Module):
+    tp = None
+
     def __init__(self, cfg: T5Config, device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
@@ -77,23 +86,28 @@ class T5SelfAttention(nn.Module):
     def forward(self, x, position_bias, mask_bias):
         cfg = self.cfg
         b, t, _ = x.shape
-        q = self.q(x).reshape(b, t, cfg.num_heads, cfg.d_kv)
-        k = self.k(x).reshape(b, t, cfg.num_heads, cfg.d_kv)
-        v = self.v(x).reshape(b, t, cfg.num_heads, cfg.d_kv)
+        if self.tp is not None:
+            x = copy_to(x, self.tp)
+        q = self.q(x).reshape(b, t, -1, cfg.d_kv)
+        k = self.k(x).reshape(b, t, -1, cfg.d_kv)
+        v = self.v(x).reshape(b, t, -1, cfg.d_kv)
         scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) + position_bias
         if mask_bias is not None:
             scores = scores + mask_bias
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(b, t, -1)
-        return self.o(out)
+        return self.o(out) if self.tp is None else reduce_from(self.o(out), self.tp)
 
 
 class T5FeedForward(nn.Module):
+    tp = None
+
     def __init__(self, cfg: T5Config, device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.gated = cfg.is_gated_act
         self.act = _ACTS[cfg.dense_act_fn]
         self.rate = cfg.dropout_rate
+        self.d_ff = cfg.d_ff
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
         if self.gated:
             self.wi_0 = Dense(cfg.d_model, cfg.d_ff, **kw)
@@ -103,11 +117,16 @@ class T5FeedForward(nn.Module):
         self.wo = Dense(cfg.d_ff, cfg.d_model, **kw)
 
     def forward(self, x, key: Optional[int] = None):
+        cols = None
+        if self.tp is not None:
+            x = copy_to(x, self.tp)
+            cols = (self.d_ff, self.tp.span(self.d_ff).start)
         if self.gated:
             h = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = self.act(self.wi(x))
-        return self.wo(dropout(h, self.rate, key))
+        y = self.wo(dropout(h, self.rate, key, cols))
+        return y if self.tp is None else reduce_from(y, self.tp)
 
 
 class T5Block(nn.Module):
@@ -128,7 +147,12 @@ class T5Block(nn.Module):
 
 
 class T5Encoder(nn.Module):
-    """input_ids (B, T) -> last_hidden_state (B, T, d_model)."""
+    """input_ids (B, T) -> last_hidden_state (B, T, d_model). `tp_heads`:
+    the model group whose heads this rank runs; `tp`: the same group when it
+    shards the embedding's rows."""
+
+    tp = None
+    tp_heads = None
 
     def __init__(self, config: T5Config, device=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
@@ -152,7 +176,10 @@ class T5Encoder(nn.Module):
                 dropout_key: Optional[int] = None):
         """`dropout_key=None` runs deterministically (no dropout)."""
         cfg = self.config
-        x = F.embedding(input_ids, self.shared_embedding).to(self.dtype)
+        if self.tp is None:
+            x = F.embedding(input_ids, self.shared_embedding).to(self.dtype)
+        else:
+            x = vocab_embedding(input_ids, self.shared_embedding, self.tp).to(self.dtype)
         x = dropout(x, cfg.dropout_rate, fold_in(dropout_key, "embed"))
         t = input_ids.shape[-1]
         ctx = torch.arange(t, device=input_ids.device)
@@ -160,7 +187,10 @@ class T5Encoder(nn.Module):
         buckets = relative_position_bucket(
             rel_pos, cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance
         )
-        position_bias = self.relative_attention_bias[buckets].permute(2, 0, 1)[None]
+        table = self.relative_attention_bias
+        if self.tp_heads is not None:  # the rank's heads; each rank's gradient summed
+            table = copy_to(table, self.tp_heads)[:, self.tp_heads.span(cfg.num_heads)]
+        position_bias = table[buckets].permute(2, 0, 1)[None]
         mask_bias = None
         if attention_mask is not None:
             fmin = torch.finfo(torch.float32).min

@@ -11,6 +11,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.rows import draw_sliced
+
 NEG_INF = torch.finfo(torch.float32).min
 
 
@@ -134,9 +136,13 @@ def sample_tokens(
     return torch.argmax(x + gumbel, dim=-1)
 
 
-def gumbel_noise(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
-    """Gumbel(0, 1) fp32 noise of `shape` from `generator`: -log(-log(u))."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+def gumbel_noise(generator: Optional[torch.Generator], shape, device,
+                 batch_dim: Optional[int] = 0) -> torch.Tensor:
+    """Gumbel(0, 1) fp32 noise of `shape` from `generator`: -log(-log(u)).
+    Under data parallelism the rank's rows (on `batch_dim`) of the global
+    draw (`parallel/rows.py`)."""
+    u = draw_sliced(lambda s: torch.rand(s, generator=generator, device=device,
+                                         dtype=torch.float32), shape, batch_dim)
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
 
 

@@ -26,6 +26,14 @@ chunks of columns for streaming: a prefill that returns a `StreamState`,
 and a chunk step that advances it. The offline loop and the chunks call one
 decode step (`_advance`), so a stream's greedy tokens are the offline ones.
 
+`make_generate(model, gen, cache_dtype, mesh)` binds `generate_tokens`; with
+a mesh (`parallel/mesh.py`) each `data` rank generates its rows of the
+global request, tensor parallelism runs inside its `model` group, and the
+outputs are all-gathered over `data` (`data_parallel`), so every rank
+returns the global result. Noise is drawn for the global batch and each
+rank keeps its rows (`parallel/rows.py`): a sampled run over a mesh equals
+the single-process run at the same seed.
+
 `generate_tokens_decoder_only` runs the same prefill and loop without the
 text encoder (`_decoder_only_side` in place of `_encoder_side`); the
 speculative loop (`runtime/speculative.py`) shares the prefill
@@ -51,6 +59,9 @@ from ..ops.delay_pattern import (
 from ..ops.fused_decode_step import FusedParams, check_fused_config, fused_decode_layers
 from ..ops.masks import causal_self_attention_bias, padding_cross_attention_bias
 from ..ops.positions import sinusoidal_table
+from ..parallel.collectives import all_gather_dim, all_max
+from ..parallel.distributed import local_batch_slice
+from ..parallel.rows import row_share
 from ..ops.sampling import (
     NEG_INF,
     EosState,
@@ -161,6 +172,9 @@ def generate_tokens_fused(
     if desc_ids.shape[0] != 1:
         raise ValueError(f"the fused decode path serves B=1, got B={desc_ids.shape[0]}")
     check_fused_config(dcfg)
+    if model.model_shards > 1:
+        raise NotImplementedError("the fused decode step runs the whole model; tensor "
+                                  "parallelism with it is ROADMAP item 23c")
     if gen.cache_implementation == "sliding_window":
         raise ValueError("the fused decode step uses [start, n_rows) bounds; "
                          "sliding_window needs the eager path")
@@ -276,7 +290,8 @@ def _prefill_decoder(model, gen, prefix, prefix_mask, enc_states, enc_mask, star
                           pattern_ext)
 
     s_cache = s_p + max_len + extra
-    cache = DecoderCache.zeros(dcfg, b, s_cache, enc_states.shape[1], cache_dtype, device)
+    cache = DecoderCache.zeros(dcfg, b, s_cache, enc_states.shape[1], cache_dtype, device,
+                               model.model_shards)
     cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc_states)
     kv_valid = torch.cat(
         [prefix_mask.to(torch.bool),
@@ -383,6 +398,55 @@ def _run(model, gen, state: StreamState) -> GenerateOutput:
     codes = undelay_pattern(delayed, k_cb)
     pad = model.config.decoder.pad_token_id  # pad == eos == codebook_size
     return GenerateOutput(delayed, codes, valid_frame_lengths(codes, pad), steps)
+
+
+def make_generate(model: ParlerTTS, gen: GenerationConfig, cache_dtype=torch.bfloat16,
+                  mesh=None):
+    """`generate_tokens` with its settings bound (port of the JAX package's
+    `make_generate`): fn(desc_ids, desc_mask, prompt_ids, prompt_mask,
+    generator=None, decoder_prompt_codes=None) -> GenerateOutput. With
+    `mesh`, every rank is given the global request and returns the global
+    result (`data_parallel`); `model` is sharded on that mesh
+    (`parallel.mesh.shard_params`), or whole when the mesh has no model
+    axis."""
+
+    def fn(desc_ids, desc_mask, prompt_ids, prompt_mask, generator=None,
+           decoder_prompt_codes=None):
+        return generate_tokens(model, gen, desc_ids, desc_mask, prompt_ids, prompt_mask,
+                               generator, decoder_prompt_codes, cache_dtype)
+
+    return fn if mesh is None else data_parallel(fn, model, mesh)
+
+
+def data_parallel(fn, model: ParlerTTS, mesh):
+    """`fn(desc_ids, desc_mask, prompt_ids, prompt_mask, generator,
+    decoder_prompt_codes)` over a mesh: this rank's `data` share of the
+    rows, under the row share of its draws, then the outputs all-gathered
+    over `data` (`steps` the largest). `fn` returns a GenerateOutput, or a
+    tuple whose first item is one (the rest, such as SpecStats, stay the
+    rank's own)."""
+    if model.model_shards != mesh.model.size:
+        raise ValueError(f"the model is sharded {model.model_shards} ways over the model "
+                         f"axis, the mesh has {mesh.model.size}: shard_params(model, mesh)")
+
+    def run(desc_ids, desc_mask, prompt_ids, prompt_mask, generator=None,
+            decoder_prompt_codes=None):
+        b = desc_ids.shape[0]
+        rows = local_batch_slice(b, mesh.data.rank, mesh.data.size)
+
+        def mine(x):
+            return None if x is None else x[rows]
+
+        with row_share(b, rows.start):
+            res = fn(mine(desc_ids), mine(desc_mask), mine(prompt_ids), mine(prompt_mask),
+                     generator, mine(decoder_prompt_codes))
+        out, rest = (res, None) if isinstance(res, GenerateOutput) else (res[0], res[1:])
+        steps = all_max(torch.tensor([out.steps], device=out.delayed_ids.device), mesh.data)
+        out = GenerateOutput(*(all_gather_dim(x, 0, mesh.data) for x in out[:3]),
+                             int(steps[0]))
+        return out if rest is None else (out, *rest)
+
+    return run
 
 
 def resolve_device(device=None) -> torch.device:

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from ..config import GenerationConfig
 from ..models.decoder import DecoderCache
 from ..models.parler import ParlerTTS
+from ..parallel.rows import draw_sliced
 from ..ops.delay_pattern import apply_delay_pattern_mask, undelay_pattern, valid_frame_lengths
 from ..ops.masks import causal_self_attention_bias, padding_cross_attention_bias
 from ..ops.sampling import (
@@ -65,6 +66,7 @@ from .generate import (
     _encoder_side,
     _prefill_decoder,
     _sample_column,
+    data_parallel,
 )
 
 
@@ -110,10 +112,17 @@ def draw_noise(generator: Optional[torch.Generator], kind: str, shape, device) -
     "uniform" in [0, 1) or "gumbel" Gumbel(0, 1). In order: the first
     column's Gumbels (B, K, V) and the first window's (B, K, W, V); then
     per forward the acceptance uniforms (W, B, K), the residual Gumbels and
-    the proposal Gumbels (W, B, K, V) each."""
+    the proposal Gumbels (W, B, K, V) each. The shape is the global batch's:
+    under data parallelism `_draw` keeps the rank's rows."""
     if kind == "uniform":
         return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-    return gumbel_noise(generator, shape, device)
+    return gumbel_noise(generator, shape, device, batch_dim=None)
+
+
+def _draw(generator, kind: str, shape, device, batch_dim: int) -> torch.Tensor:
+    """`draw_noise` of the global shape, the rank's rows of it
+    (`parallel/rows.py`)."""
+    return draw_sliced(lambda s: draw_noise(generator, kind, s, device), shape, batch_dim)
 
 
 def _base_logits(logits: torch.Tensor, col_idx, gen: GenerationConfig, prompt_cols: int):
@@ -273,8 +282,8 @@ def _make_spec_step(model: ParlerTTS, gen: GenerationConfig, window: int,
         device = state.out_ids.device
         uniforms = res_g = None
         if not greedy:
-            uniforms = draw_noise(state.generator, "uniform", (w, b, k_cb), device)
-            res_g = draw_noise(state.generator, "gumbel", (w, b, k_cb, v), device)
+            uniforms = _draw(state.generator, "uniform", (w, b, k_cb), device, 1)
+            res_g = _draw(state.generator, "gumbel", (w, b, k_cb, v), device, 1)
 
         # ---- one forward over the window: inputs are columns t-1 .. t+W-2
         in_cols = _cols(state.t, -1, w, b, k_cb)                                 # (B, K, W)
@@ -327,7 +336,7 @@ def _make_spec_step(model: ParlerTTS, gen: GenerationConfig, window: int,
                     g_n=g_n, w=w, return_found=True)
                 new_q = torch.where(lk_found[None, :, None, None],
                                     F.one_hot(lk_cand, v).float(), new_q)
-            gp = draw_noise(state.generator, "gumbel", (w, b, k_cb, v), device)
+            gp = _draw(state.generator, "gumbel", (w, b, k_cb, v), device, 1)
             log_q = torch.where(new_q > 0.0, torch.log(new_q),
                                 torch.full((), float("-inf"), device=device))
             new_cand = torch.argmax(log_q + gp, dim=-1)
@@ -382,7 +391,7 @@ def _prefill_and_window(model, gen: GenerationConfig, pre: Prefilled, generator,
     out_ids, pattern = pre.out_ids, pre.pattern
 
     eos_state = init_eos_state(b, k_cb, device)
-    g1 = draw_noise(generator, "gumbel", (b, k_cb, v), device) if gen.do_sample else None
+    g1 = _draw(generator, "gumbel", (b, k_cb, v), device, 0) if gen.do_sample else None
     col, eos_state = _sample_column(pre.logits, s0, eos_state, pattern, gen, k_cb,
                                     prompt_cols=s0, generator=generator, gumbel=g1)
     out_ids[:, :, s0] = col
@@ -401,7 +410,7 @@ def _prefill_and_window(model, gen: GenerationConfig, pre: Prefilled, generator,
         xw = xw / gen.temperature if gen.temperature != 1.0 else xw
         xw = apply_top_p(apply_top_k(xw, gen.top_k), gen.top_p)
         q0 = torch.softmax(xw, dim=-1)
-        g = draw_noise(generator, "gumbel", (b, k_cb, w, v), device)
+        g = _draw(generator, "gumbel", (b, k_cb, w, v), device, 0)
         cand = torch.argmax(xw[:, :, None, :] + g, dim=-1).permute(2, 0, 1)     # (W, B, K)
         # finished entries propose PAD with q = delta_PAD
         es0 = adv0.eos_seen
@@ -442,10 +451,14 @@ class _ExitPoll:
     starts a copy of the device flag `running` into pinned host memory when
     none is in flight, and reports the end once a copy that has landed shows
     it false; the forwards run meanwhile are frozen ones. On the CPU the
-    flag is read at once."""
+    flag is read at once. With `sync` (tensor parallelism: the ranks of a
+    model group must run the same forwards, since each forward all-reduces)
+    a call waits for the copy the previous call started, so the loop ends
+    one forward after the flag falls on every rank alike."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, sync: bool = False):
         self.cuda = device.type == "cuda"
+        self.sync = sync
         self.host = torch.zeros((), dtype=torch.bool, pin_memory=self.cuda)
         self.event = None
 
@@ -453,7 +466,9 @@ class _ExitPoll:
         if not self.cuda:
             return not bool(running)
         if self.event is not None:
-            if not self.event.query():
+            if self.sync:
+                self.event.synchronize()
+            elif not self.event.query():
                 return False
             self.event = None
             if not bool(self.host):
@@ -471,11 +486,13 @@ def _running(state: SpecState, target, per_row: bool) -> torch.Tensor:
     return (state.t < target) & ~state.eos.eos_seen.all()
 
 
-def _drive(step, state: SpecState, target, per_row: bool, max_forwards: int) -> None:
+def _drive(step, state: SpecState, target, per_row: bool, max_forwards: int,
+           sync: bool = False) -> None:
     """Run forwards until no row is below `target` and unfinished. Each
     forward finalizes >= 1 column of every such row, so `max_forwards` =
-    the largest distance to the target bounds the loop without a read."""
-    poll = _ExitPoll(state.out_ids.device)
+    the largest distance to the target bounds the loop without a read.
+    `sync`: the exit poll of a tensor-parallel model (`_ExitPoll`)."""
+    poll = _ExitPoll(state.out_ids.device, sync)
     for _ in range(max_forwards):
         if poll.ended(_running(state, target, per_row)):
             break
@@ -534,16 +551,20 @@ def generate_tokens_speculative(
 def _run_spec(model, gen, state: SpecState, window: int, per_row: bool, lookup_ngram: int):
     dcfg = model.config.decoder
     step = _make_spec_step(model, gen, window, per_row=per_row, lookup_ngram=lookup_ngram)
-    _drive(step, state, gen.max_length, per_row, gen.max_length - state.t0)
+    _drive(step, state, gen.max_length, per_row, gen.max_length - state.t0,
+           model.model_shards > 1)
     return _finalize_spec_output(state, gen, dcfg.num_codebooks, dcfg.pad_token_id)
 
 
 def make_generate_speculative(model: ParlerTTS, gen: GenerationConfig, window: int = 8,
                               cache_dtype=torch.bfloat16, per_row: bool = False,
-                              lookup_ngram: int = 3):
+                              lookup_ngram: int = 3, mesh=None):
     """`generate_tokens_speculative` with its settings bound:
     fn(desc_ids, desc_mask, prompt_ids, prompt_mask, generator=None,
-    decoder_prompt_codes=None) -> (GenerateOutput, SpecStats)."""
+    decoder_prompt_codes=None) -> (GenerateOutput, SpecStats). With `mesh`,
+    as `generate.make_generate(mesh=)`: each `data` rank runs its rows (the
+    SpecStats are the rank's), tensor parallelism inside its `model` group,
+    and every rank returns the global GenerateOutput."""
 
     def fn(desc_ids, desc_mask, prompt_ids, prompt_mask, generator=None,
            decoder_prompt_codes=None):
@@ -553,7 +574,7 @@ def make_generate_speculative(model: ParlerTTS, gen: GenerationConfig, window: i
             per_row=per_row, lookup_ngram=lookup_ngram,
         )
 
-    return fn
+    return fn if mesh is None else data_parallel(fn, model, mesh)
 
 
 def make_stream_functions_speculative(model: ParlerTTS, gen: GenerationConfig,
@@ -584,7 +605,7 @@ def make_stream_functions_speculative(model: ParlerTTS, gen: GenerationConfig,
     @torch.inference_mode()
     def step_chunk_fn(state: SpecState, n_steps: int) -> SpecState:
         target = (state.t + n_steps).clamp(max=max_len)
-        _drive(step, state, target, per_row, n_steps)
+        _drive(step, state, target, per_row, n_steps, model.model_shards > 1)
         return state
 
     return prefill_fn, step_chunk_fn

@@ -3,9 +3,8 @@ which imports no JAX): the three dataclasses with the JAX package's fields
 and defaults, parsed from `--flag value` pairs or from one JSON file, and
 written back by `dump_args`.
 
-Fields that name the JAX package's TPU mesh (`mesh_data`, `mesh_model`,
-`fsdp`) are kept so a config file serves both packages; the port's trainer
-runs on one device and refuses more (`run_training.py`).
+The mesh fields (`mesh_data`, `mesh_model`, `fsdp`) are the JAX package's;
+the port's trainer builds its process mesh from them (`run_training.py`).
 """
 
 from __future__ import annotations
@@ -128,8 +127,7 @@ class TrainingArguments:
     # batch rows of similar label length (less padding under the bucketing
     # collator)
     group_by_length: bool = False
-    # the JAX package's sharded state and mesh; the port runs on one device
-    # and refuses more (ROADMAP item 23)
+    # shard the parameters and both AdamW moments over the data axis
     fsdp: bool = False
     audio_encoder_per_device_batch_size: int = 8
     compute_clap_similarity_metric: bool = True

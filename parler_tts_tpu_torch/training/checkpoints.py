@@ -7,6 +7,11 @@ checkpoint holds one `train_state.pt` written by `torch.save`: the
 parameters under the port's names, both AdamW moments, the step and the
 schedule's count, all on the host; `torch.load(weights_only=True)` reads it
 back bit for bit, and admits tensors and plain containers only.
+
+A train state sharded over a mesh is saved full: every rank all-gathers the
+parameters and moments, rank 0 writes them, and the others wait at a
+barrier. Resume loads the full state and takes the rank's shards, so a
+checkpoint written at one world size resumes at any other.
 """
 
 from __future__ import annotations
@@ -18,6 +23,10 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.collectives import barrier
+from ..parallel.mesh import gather_full, local_part
 
 CHECKPOINT_PATTERN = re.compile(r"^checkpoint-(\d+)-epoch-(\d+)$")
 CODEC_PATTERN = re.compile(r"^codec-(\d+)\.npy$")
@@ -62,21 +71,32 @@ def save_train_state(state, output_dir: str, step: int, epoch: int,
                      save_total_limit: Optional[int] = None) -> str:
     """Write `state` (`train_state.TrainState`) to
     `output_dir/checkpoint-{step}-epoch-{epoch}/train_state.pt`, then rotate.
-    Returns the checkpoint's directory."""
+    A sharded state is gathered full and written by rank 0 (every rank
+    calls this). Returns the checkpoint's directory."""
     path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{step}-epoch-{epoch}"))
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.makedirs(path)
-    opt = state.opt_state
-    host = lambda tensors: {n: t.detach().cpu() for n, t in tensors}  # noqa: E731
-    torch.save({
+    model, opt = state.model, state.opt_state
+    specs = getattr(model, "shard_specs", None)
+
+    def host(tensors):
+        if specs is None:
+            return {n: t.detach().cpu() for n, t in tensors}
+        return {n: gather_full(t.detach(), specs[n], model.mesh).cpu() for n, t in tensors}
+
+    saved = {
         "step": int(state.step),
         "count": int(opt.count),
-        "params": host(state.model.named_parameters()),
+        "params": host(model.named_parameters()),
         "mu": host(opt.mu.items()),
         "nu": host(opt.nu.items()),
-    }, os.path.join(path, STATE_FILE))
-    rotate_checkpoints(output_dir, save_total_limit)
+    }
+    if specs is None or dist.get_rank() == 0:
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+        torch.save(saved, os.path.join(path, STATE_FILE))
+        rotate_checkpoints(output_dir, save_total_limit)
+    if specs is not None:
+        barrier()
     return path
 
 
@@ -89,9 +109,11 @@ def restore_train_state(path: str, state) -> Any:
     """Copy a checkpoint written by `save_train_state` into `state` (its
     model's parameters, its moments, its step and schedule count), on their
     devices and in their dtypes, which must be the saved ones. Every saved
-    tensor must have a place and every place a tensor. Returns `state`."""
+    tensor must have a place and every place a tensor. A sharded state takes
+    its shards of the full saved tensors. Returns `state`."""
     saved = load_state_dict(path)
     opt = state.opt_state
+    specs, mesh = getattr(state.model, "shard_specs", None), getattr(state.model, "mesh", None)
     with torch.no_grad():
         for key, target in (("params", dict(state.model.named_parameters())),
                             ("mu", opt.mu), ("nu", opt.nu)):
@@ -100,6 +122,8 @@ def restore_train_state(path: str, state) -> Any:
                                f"{sorted(set(saved[key]) ^ set(target))[:5]}")
             for name, t in target.items():
                 src = saved[key][name]
+                if specs is not None:
+                    src = local_part(src, specs[name], mesh)
                 if src.shape != t.shape or src.dtype != t.dtype:
                     raise ValueError(f"{path}: {key} {name} is {src.dtype} {tuple(src.shape)}, "
                                      f"the train state's {t.dtype} {tuple(t.shape)}")

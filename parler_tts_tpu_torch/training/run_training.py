@@ -1,5 +1,5 @@
 """The training CLI (port of `parler_tts_tpu/training/run_training.py`), on
-one device:
+one device or over a mesh of processes:
 
   stage 1 - the corpus encoded to codec labels by the registry's codec
             (`encode_corpus_stage`), resumable through `codec-{step}.npy`
@@ -20,9 +20,23 @@ one device:
 (`ops/flash_attention.py`), and eval generation serves through kernel K1
 (`ops/flash_decode.py`); on the card each launches its kernel or raises.
 
+Over more than one process (`torchrun --nproc_per_node N -m
+parler_tts_tpu_torch.training.run_training cfg.json`, or any launcher that
+sets torchrun's environment; `parallel/distributed.py`) the ranks form a
+`mesh_data` x `mesh_model` mesh (`mesh_data` defaults to the world over
+`mesh_model`): the global batch is per-device x (world / mesh_model) x
+accumulation steps, each data rank keeps its rows of every collated batch
+(`data_iterator`), `fsdp` shards the parameters and moments over `data`,
+and the metrics are logged on rank 0. Every rank encodes the corpus in
+stage 1, as every JAX process does; rank 0 alone writes the codec shards,
+the features and the export. Checkpoints are gathered full and written by
+rank 0 (`checkpoints.py`), so they resume at any world size. `run_eval`
+gives the global eval loss; `run_eval_generation` gathers the FSDP
+parameters or runs tensor-parallel, so every rank produces the same clips.
+Not ported: a `seq` axis (ROADMAP item 23b) and `mesh_model` > 1 with int8
+weights or fused projections (23c).
+
 Differences from the JAX package, each a consequence of the port's scope:
-  - one device: a mesh of more than one device, `fsdp`, or more than one
-    process raise NotImplementedError (ROADMAP item 23);
   - `main` takes the description and prompt tokenizers from its caller
     (callables mapping a string to {"input_ids": [...]}); the port imports
     no tokenizer library;
@@ -42,7 +56,7 @@ import math
 import os
 import pickle
 import time
-from typing import Any, Iterator, List, Optional
+from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +68,11 @@ from ..models.parler import ParlerTTS
 from ..ops.delay_pattern import build_delay_pattern_mask
 from ..ops.losses import mean_loss_reference_style
 from ..runtime.checkpoint import write_safetensors
+from ..ops.losses import per_codebook_cross_entropy
+from ..parallel import make_mesh, maybe_init_distributed
+from ..parallel.collectives import all_reduce_sum, barrier
+from ..parallel.distributed import host_local_to_global, local_batch_slice, rank_device
+from ..parallel.mesh import check_model_axis
 from ..runtime.generate import resolve_device
 from ..runtime.pipeline import ParlerTTSPipeline
 from ..utils.hf_export import export_composite_to_hf_tensors
@@ -71,7 +90,14 @@ from .checkpoints import (
     save_train_state,
 )
 from .data import DataCollatorParlerTTSWithPadding, length_grouped_order
-from .train_state import Batch, TrainState, make_optimizer, make_train_step
+from .train_state import (
+    Batch,
+    TrainState,
+    gathered_params,
+    make_optimizer,
+    make_train_step,
+    shard_train_state,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -82,21 +108,30 @@ COMPUTE_DTYPES = {
 }
 
 
-def check_single_device(training_args: TrainingArguments) -> None:
-    """The port trains on one device: a mesh of more than one device, FSDP,
-    or more than one process raise NotImplementedError (ROADMAP item 23)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
+def world() -> Tuple[int, int]:
+    """(rank, world size) of the initialised process group, else (0, 1)."""
     if torch.distributed.is_available() and torch.distributed.is_initialized():
-        world = max(world, torch.distributed.get_world_size())
-    asks = [name for name, more in (
-        ("mesh_data", (training_args.mesh_data or 1) > 1),
-        ("mesh_model", training_args.mesh_model > 1),
-        ("fsdp", training_args.fsdp),
-        ("more than one process", world > 1)) if more]
-    if asks:
+        return torch.distributed.get_rank(), torch.distributed.get_world_size()
+    return 0, 1
+
+
+def check_parallel(training_args: TrainingArguments, model: ParlerTTS, n_ranks: int,
+                   n_seq: int = 1) -> int:
+    """What the arguments ask of the mesh, refused where it is not ported
+    (a `seq` axis, `n_seq` > 1: ROADMAP item 23b, which the CLI's arguments
+    do not expose, as the JAX package's do not; `mesh_model` > 1 with int8
+    weights or fused projections: 23c) or does not fit: heads and MLP widths
+    that `mesh_model` does not divide, a mesh whose size is not the world.
+    Returns n_data."""
+    if n_seq > 1:
         raise NotImplementedError(
-            f"the port trains on one device; {', '.join(asks)} is ROADMAP item 23 "
-            "(parallelism)")
+            "the seq mesh axis (sequence parallelism) is not ported: ROADMAP item 23b")
+    n_model = training_args.mesh_model
+    check_model_axis(model, n_model)
+    n_data = training_args.mesh_data or max(n_ranks // n_model, 1)
+    if n_data * n_seq * n_model != n_ranks:
+        raise ValueError(f"mesh {n_data}x{n_seq}x{n_model} != {n_ranks} ranks")
+    return n_data
 
 
 def build_labels_from_codes(codes: np.ndarray, bos_token_id: int, eos_token_id: int,
@@ -123,11 +158,13 @@ def encode_corpus_stage(
     save_dir: Optional[str] = None,
     save_steps: Optional[int] = 500,
     device=None,
+    write: bool = True,
 ) -> List[np.ndarray]:
     """Stage 1: each batch of `DataCollatorEncodecWithPadding` through the
     codec's encode on `device` (the codec is moved there), each clip's first
     ceil(len / hop) frames made into labels. With `save_dir`, every
-    `save_steps` batches the new labels go to a `codec-{step}.npy` shard, and
+    `save_steps` batches the new labels go to a `codec-{step}.npy` shard
+    (unless `write` is False: the ranks but one of a multi-process run), and
     a run resumes after the last shard."""
     dev = resolve_device(device)
     codec = codec.to(dev).eval()
@@ -145,7 +182,8 @@ def encode_corpus_stage(
             pending.append(build_labels_from_codes(codes[i, :, :n], bos_token_id,
                                                    eos_token_id, max_label_length))
         if save_dir and save_steps and (step + 1) % save_steps == 0:
-            save_codec_checkpoint(save_dir, pending, step + 1)
+            if write:
+                save_codec_checkpoint(save_dir, pending, step + 1)
             labels.extend(pending)
             pending = []
     labels.extend(pending)
@@ -153,17 +191,23 @@ def encode_corpus_stage(
 
 
 def data_iterator(features: List[dict], collator, batch_size: int, seed: int, epoch: int,
+                  process_index: int = 0, process_count: int = 1,
                   group_by_length: bool = False):
     """The epoch's batches, collated on the host: a `default_rng(seed +
     epoch)` permutation, or with `group_by_length` the length-grouped order
-    from the same seed; a last partial batch is dropped."""
+    from the same seed; a last partial batch is dropped. Every process
+    collates the whole global batch (its padded shapes depend on all its
+    rows, and every rank must agree on them) and keeps the rows of data
+    rank `process_index` of `process_count`."""
     if group_by_length:
         order = length_grouped_order([np.asarray(f["labels"]).shape[0] for f in features],
                                      batch_size, seed + epoch)
     else:
         order = np.random.default_rng(seed + epoch).permutation(len(features))
+    rows = local_batch_slice(batch_size, process_index, process_count)
     for i in range(0, len(order) - batch_size + 1, batch_size):
-        yield collator([features[j] for j in order[i: i + batch_size]])
+        batch = collator([features[j] for j in order[i: i + batch_size]])
+        yield type(batch)(*(x[rows] for x in batch)) if process_count > 1 else batch
 
 
 def to_device(batch: Batch, device) -> Batch:
@@ -232,9 +276,15 @@ def run_training(
     Resumes from `resume_from_checkpoint` or the last checkpoint in
     `output_dir`, skipping the batches already taken. With `eval_features`,
     every `eval_steps` steps runs `run_eval` and, with a codec `dac`, every
-    `eval_generation_steps` (default `eval_steps`) `run_eval_generation`."""
-    check_single_device(training_args)
-    dev = resolve_device(device)
+    `eval_generation_steps` (default `eval_steps`) `run_eval_generation`.
+
+    In an initialised process group every rank calls it with the same
+    arguments: the ranks form the mesh the arguments ask for
+    (`check_parallel`), and each rank computes on `cuda:LOCAL_RANK` (or the
+    CPU)."""
+    rank, n_ranks = world()
+    n_data = check_parallel(training_args, model, n_ranks)
+    dev = resolve_device(rank_device(device) if n_ranks > 1 else device)
     cfg: ParlerTTSConfig = model.config
     max_t = max(np.asarray(f["labels"]).shape[0] for f in train_features)
     if training_args.remat_policy not in ("full", "dots"):
@@ -268,7 +318,8 @@ def run_training(
                          "by default)")
     model = _reconcile(model, dev, dtype=compute_dtype, param_dtype=torch.float32, **changes)
 
-    global_bs = training_args.per_device_train_batch_size * training_args.gradient_accumulation_steps
+    global_bs = (training_args.per_device_train_batch_size * n_data
+                 * training_args.gradient_accumulation_steps)
     steps_per_epoch = len(train_features) // global_bs
     total_steps = (training_args.max_steps if training_args.max_steps > 0
                    else int(steps_per_epoch * training_args.num_train_epochs))
@@ -293,9 +344,13 @@ def run_training(
         restore_train_state(resume, state)
         start_step, start_epoch = parse_checkpoint_name(resume)
         logger.info("resumed from %s (step %d epoch %d)", resume, start_step, start_epoch)
+    mesh = None
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        mesh = make_mesh(n_data, training_args.mesh_model, device=dev)
+        shard_train_state(state, mesh, fsdp=training_args.fsdp)
 
     step_fn = make_train_step(
-        model, tx, loss_chunk_size=training_args.loss_chunk_size,
+        model, tx, mesh=mesh, loss_chunk_size=training_args.loss_chunk_size,
         microbatch_steps=(training_args.gradient_accumulation_steps
                           if training_args.gradient_accumulation_mode == "microbatch"
                           else None),
@@ -310,24 +365,26 @@ def run_training(
     )
     tracker = init_tracker(data_args.wandb_project, data_args.wandb_run_name,
                            {"total_steps": total_steps, "global_bs": global_bs},
-                           report_to=training_args.report_to)
+                           report_to=training_args.report_to) if rank == 0 else None
+    data_rank = (mesh.data.rank, n_data) if mesh is not None else (0, 1)
     eval_pipe_cache: dict = {}
     step, epoch, draws, saved_at = start_step, start_epoch, 0, None
     train_start = time.perf_counter()
     for epoch in range(start_epoch, int(math.ceil(training_args.num_train_epochs))):
         it = data_iterator(train_features, collator, global_bs, training_args.seed, epoch,
-                           group_by_length=training_args.group_by_length)
+                           *data_rank, group_by_length=training_args.group_by_length)
         if epoch == start_epoch and start_step > epoch * steps_per_epoch:
             for _ in range(start_step - epoch * steps_per_epoch):  # the batches taken
                 next(it, None)
         for batch in it:
             if step >= total_steps:
                 break
-            state, metrics = step_fn(state, to_device(batch, dev),
-                                     fold_in(training_args.seed, "step", draws))
+            batch = (to_device(batch, dev) if mesh is None
+                     else host_local_to_global(batch, mesh))
+            state, metrics = step_fn(state, batch, fold_in(training_args.seed, "step", draws))
             draws += 1
             step += 1
-            if step % training_args.logging_steps == 0:
+            if step % training_args.logging_steps == 0 and rank == 0:
                 log_metric(tracker, metrics, train_time=time.perf_counter() - train_start,
                            step=step, epoch=epoch, prefix="train")
             if step % training_args.save_steps == 0:
@@ -358,18 +415,23 @@ def main(argv=None, tokenizers=None, device=None):
     labels (stage 1), drops rows outside the duration window or over the
     text and token caps, optionally saves the features (`save_to_disk`,
     `features.pkl`) and stops (`preprocessing_only`), trains (stage 2), and
-    exports `output_dir/final`."""
+    exports `output_dir/final`.
+
+    Under torchrun's environment (WORLD_SIZE set) it first joins the process
+    group (`parallel.distributed.maybe_init_distributed`: NCCL on the GPU,
+    gloo on the CPU) and runs on `cuda:LOCAL_RANK`; rank 0 alone writes the
+    codec shards, the features and the export."""
     from .arguments import parse_args
     from .data import DataCollatorEncodecWithPadding, convert_dataset_str_to_list
 
     logging.basicConfig(level=logging.INFO)
     model_args, data_args, training_args = parse_args(argv)
-    check_single_device(training_args)
     if tokenizers is None:
         raise ValueError("main needs tokenizers=(description_tokenizer, prompt_tokenizer): "
                          "the port imports no tokenizer library")
     desc_tok, prompt_tok = tokenizers
-    dev = resolve_device(device)
+    rank, n_ranks = maybe_init_distributed(device=device)
+    dev = resolve_device(rank_device(device) if n_ranks > 1 else device)
 
     pipe = ParlerTTSPipeline.from_pretrained(model_args.model_name_or_path, device=dev)
     cfg, codec = pipe.config, pipe.dac
@@ -413,7 +475,7 @@ def main(argv=None, tokenizers=None, device=None):
             codec, audio_batches(), bos_token_id=cfg.decoder.bos_token_id,
             eos_token_id=cfg.decoder.eos_token_id, max_label_length=model_args.max_length,
             hop_length=cfg.audio_encoder.hop_length, save_dir=save_dir,
-            save_steps=data_args.save_codec_steps, device=dev)
+            save_steps=data_args.save_codec_steps, device=dev, write=rank == 0)
 
         # the duration filter on codec frames; the text and token-length caps
         min_frames = data_args.min_duration_in_seconds * frame_rate
@@ -461,7 +523,9 @@ def main(argv=None, tokenizers=None, device=None):
             data_args.eval_split_name, data_args.eval_metadata_dataset_name,
             None, data_args.max_eval_samples, "eval")
 
-    if data_args.save_to_disk:
+    if n_ranks > 1:
+        barrier()  # every rank's stage 1 done before any reads the shards again
+    if data_args.save_to_disk and rank == 0:
         os.makedirs(data_args.save_to_disk, exist_ok=True)
         with open(os.path.join(data_args.save_to_disk, "features.pkl"), "wb") as f:
             pickle.dump({"train": features, "eval": eval_features}, f)
@@ -474,10 +538,13 @@ def main(argv=None, tokenizers=None, device=None):
     run_training(model_args, data_args, training_args, model, features,
                  eval_features=eval_features, dac=codec, tokenizers=(desc_tok, prompt_tok),
                  device=dev)
-    export_and_push(training_args.output_dir, os.path.join(training_args.output_dir, "final"),
-                    cfg, codec,
-                    hub_model_id=training_args.hub_model_id if training_args.push_to_hub
-                    else None)
+    if rank == 0:
+        export_and_push(training_args.output_dir,
+                        os.path.join(training_args.output_dir, "final"), cfg, codec,
+                        hub_model_id=training_args.hub_model_id if training_args.push_to_hub
+                        else None)
+    if n_ranks > 1:
+        barrier()
 
 
 def export_and_push(output_dir: str, export_dir: str, cfg: ParlerTTSConfig,
@@ -520,29 +587,52 @@ def run_eval(state: TrainState, collator, eval_features, training_args: Training
              tracker, step: int, epoch: int) -> Optional[float]:
     """The eval loss of `state.model` (dropout off): batches of
     `per_device_eval_batch_size` rows and a last, smaller one for the
-    remainder, their mean losses weighted by row count; logged under eval/."""
+    remainder, their mean losses weighted by row count; logged under eval/.
+
+    Over a mesh a batch is per-device x world rows (as the JAX loop's) and
+    each data rank computes its share: the per-codebook sums and counts are
+    all-reduced over `data`, so every rank returns the global loss. A
+    remainder is cut to a multiple of the data ranks."""
     model = state.model
     dcfg = model.config.decoder
     device = next(model.parameters()).device
+    mesh = model.mesh
     losses = []  # (the batch's mean loss, its rows)
 
     def run_one(feats):
-        batch = to_device(collator(feats), device)
+        batch = collator(feats)
+        if mesh is not None:
+            rows = local_batch_slice(len(feats), mesh.data.rank, mesh.data.size)
+            batch = type(batch)(*(x[rows] for x in batch))
+        batch = to_device(batch, device)
         logits, dec_in = model(*batch)
-        loss, _ = mean_loss_reference_style(
-            logits, batch.labels, dec_in, bos_token_id=dcfg.bos_token_id,
-            eos_token_id=dcfg.eos_token_id, codebook_weights=dcfg.codebook_weights)
+        kw = dict(bos_token_id=dcfg.bos_token_id, eos_token_id=dcfg.eos_token_id)
+        if mesh is None:
+            loss, _ = mean_loss_reference_style(logits, batch.labels, dec_in,
+                                                codebook_weights=dcfg.codebook_weights, **kw)
+        else:
+            _, _, cb_mean, cb_cnt = per_codebook_cross_entropy(logits, batch.labels, dec_in,
+                                                               **kw)
+            cb_cnt_all = all_reduce_sum(cb_cnt, mesh.data)
+            cb_mean = all_reduce_sum(cb_mean * cb_cnt, mesh.data) / cb_cnt_all.clamp_min(1.0)
+            w = torch.tensor(dcfg.codebook_weights or [1.0] * cb_mean.shape[0],
+                             dtype=torch.float32, device=device)
+            loss = (cb_mean * w).sum() / w.sum()
         losses.append((float(loss), len(feats)))
 
-    bs = training_args.per_device_eval_batch_size
+    n_ranks = world()[1]
+    div = mesh.data.size if mesh is not None else 1
+    bs = training_args.per_device_eval_batch_size * n_ranks
     n_full = (len(eval_features) // bs) * bs
-    for i in range(0, n_full, bs):
-        run_one(eval_features[i: i + bs])
-    if len(eval_features) > n_full:
-        if n_full == 0:
-            logger.warning("eval set (%d) smaller than the eval batch (%d); running one "
-                           "remainder batch", len(eval_features), bs)
-        run_one(eval_features[n_full:])
+    with gathered_params(model):
+        for i in range(0, n_full, bs):
+            run_one(eval_features[i: i + bs])
+        rem = (len(eval_features) - n_full) // div * div
+        if rem:
+            if n_full == 0:
+                logger.warning("eval set (%d) smaller than the eval batch (%d); running one "
+                               "remainder batch", len(eval_features), bs)
+            run_one(eval_features[n_full:n_full + rem])
     if not losses:
         return None
     avg = sum(loss * n for loss, n in losses) / sum(n for _, n in losses)
@@ -558,7 +648,11 @@ def run_eval_generation(state: TrainState, dac: torch.nn.Module, eval_features,
     `ParlerTTSPipeline` over `state.model` (the eager decode loop, kernel K1
     on the card; seed `step`), scored by WER, CLAP and SI-SDR when their
     libraries and models load, logged with the clips. `pipe_cache` keeps the
-    pipeline across eval steps while it serves `state.model`."""
+    pipeline across eval steps while it serves `state.model`.
+
+    Over a mesh every rank generates every clip: over the gathered FSDP
+    parameters, tensor-parallel inside its `model` group, so all ranks
+    produce the same clips; rank 0 scores and logs them."""
     from .eval_metrics import clap_similarity, si_sdr, wer
 
     cfg = state.model.config
@@ -584,11 +678,14 @@ def run_eval_generation(state: TrainState, dac: torch.nn.Module, eval_features,
         max_total_length=(None if cfg.prompt_cross_attention
                           else cfg.decoder.max_position_embeddings))
     batch = coll(feats)
-    audios, lengths = pipe.generate(batch.input_ids, batch.prompt_input_ids,
-                                    desc_mask=batch.attention_mask,
-                                    prompt_mask=batch.prompt_attention_mask, seed=step)
+    with gathered_params(state.model):
+        audios, lengths = pipe.generate(batch.input_ids, batch.prompt_input_ids,
+                                        desc_mask=batch.attention_mask,
+                                        prompt_mask=batch.prompt_attention_mask, seed=step)
     clips = [np.asarray(audios[i, : lengths[i]]) for i in range(len(feats))]
     sr = cfg.audio_encoder.sampling_rate
+    if world()[0] != 0:
+        return {}
 
     metrics = {}
     descriptions = [f.get("description_text", "") for f in feats]

@@ -1,5 +1,5 @@
-"""The train step (port of `parler_tts_tpu/training/train_state.py`,
-single device; the mesh-sharded step is not ported).
+"""The train step (port of `parler_tts_tpu/training/train_state.py`), on one
+device or over a mesh of ranks (`parallel/mesh.py`).
 
 The optimizer reproduces the JAX package's optax chain, not torch's
 defaults:
@@ -28,10 +28,34 @@ forward/backward passes over slices of the batch, sums their raw gradients
 and divides once by the whole batch's count, which is the full-batch step up
 to fp32 summation order. Dropout keys derive from the step's integer seed
 (`models/layers.py:fold_in`), one per micro-batch.
+
+Over a mesh (`make_train_step(mesh=)`, the model sharded by
+`shard_train_state`) each rank is given its `data` share of the batch's
+rows, and its `model` group runs tensor parallelism inside the forward:
+  * the valid-token count, the loss sum and the per-codebook sums are
+    all-reduced over `data`, so the loss divides by the global count, as
+    the JAX psum does; the gradients are summed over `data` (each rank's
+    share already carries the global division), in buckets of one
+    all-reduce each;
+  * dropout masks are drawn for the global batch, each rank keeping its
+    rows (and under tensor parallelism its columns), so a step at dropout
+    0.1 equals the single-process step; with micro-batches each rank's
+    micro-batch i holds its share of its own rows;
+  * `grad_norm` and the clip see the logical global gradient: the squares
+    of a leaf sharded over an axis are summed over that axis's group, a
+    replicated leaf is counted once;
+  * FSDP (`shard_train_state(fsdp=True)`): at rest the parameters and both
+    moments are 1/n_data shards on the dim `fsdp_params_shardings` picks.
+    The step all-gathers the full parameters at its start, reduce-scatters
+    each gradient after the backward, and runs AdamW on the shards. The
+    whole model is gathered at once: per-layer gathering overlapped with
+    compute is not done.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -42,6 +66,9 @@ import torch
 from ..models.layers import fold_in
 from ..models.parler import ParlerTTS
 from ..ops.losses import chunked_per_codebook_cross_entropy, per_codebook_cross_entropy
+from ..parallel.collectives import all_gather_dim, all_reduce_sum, reduce_scatter_dim
+from ..parallel.mesh import fsdp_params_shardings, local_part, params_shardings, shard_params
+from ..parallel.rows import row_share
 
 Schedule = Callable[[int], float]
 ADAM_EPS = 1e-8  # optax.adamw's eps, added after the square root
@@ -107,15 +134,16 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, model: torch.nn.Module, grads: Dict[str, torch.Tensor],
-               state: OptState) -> None:
-        """Apply one step to the model's parameters in place."""
+               state: OptState, norm_fn=None) -> None:
+        """Apply one step to the model's parameters in place. `norm_fn(names,
+        tensors)` is the clip's global norm (default `global_norm`)."""
         names = list(state.mu)
         params = dict(model.named_parameters())
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
         mu = [state.mu[n] for n in names]
         nu = [state.nu[n] for n in names]
-        norm = global_norm(g)
+        norm = global_norm(g) if norm_fn is None else norm_fn(names, g)
         clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                            self.max_grad_norm / norm)
         g = torch._foreach_mul(g, clip)
@@ -206,6 +234,7 @@ class TrainState:
 def make_train_step(
     model: ParlerTTS,
     tx: AdamW,
+    mesh=None,
     loss_chunk_size: Optional[int] = None,
     microbatch_steps: Optional[int] = None,
 ) -> Callable[[TrainState, Batch, int], Tuple[TrainState, Dict[str, torch.Tensor]]]:
@@ -213,11 +242,20 @@ def make_train_step(
     the model's parameters in place. Metrics are device tensors: loss,
     grad_norm, num_items, per_codebook_loss (K,).
 
+    `mesh`: the step over a mesh (module docstring); `batch` is this rank's
+    `data` share of the global batch, the metrics are the global batch's.
     `loss_chunk_size`: fuse the LM heads with the cross-entropy chunk by
     chunk over T (`ops/losses.py:chunked_per_codebook_cross_entropy`)
     instead of materialising (B, K, T, V) logits. `microbatch_steps=G`:
     gradient accumulation over G slices of the batch."""
     dcfg = model.config.decoder
+    if mesh is not None and model.mesh is not mesh:
+        raise ValueError("the model is not sharded on this mesh: shard_train_state first")
+    specs = model.shard_specs
+
+    def total(x: torch.Tensor) -> torch.Tensor:
+        """A sum over the batch: over every `data` rank's rows."""
+        return x if mesh is None else all_reduce_sum(x, mesh.data)
 
     def raw_loss(batch: Batch, key: int):
         out, dec_ids = model(*batch, deterministic=False,
@@ -226,48 +264,185 @@ def make_train_step(
                   codebook_weights=dcfg.codebook_weights)
         if loss_chunk_size is not None:
             sums = chunked_per_codebook_cross_entropy(
-                out, model.decoder.lm_heads, batch.labels, dec_ids, chunk_size=loss_chunk_size,
-                head_dtype=model.dtype, **kw)
+                out, model.decoder.full_heads(), batch.labels, dec_ids,
+                chunk_size=loss_chunk_size, head_dtype=model.dtype, **kw)
         else:
             sums = per_codebook_cross_entropy(out, batch.labels, dec_ids, **kw)
         sum_loss, num_items, per_cb_mean, per_cb_count = sums
         return sum_loss / dcfg.num_codebooks, num_items, per_cb_mean, per_cb_count
 
+    def shared_rows(rows: int):
+        """The row share of a forward over `rows` local rows."""
+        if mesh is None:
+            return contextlib.nullcontext()
+        return row_share(rows * mesh.data.size, rows * mesh.data.rank)
+
     def train_step(state: TrainState, batch: Batch, dropout_seed: int):
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
+        shards = _gather_fsdp(params, specs, mesh)
         g = microbatch_steps or 1
+        rows = batch.input_ids.shape[0]
         if g > 1:
-            rows = batch.input_ids.shape[0]
             if rows % g:
                 raise ValueError(f"batch rows {rows} not divisible by microbatch_steps={g}")
             raw_sum = items = 0.0
             cb_sum = cb_cnt = 0.0
             for i in range(g):
                 part = Batch(*(x[i * rows // g:(i + 1) * rows // g] for x in batch))
-                raw, n, cb_mean, cb_c = raw_loss(part, fold_in(dropout_seed, "micro", i))
-                raw.backward()
+                with shared_rows(rows // g):  # remat's recompute in the backward draws too
+                    raw, n, cb_mean, cb_c = raw_loss(part, fold_in(dropout_seed, "micro", i))
+                    raw.backward()
                 raw_sum, items = raw_sum + raw.detach(), items + n
                 cb_sum, cb_cnt = cb_sum + cb_mean.detach() * cb_c, cb_cnt + cb_c
+            items, raw_sum = total(items), total(raw_sum)
             denom = items.clamp_min(1.0)
             with torch.no_grad():
                 for p in params.values():
                     if p.grad is not None:
                         p.grad /= denom
             loss, num_items = raw_sum / denom, items
-            per_cb = cb_sum / cb_cnt.clamp_min(1.0)
-        else:
+            per_cb = total(cb_sum) / total(cb_cnt).clamp_min(1.0)
+        elif mesh is None:
             raw, num_items, per_cb, _ = raw_loss(batch, dropout_seed)
             loss = raw / num_items.clamp_min(1.0)
             loss.backward()
             loss, per_cb = loss.detach(), per_cb.detach()
+        else:
+            with shared_rows(rows):  # remat's recompute in the backward draws too
+                raw, n, cb_mean, cb_c = raw_loss(batch, dropout_seed)
+                num_items = total(n)
+                (raw / num_items.clamp_min(1.0)).backward()
+            loss = total(raw.detach()) / num_items.clamp_min(1.0)
+            per_cb = total(cb_mean.detach() * cb_c) / total(cb_c).clamp_min(1.0)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
-        metrics = {"loss": loss, "grad_norm": global_norm(list(grads.values())),
-                   "num_items": num_items, "per_codebook_loss": per_cb}
-        tx.update(model, grads, state.opt_state)
+        norm_fn = None
+        if mesh is not None:
+            grads = _reduce_grads(grads, specs, mesh)
+            _restore_fsdp(params, shards)
+            norm_fn = functools.partial(sharded_norm, specs=specs, mesh=mesh)
+        grad_norm = (global_norm(list(grads.values())) if norm_fn is None
+                     else norm_fn(list(grads), list(grads.values())))
+        metrics = {"loss": loss, "grad_norm": grad_norm, "num_items": num_items,
+                   "per_codebook_loss": per_cb}
+        tx.update(model, grads, state.opt_state, norm_fn)
         state.step += 1
         return state, metrics
 
     return train_step
+
+
+# ------------------------------------------------------------------ mesh
+GRAD_BUCKET = 2 ** 26  # elements summed by one all-reduce
+
+
+def _data_dim(spec) -> Optional[int]:
+    return spec.index("data") if "data" in spec else None
+
+
+def _gather_fsdp(params, specs, mesh) -> Dict[str, torch.Tensor]:
+    """FSDP: swap each data-sharded parameter for its all-gathered whole
+    (over `data`; the model shard stays), returning the shards."""
+    shards = {}
+    if mesh is None:
+        return shards
+    with torch.no_grad():
+        for n, p in params.items():
+            dim = _data_dim(specs[n])
+            if dim is not None:
+                shards[n] = p.data
+                p.data = all_gather_dim(p.data, dim, mesh.data)
+    return shards
+
+
+def _restore_fsdp(params, shards) -> None:
+    for n, shard in shards.items():
+        params[n].data = shard
+
+
+@contextlib.contextmanager
+def gathered_params(model: ParlerTTS):
+    """The model with its FSDP shards all-gathered over `data` inside (its
+    `model` shards kept), the shards back after: the evaluation's forward
+    and generation over an FSDP state. A no-op for any other model."""
+    params = dict(model.named_parameters())
+    shards = _gather_fsdp(params, model.shard_specs, model.mesh)
+    try:
+        yield model
+    finally:
+        _restore_fsdp(params, shards)
+
+
+def _reduce_grads(grads, specs, mesh) -> Dict[str, torch.Tensor]:
+    """Sum each gradient over `data`: reduce-scattered to the rank's shard
+    for an FSDP leaf, all-reduced in buckets (per dtype) for the rest."""
+    out = {}
+    bucket: List[str] = []
+
+    def flush():
+        if not bucket:
+            return
+        flat = all_reduce_sum(torch.cat([grads[n].reshape(-1) for n in bucket]), mesh.data)
+        for n, part in zip(bucket, flat.split([grads[n].numel() for n in bucket])):
+            out[n] = part.view_as(grads[n])
+        bucket.clear()
+
+    with torch.no_grad():
+        for n, g in grads.items():
+            dim = _data_dim(specs[n])
+            if dim is not None:
+                out[n] = reduce_scatter_dim(g, dim, mesh.data)
+                continue
+            if bucket and (grads[bucket[0]].dtype != g.dtype or sum(
+                    grads[m].numel() for m in bucket) + g.numel() > GRAD_BUCKET):
+                flush()
+            bucket.append(n)
+        flush()
+    return {n: out[n] for n in grads}
+
+
+def sharded_norm(names: List[str], tensors: List[torch.Tensor], specs, mesh) -> torch.Tensor:
+    """`global_norm` of the logical global tree whose rank shards are
+    `tensors`: the squares of the leaves sharded over an axis are summed
+    over its group, a replicated leaf counted once. With every leaf whole
+    it is `global_norm` itself."""
+    norms = torch._foreach_norm(tensors)
+    by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for n, v in zip(names, norms):
+        axes = tuple(a for a in ("data", "model") if a in specs[n] and mesh.axis(a).size > 1)
+        by_axes.setdefault(axes, []).append(v)
+    if set(by_axes) <= {()}:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    squares = []
+    for axes in sorted(by_axes):  # the same collectives in the same order on every rank
+        sq = torch.stack(by_axes[axes]).square().sum()
+        for a in axes:
+            sq = all_reduce_sum(sq, mesh.axis(a))
+        squares.append(sq)
+    return torch.stack(squares).sum().sqrt()
+
+
+def state_shardings(state: TrainState, mesh, fsdp: bool = False) -> Dict[str, Dict]:
+    """The plan of a TrainState: the parameters' (`params_shardings`, or
+    `fsdp_params_shardings` with `fsdp`), each moment its parameter's; the
+    step and count are host ints."""
+    plan = (fsdp_params_shardings if fsdp else params_shardings)(state.model, mesh)
+    opt = state.opt_state
+    return {"params": plan, "mu": {n: plan[n] for n in opt.mu},
+            "nu": {n: plan[n] for n in opt.nu}}
+
+
+def shard_train_state(state: TrainState, mesh, fsdp: bool = False) -> TrainState:
+    """Slice a full TrainState in place to the rank's shards: the model
+    (`parallel.mesh.shard_params`) and both moments by their parameter's
+    plan. Returns `state`."""
+    plan = state_shardings(state, mesh, fsdp)
+    shard_params(state.model, mesh, fsdp)
+    opt = state.opt_state
+    for key in ("mu", "nu"):
+        moments = getattr(opt, key)
+        for n in moments:
+            moments[n] = local_part(moments[n], plan[key][n], mesh).clone()
+    return state

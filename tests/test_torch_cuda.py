@@ -6,7 +6,9 @@ shard bit for bit), the fused_qkv and weight_quant="xla" modes on CUDA
 tensors, the launch counts of a remat'd train step, what remat_policy="dots"
 keeps on the card, and speculative
 decoding (K1 at the W=24 window, K2 at M = 24 and 48, a greedy fp32 run
-equal to the AR run but at near-ties within 2e-4). Marked `cuda`; without a GPU each test
+equal to the AR run but at near-ties within 2e-4), K1 at a tensor-parallel
+rank's heads, and fp32 greedy generation at TP=2 by two gloo ranks sharing
+the card. Marked `cuda`; without a GPU each test
 skips (a CUDA kernel has no CPU mode). This file imports no JAX, since the
 machine with the card has none. Run there with
 
@@ -177,6 +179,16 @@ def test_kernel_at_the_main_path_shape(cuda):
     length, a left-padded second row: what the mini-v1 decode loop runs."""
     q, k, v = case(cuda, torch.bfloat16, b=2, layers=24, seed=5)
     check(q, k, v, torch.tensor([0, 3], dtype=torch.int32, device=cuda), 868, layer=23)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,layers", [(8, 24), (12, 30)])
+def test_kernel_at_a_tensor_parallel_rank_shape(cuda, dtype, h, layers):
+    """A TP=2 rank's heads: mini-v1's 8 of 16 and large-v1's 12 of 24, B=2
+    over the stacked cache at its last layer, a left-padded second row."""
+    q, k, v = case(cuda, dtype, b=2, h=h, h_kv=h, layers=layers, seed=8)
+    check(q, k, v, torch.tensor([0, 3], dtype=torch.int32, device=cuda), 868,
+          layer=layers - 1)
 
 
 def test_kernel_empty_range_gives_zero(cuda):
@@ -885,3 +897,29 @@ def test_encodec_on_the_gpu_matches_the_cpu(cuda, causal):
     codec = init_codec_params(build_codec(cfg, cuda), torch.Generator(cuda).manual_seed(0))
     clips = (np.random.default_rng(1).normal(size=(2, 16 * 301, 1)) * 0.2).astype(np.float32)
     encodec_check(codec.eval(), clips, torch.cuda.get_device_name(0), "small Encodec")
+
+
+def test_tensor_parallel_greedy_on_the_shared_card(cuda):
+    """Two gloo ranks of `tests/torch_dist_worker.py` share the card (CUDA
+    tensors; gloo carries each collective through the host) and run fp32
+    greedy generation at TP=2 on the tiny config: both return the ids of
+    the single-process run on the card, with K1 on each rank's 2 heads."""
+    from parler_tts_tpu_torch.convert import to_jax_tree
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.runtime.generate import make_generate
+    from torch_dist_worker import launch
+
+    cfg = tiny_config()
+    model = ParlerTTS(cfg, device=cuda)
+    init_weights(model, torch.Generator(device=cuda).manual_seed(0))
+    desc, desc_mask, prompt, prompt_mask = tiny_request()
+    inputs = [torch.as_tensor(x, dtype=torch.int64) for x in
+              (desc, torch.ones_like(torch.as_tensor(desc)), prompt, prompt_mask)]
+    want = make_generate(model, TINY_GEN, torch.float32)(
+        *(x.to(cuda) for x in inputs)).delayed_ids.cpu().numpy()
+    got = launch(2, "generate", {"cfg": cfg, "params": to_jax_tree(model.named_parameters()),
+                                 "device": "cuda", "cases": [dict(
+                                     name="tp2", mesh=(1, 2), gen=TINY_GEN,
+                                     inputs=[x.numpy() for x in inputs])]}, timeout=300)
+    for rank in got:
+        assert (rank["tp2"]["delayed"] == want).all()

@@ -52,4 +52,7 @@ def test_imports_without_jax(target):
                 "parler_tts_tpu_torch.training.data", "parler_tts_tpu_torch.training.arguments",
                 "parler_tts_tpu_torch.training.checkpoints",
                 "parler_tts_tpu_torch.training.eval_metrics",
-                "parler_tts_tpu_torch.utils.logging_utils"} <= set(modules)
+                "parler_tts_tpu_torch.utils.logging_utils",
+                "parler_tts_tpu_torch.parallel.distributed", "parler_tts_tpu_torch.parallel.mesh",
+                "parler_tts_tpu_torch.parallel.collectives",
+                "parler_tts_tpu_torch.parallel.rows"} <= set(modules)

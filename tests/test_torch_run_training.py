@@ -13,8 +13,11 @@ run's losses and parameters, bit for bit; rotation keeps
 `save_total_limit` checkpoints; `export_and_push` writes a directory that
 `from_pretrained` loads with every parameter equal to the last
 checkpoint's, as it loads the JAX package's own export (F4 of ROADMAP
-queue 3: the JAX package's `from_pretrained` cannot); a mesh, FSDP or a
-second process raise NotImplementedError naming ROADMAP item 23.
+queue 3: the JAX package's `from_pretrained` cannot); what the CLI still
+refuses raises, naming it: a mesh larger than the world, a model axis that
+does not divide the heads, the seq axis (ROADMAP item 23b) and tensor
+parallelism with int8 weights (23c). The CLI over more than one process is
+held in `tests/test_torch_parallel_cli.py`.
 """
 
 import dataclasses
@@ -230,17 +233,28 @@ def test_run_training_trains_the_model_passed_in(tmp_path, jax_init, rebuilt):
 
 
 @pytest.mark.parametrize("case", ["mesh_data", "mesh_model", "fsdp", "world_size"])
-def test_more_than_one_device_names_item_23(tmp_path, jax_init, monkeypatch, case):
-    kw = {"mesh_data": dict(mesh_data=2), "mesh_model": dict(mesh_model=2),
-          "fsdp": dict(fsdp=True), "world_size": {}}[case]
-    if case == "world_size":
-        monkeypatch.setenv("WORLD_SIZE", "2")
+def test_more_than_one_device_names_item_23(tmp_path, jax_init, case):
+    """What the CLI still refuses at world 1 (the name is kept from when it
+    refused every mesh): a 2x1x1 mesh over one rank ("mesh_data"), a model
+    axis of 3 over 4 heads ("mesh_model"), a seq axis (ROADMAP item 23b,
+    case "fsdp": the arguments do not expose it, so `check_parallel` is
+    asked) and tensor parallelism with int8 weights (23c, case
+    "world_size")."""
+    kw, n_seq, model, error, match = {
+        "mesh_data": (dict(mesh_data=2), 1, None, ValueError, "mesh 2x1x1 != 1 ranks"),
+        "mesh_model": (dict(mesh_model=3), 1, None, ValueError, "model axis 3 does not divide"),
+        "fsdp": (dict(fsdp=True), 2, None, NotImplementedError, "item 23b"),
+        "world_size": (dict(mesh_model=2), 1, ParlerTTS(port_config(CFG), weight_quant=True),
+                       NotImplementedError, "item 23c"),
+    }[case]
     args = targs(ta, tmp_path, DEVICES, **kw)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        trt.run_training(ta.ModelArguments(), ta.DataTrainingArguments(), args,
-                         port_model(jax_init[1]), FEATURES, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 23"):
-        trt.check_single_device(args)
+    model = model or port_model(jax_init[1])
+    if n_seq == 1:
+        with pytest.raises(error, match=match):
+            trt.run_training(ta.ModelArguments(), ta.DataTrainingArguments(), args, model,
+                             FEATURES, device="cpu")
+    with pytest.raises(error, match=match):
+        trt.check_parallel(args, model, 1, n_seq=n_seq)
 
 
 def test_bad_arguments_and_no_gpu_raise(tmp_path, jax_init, monkeypatch):
