@@ -185,31 +185,41 @@ Builds the port's CUDA kernels with nvcc, then:
       TOL, each timed by graph replay beside its plain version and SDPA with
       the equal boolean mask; K2 at a DP rank's M=1 within `k2_close`; K4
       forward, dq and dk/dv on both routes at H=8 B=2 and H=16 B=1 within
-      `k4_limits`; (p1) NCCL at world size 1 in this process:
+      `k4_limits`; (p1) NCCL at world size 1 in this process, run beside
+      (p2)'s ranks with the train references and world 1's CLI run:
       `make_generate(mesh=make_mesh(1, 1))` over (b)'s request bit-identical
       to (b)'s ids, and one train step over the mesh and under FSDP
       bit-identical (loss, grad_norm, every parameter) to the step without a
       mesh; (p2) two ranks of this script (`--phase-p-rank`) sharing the
       card over gloo on CUDA tensors (NCCL refuses two ranks on one GPU):
       DP=2 bf16 B=2 over 128 columns and TP=2 bf16 over 64 (cut from 860
-      for time) each equal to the single-process run up to its first parting
-      in a row, which must be a near-tie within 4 x the decode step's
-      largest logit move under that partition (measured here); TP=2 fp32
-      B=2 over 128 columns and TP=2 speculative fp32 W=24 B=1 equal to the
-      fp32 AR run but at near-ties of 2e-4, with fewer forwards than
-      columns; DP=2 int8 over K2 at M=1 with exact launch counts; one fp32
-      train step at dropout 0.1 under DP=2, TP=2 and FSDP=2 against the
-      single-process fp32 step: loss and grad_norm within this run's gaps
-      between its bf16 and fp32 steps, num_items exact, the sampled
-      parameters' updates parting on no larger a share than the bf16 and
-      fp32 steps', K4 48 / 24 / 24 a rank on the SIMT route; the CLI at
-      world 2 (`mesh_data=2`, fp32) over (n)'s features for 3 steps and a
-      gathered checkpoint, resumed at world 1 against an uninterrupted
-      world-1 run (losses within phase (i)'s bf16 gap, parameters as the
-      train steps'); decode steps/s, collectives a decode step, host ms a
+      for time), each held to the single-process run at every column (its
+      token forced where they part), each partition's near-tie (the largest
+      change of the one-process top-two gap over 64 teacher-forced decode
+      steps, under TP or for a row alone) no larger than bf16's own (one
+      process's bf16 logits against fp32's over the same steps), and every
+      parting within its partition's near-tie; gloo's bf16 and fp32
+      all-reduce and all-gather on CUDA tensors bit-exact; TP=2 fp32 B=2
+      over 256 columns and TP=2 speculative fp32 W=24 B=1 equal to the fp32
+      AR run but at near-ties of 2e-4, with fewer forwards than columns;
+      DP=2 int8 over K2 at M=1 with exact launch counts; one train step at
+      dropout 0.1 in each mode of P_TRAIN_MODES (DP=2, TP=2 and FSDP=2 in
+      fp32 on K4's SIMT route; DP=2, FSDP=2 and TP=2 in bf16 on its wgmma
+      route; TP=2 bf16 again with its row-parallel partial sums all-reduced
+      in fp32, `fp32_partial_sums`) against the single-process step of its
+      dtype: loss and grad_norm within this run's gaps between its bf16 and
+      fp32 steps (bf16 TP=2's, with and without fp32 partial sums, also
+      within the move between those two steps), num_items
+      exact, the sampled parameters' updates parting on no larger a share
+      than the bf16 and fp32 steps', K4 48 / 24 / 24 a rank on the route of
+      its dtype, and each step's memory a rank by phase with the
+      allocations live at its peak (StepMemory); the CLI at world 2
+      (`mesh_data=2`, fp32) over (n)'s features for 3 steps and a gathered
+      checkpoint, resumed at world 1 against an uninterrupted world-1 run
+      (losses within phase (i)'s bf16 gap, parameters as the train
+      steps'); decode steps/s, collectives a decode step, host ms a
       collective, train ms and peak GiB a rank printed as two processes on
-      one card, not a scaling figure. A collective that gloo lacks for CUDA
-      tensors is named, and its check rests on the CPU tests.
+      one card, not a scaling figure. Any failure of a rank fails (p).
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
@@ -222,6 +232,7 @@ there is no CUDA device, when the port is not beside this script, or when
 any check fails.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -1829,11 +1840,36 @@ def decode_prefix(model, dev, dtype, n_after):
 def decode_step_logits(model, dev, dtype):
     """Logits of one mini-v1 decode step at position S_PROMPT + 430 after a
     prefill of random columns (phase e's int8 step, at `dtype`)."""
-    cache, pos, starts, t, cols = decode_prefix(model, dev, dtype, 1)
+    return decode_steps_logits(model, dev, dtype, 1)
+
+
+def decode_steps_logits(model, dev, dtype, n, row=None):
+    """Logits (B, K, n, V) of n one-column decode steps over the random
+    columns that follow decode_prefix, each step fed the given column
+    (teacher-forced); with `row`, that row's steps alone (M = 1)."""
+    from parler_tts_tpu_torch.models.decoder import DecoderCache
+
+    cache, pos, starts, t, cols = decode_prefix(model, dev, dtype, n)
+    if row is not None:
+        r = slice(row, row + 1)
+        cache = DecoderCache(cache.self_k[:, r].clone(), cache.self_v[:, r].clone(),
+                             cache.cross_k[:, r], cache.cross_v[:, r], cache.index)
+        pos, starts, cols = pos[r], starts[r], cols[r]
+    steps = []
     with torch.inference_mode():
-        return model.decoder(model.decoder.embed_ids(cols), pos[:, t:t + 1],
-                             self_attn_bias=None, cross_attn_bias=None, cache=cache,
-                             decode_lengths=(starts, t + 1))
+        for i in range(n):
+            steps.append(model.decoder(model.decoder.embed_ids(cols[:, :, i:i + 1]),
+                                       pos[:, t + i:t + i + 1], self_attn_bias=None,
+                                       cross_attn_bias=None, cache=cache,
+                                       decode_lengths=(starts, t + i + 1)))
+    return torch.cat(steps, dim=2)
+
+
+def top_two_moves(ref, other):
+    """The change, from logits `ref` to `other` (..., V), of the gap between
+    `ref`'s top two logits, at every position."""
+    top = ref.float().topk(2, dim=-1).indices
+    return (other.float().gather(-1, top) - ref.float().gather(-1, top)).diff(dim=-1).abs()
 
 
 def window_vs_steps(model, dev, w, n_windows):
@@ -2697,8 +2733,7 @@ def window_tie(label, model, dev, w):
     largest change, from the one-column steps to the window forwards, of the
     gap between the steps' top two logits (each row, codebook and column)."""
     window, steps = window_vs_steps(model, dev, w, 4)
-    top = steps.float().topk(2, dim=-1).indices
-    moved = (window.float().gather(-1, top) - steps.float().gather(-1, top)).diff(dim=-1).abs()
+    moved = top_two_moves(steps, window)
     q = moved.flatten().quantile(torch.tensor([0.5, 0.99], device=dev)).tolist()
     tie = moved.max().item()
     print(f"  {label} near-tie limit: the window forward moves the steps' top-two gap by at most "
@@ -3769,19 +3804,29 @@ def phase_o(dev, card, codec_cfg=None, decoder=None, columns=ENCODEC_COLUMNS):
 # ----------------------------------------------------------- parallelism
 # (p2)'s runs, cut for time: at TP=2 each of the 73 collectives of a decode step
 # goes through the host (gloo on CUDA tensors; 1.5-2.2 ms each on an H100 80GB
-# HBM3 at 700 W), and the whole script ran 1,058 s of its 1,200 with bf16 runs
-# of 128 / 256 columns and fp32 ones of 256
-P_FP32_COLUMNS = 128      # fp32 greedy TP=2 and speculative runs
+# HBM3 at 700 W). The bf16 runs are held to the one-process run at every
+# column (SampleHook forces the reference's token where they part), so 64
+# columns compare 62 columns' decisions
+P_FP32_COLUMNS = 256      # fp32 greedy TP=2 and speculative runs
 P_INT8_COLUMNS = 128      # int8 DP=2 run
 P_TP_COLUMNS, P_DP_COLUMNS = 64, 128  # bf16 greedy runs (phase (b): 860)
 P_WARM_COLUMNS = 16       # a warm-up run before each timed bf16 run (> 9 codebooks)
+P_TIE_STEPS = 64          # teacher-forced decode steps that measure a partition's near-tie
 P_WINDOW = 24
 P_TRAIN_LR = 1e-4         # (p1, p2) one train step at a constant lr (no warmup)
 P_SAMPLES = 4096          # (p2) sampled entries a leaf in the parameter comparisons
-P_RANKS_TIMEOUT_S = 540
-# a collective the gloo backend may lack for CUDA tensors: (p2) names it and the
-# check that needs it rests on the CPU tests (tests/test_torch_parallel_*.py)
-GLOO_LACKS = ("not supported", "unsupported", "does not support", "not implemented")
+P_RANKS_TIMEOUT_S = 600
+# (p2)'s train steps: label, (n_data, n_model), fsdp, compute dtype, and whether
+# the row-parallel partial sums are all-reduced in fp32 (fp32_partial_sums)
+P_TRAIN_MODES = (
+    ("DP=2 fp32", (2, 1), False, torch.float32, False),
+    ("TP=2 fp32", (1, 2), False, torch.float32, False),
+    ("FSDP=2 fp32", (2, 1), True, torch.float32, False),
+    ("DP=2 bf16", (2, 1), False, torch.bfloat16, False),
+    ("FSDP=2 bf16", (2, 1), True, torch.bfloat16, False),
+    ("TP=2 bf16", (1, 2), False, torch.bfloat16, False),
+    ("TP=2 bf16, fp32 partial sums", (1, 2), False, torch.bfloat16, True),
+)
 
 
 def k1_sharded(dev, card, label, h, b, n_layers, w=None):
@@ -3998,15 +4043,15 @@ def update_flips(a, b, lr):
     return flips / n, worst
 
 
-def phase_p2_refs(dev, card, source, out_b):
-    """The main process's references for (p2): the fp32 AR run over 256
-    columns, the bf16 decode-step logit gaps of DP (a row alone) and of
-    the whole model, and one single-process train step in bf16 and fp32."""
+def phase_p2_refs(dev, card, source):
+    """The main process's generation references for (p2): the fp32 AR run
+    over P_FP32_COLUMNS, the bf16 runs the ranks are held to, the
+    one-process logits of P_TIE_STEPS teacher-forced bf16 decode steps (TP's
+    near-tie is read against them), bf16's own near-tie (those steps against
+    fp32's) and a row alone's (DP)."""
     import dataclasses
 
-    from parler_tts_tpu_torch.models.decoder import DecoderCache
     from parler_tts_tpu_torch.runtime.generate import make_generate
-    from parler_tts_tpu_torch.training import Batch, make_train_step
 
     request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
     gen32 = dataclasses.replace(source.generation_config, max_length=P_FP32_COLUMNS,
@@ -4014,35 +4059,43 @@ def phase_p2_refs(dev, card, source, out_b):
     fp32 = fp32_copy(source.model, dev)
     with torch.inference_mode():
         ar32 = make_generate(fp32, gen32, torch.float32)(*request).delayed_ids
+    tie_steps32 = decode_steps_logits(fp32, dev, torch.float32, P_TIE_STEPS)
+    del fp32
+    torch.cuda.empty_cache()
     ar16 = {}
     for cols in (P_TP_COLUMNS, P_DP_COLUMNS):
         g = dataclasses.replace(source.generation_config, max_length=cols, min_new_tokens=cols)
         ar16[cols] = (g, make_generate(source.model, g, torch.bfloat16)(*request).delayed_ids)
 
-    # DP: a rank's decode step over its row alone (M = 1) against the B=2 step
+    # near-ties over the same teacher-forced steps: bf16's own (one process's
+    # bf16 logits against fp32's) and DP's (a rank decodes its row alone, M = 1)
     model = source.model
-    cache, pos, starts, t, cols = decode_prefix(model, dev, torch.bfloat16, 1)
-    rows = [DecoderCache(cache.self_k[:, r:r + 1].clone(), cache.self_v[:, r:r + 1].clone(),
-                         cache.cross_k[:, r:r + 1], cache.cross_v[:, r:r + 1], cache.index)
-            for r in range(BATCH)]
-    with torch.inference_mode():
-        both = model.decoder(model.decoder.embed_ids(cols), pos[:, t:t + 1],
-                             self_attn_bias=None, cross_attn_bias=None, cache=cache,
-                             decode_lengths=(starts, t + 1))
-        dp_gap = max(float((model.decoder(
-            model.decoder.embed_ids(cols[r:r + 1]), pos[r:r + 1, t:t + 1], self_attn_bias=None,
-            cross_attn_bias=None, cache=rows[r], decode_lengths=(starts[r:r + 1], t + 1))
-            - both[r:r + 1]).abs().max()) for r in range(BATCH))
-    whole = decode_step_logits(model, dev, torch.bfloat16)
-    del fp32, cache, rows
-    torch.cuda.empty_cache()
+    tie_steps = decode_steps_logits(model, dev, torch.bfloat16, P_TIE_STEPS)
+    bf16_moves = top_two_moves(tie_steps, tie_steps32)
+    dp_tie = max(top_two_moves(tie_steps[r:r + 1], decode_steps_logits(
+        model, dev, torch.bfloat16, P_TIE_STEPS, row=r)).max().item() for r in range(BATCH))
+    del tie_steps32
+    print(f"  references: over {P_TIE_STEPS} teacher-forced decode steps the bf16 logits move "
+          f"the top-two gap from fp32's by at most {bf16_moves.max().item():.3e} (median "
+          f"{bf16_moves.median().item():.3e}), a row alone by at most {dp_tie:.3e} ({card})")
+    return dict(ar32=ar32, ar16=ar16, dp_tie=dp_tie, bf16_tie=bf16_moves.max().item(),
+                tie_steps=tie_steps.float().cpu())
 
-    # one train step at dropout 0.1, in bf16 and in fp32 compute
+
+def p2_train_refs(dev, card):
+    """One single-process train step at dropout 0.1 over phase (i)'s batch,
+    in bf16, in fp32 and in bf16 with fp32 products at the sites TP makes
+    row-parallel (fp32_partial_sums): the references of (p2)'s steps."""
+    from parler_tts_tpu_torch.training import Batch, make_train_step
+
     batch, train = train_batch(dev), {}
-    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+    for label, dtype, fp32_sums in (("bf16", torch.bfloat16, False),
+                                    ("fp32", torch.float32, False),
+                                    ("bf16, fp32 products", torch.bfloat16, True)):
         model_t, tx, state = p_train_model(dev, dtype, p_train_config())
         positions = sample_positions(model_t)
-        _, metrics = make_train_step(model_t, tx)(state, Batch(*batch), 0)
+        with fp32_partial_sums(model_t) if fp32_sums else contextlib.nullcontext():
+            _, metrics = make_train_step(model_t, tx)(state, Batch(*batch), 0)
         train[label] = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
                             num_items=float(metrics["num_items"]),
                             params=sampled_entries(model_t.named_parameters(), positions))
@@ -4052,12 +4105,160 @@ def phase_p2_refs(dev, card, source, out_b):
     train["flips"] = flips
     print(f"  references: one mini-v1 train step at dropout 0.1, bf16 loss "
           f"{train['bf16']['loss']:.6f} grad_norm {train['bf16']['grad_norm']:.6f}, fp32 loss "
-          f"{train['fp32']['loss']:.6f} grad_norm {train['fp32']['grad_norm']:.6f}; the bf16 "
-          f"and fp32 steps' updates part on {flips:.3%} of the sampled entries (largest "
-          f"{worst:.2e}); a bf16 decode step of one row alone moves the logits by "
-          f"{dp_gap:.3e} ({card})")
-    return dict(ar32=ar32, ar16=ar16, dp_gap=dp_gap, whole_logits=whole.float().cpu(),
-                train=train, positions=positions)
+          f"{train['fp32']['loss']:.6f} grad_norm {train['fp32']['grad_norm']:.6f}, bf16 with "
+          f"fp32 products at the row-parallel sites loss "
+          f"{train['bf16, fp32 products']['loss']:.6f} grad_norm "
+          f"{train['bf16, fp32 products']['grad_norm']:.6f}; the bf16 and fp32 steps' updates "
+          f"part on {flips:.3%} of the sampled entries (largest {worst:.2e}) ({card})")
+    return train
+
+
+@contextlib.contextmanager
+def fp32_partial_sums(model):
+    """A diagnostic of (p2)'s bf16 train steps: inside it, the projections
+    that tensor parallelism makes row-parallel (the decoder's out_proj and
+    fc2, T5's o and wo) form their products in fp32 from the operands
+    rounded to the compute dtype (fp32 holds those products exactly) and
+    round the sum once: a tensor-parallel `model` all-reduces its fp32
+    partial sums and rounds after, one process rounds its product. The port
+    itself rounds each rank's partial sum to bf16 and all-reduces in bf16;
+    one process's bf16 product is cuBLAS's."""
+    from unittest import mock
+
+    from parler_tts_tpu_torch.models import decoder, t5_encoder
+    from parler_tts_tpu_torch.parallel import collectives
+
+    def fp32_product(dense, whole):
+        def forward(x):
+            y = x.to(dense.dtype).float() @ dense.kernel.to(dense.dtype).float()
+            return y.to(dense.dtype) if whole else y
+        return forward
+
+    def rounded(y, shard):
+        return collectives.reduce_from(y, shard).to(model.dtype)
+
+    rows = ([(m, m.out_proj) for m in model.modules() if isinstance(m, decoder.Attention)]
+            + [(m, m.fc2) for m in model.modules() if isinstance(m, decoder.DecoderLayer)]
+            + [(m, m.o) for m in model.modules() if isinstance(m, t5_encoder.T5SelfAttention)]
+            + [(m, m.wo) for m in model.modules() if isinstance(m, t5_encoder.T5FeedForward)])
+    if any(d.bias is not None or d.__class__.__name__ != "Dense" for _, d in rows):
+        raise AssertionError("fp32_partial_sums: a row-parallel projection is not a bias-free "
+                             "Dense")
+    for owner, d in rows:
+        d.forward = fp32_product(d, owner.tp is None)
+    try:
+        with mock.patch.object(decoder, "reduce_from", rounded), \
+                mock.patch.object(t5_encoder, "reduce_from", rounded):
+            yield len(rows)
+    finally:
+        for _, d in rows:
+            del d.forward
+
+
+def block_kinds(model):
+    """{allocator block bytes: what a block of that size may hold}: a
+    parameter as this rank holds it or gathered over two ranks, in fp32 or
+    bf16 (the allocator rounds a block up to 512 bytes)."""
+    kinds = {}
+    for name, p in model.named_parameters():
+        for times, whose in ((1, "a rank's"), (2, "a gathered")):
+            for dtype, width in (("fp32", 4), ("bf16", 2)):
+                size = -(-p.numel() * times * width // 512) * 512
+                kind = f"{dtype} {whose}"
+                seen = kinds.setdefault(size, [[], name])[0]
+                if kind not in seen:
+                    seen.append(kind)
+    return {size: f"{' or '.join(k)} parameter, e.g. {name}" for size, (k, name) in kinds.items()}
+
+
+def peak_sites(trace, kinds, top=6):
+    """(bytes above the recording's start at the recorded peak, its largest
+    groups of live allocations as (bytes, blocks, what)) from one device's
+    allocator trace (`torch.cuda.memory._snapshot()["device_traces"]`),
+    replaying its alloc and free_completed events. Blocks are grouped by
+    size, named by `kinds` (block_kinds) where a parameter has that size."""
+    cur = peak = 0
+    at = -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            cur += e["size"]
+        elif e["action"] == "free_completed":
+            cur -= e["size"]
+        if cur > peak:
+            peak, at = cur, i
+    live = {}
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_completed":
+            live.pop(e["addr"], None)
+    groups = {}
+    for e in live.values():
+        what = f"{e['size'] / 2**20:.2f} MiB blocks" + (
+            f" ({kinds[e['size']]})" if e["size"] in kinds else "")
+        size, n = groups.get(what, (0, 0))
+        groups[what] = (size + e["size"], n + 1)
+    return peak, sorted(((size, n, what) for what, (size, n) in groups.items()),
+                        reverse=True)[:top]
+
+
+class StepMemory:
+    """One train step's device memory in this process, by phase: at rest
+    (the placed state), held after the model's forward (what the backward
+    needs), the peak before the optimizer (forward, backward, gradient
+    collectives), the step's peak; and the allocations live at the peak
+    (peak_sites over the allocator's alloc and free events, recorded inside
+    it without tracebacks: capturing python stacks broke remat's recompute
+    on autograd's thread)."""
+
+    def __init__(self, model, tx):
+        self.model, self.tx = model, tx
+
+    def __enter__(self):
+        forward, update = self.model.forward, self.tx.update
+
+        def held_forward(*a, **k):
+            out = forward(*a, **k)
+            self.after_forward = torch.cuda.memory_allocated()
+            return out
+
+        def peaked_update(*a, **k):
+            self.before_update = torch.cuda.max_memory_allocated()
+            return update(*a, **k)
+
+        self.model.forward, self.tx.update = held_forward, peaked_update
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        self.rest = torch.cuda.memory_allocated()
+        self.kinds = block_kinds(self.model)
+        torch.cuda.memory._record_memory_history(context=None, max_entries=2_000_000)
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.peak = torch.cuda.max_memory_allocated()
+        snap = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(enabled=None)
+        del self.model.forward, self.tx.update
+        grown, self.sites = peak_sites(snap["device_traces"][torch.cuda.current_device()],
+                                       self.kinds)
+        self.replayed = self.rest + grown
+
+    def numbers(self):
+        gib = 2.0 ** 30
+        return dict(rest_gib=self.rest / gib, after_forward_gib=self.after_forward / gib,
+                    before_update_peak_gib=self.before_update / gib, peak_gib=self.peak / gib,
+                    replayed_peak_gib=self.replayed / gib,
+                    sites=[(b / gib, n, what) for b, n, what in self.sites])
+
+    @staticmethod
+    def line(m):
+        return (f"at rest {m['rest_gib']:.2f} GiB, held after the forward "
+                f"{m['after_forward_gib']:.2f}, peak before the optimizer "
+                f"{m['before_update_peak_gib']:.2f}, peak {m['peak_gib']:.2f} (replayed "
+                f"{m['replayed_peak_gib']:.2f}); live at the peak: "
+                + "; ".join(f"{b:.2f} GiB in {n} {what}" for b, n, what in m["sites"]))
 
 
 def p_train_config():
@@ -4069,11 +4270,14 @@ def p_train_config():
     return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, dropout=0.1))
 
 
-def launch_ranks(payload, card):
+def launch_ranks(payload, card, meanwhile):
     """Two ranks of `chip_smoke.py --phase-p-rank` sharing the card over gloo
-    (LOCAL_RANK 0 for both); their results, in rank order. Each rank's
-    output is printed; a rank that fails, or a pair that outlives
-    P_RANKS_TIMEOUT_S, fails the phase (the ranks are killed)."""
+    (LOCAL_RANK 0 for both), with `meanwhile()` run in this process beside
+    them (work that needs no rank's result: gloo holds the ranks on the
+    host, so the card has room). Returns (the ranks' results in rank order,
+    meanwhile's result). Each rank's output is printed; a rank that fails,
+    or a pair that outlives P_RANKS_TIMEOUT_S, fails the phase (the ranks
+    are killed, as they are when `meanwhile` fails)."""
     import os
     import pickle
     import socket
@@ -4086,21 +4290,30 @@ def launch_ranks(payload, card):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = str(s.getsockname()[1])
-        procs = [subprocess.Popen(
-            [sys.executable, __file__, "--phase-p-rank", tmp],
-            env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
-                     MASTER_ADDR="127.0.0.1", MASTER_PORT=port),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        deadline, logs = time.monotonic() + P_RANKS_TIMEOUT_S, []
+        logs = [os.path.join(tmp, f"log-{r}.txt") for r in range(2)]
+        procs = []
+        for r in range(2):
+            with open(logs[r], "w") as log:  # a file, so a rank never waits on a full pipe
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, "--phase-p-rank", tmp],
+                    env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+                             MASTER_ADDR="127.0.0.1", MASTER_PORT=port),
+                    stdout=log, stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + P_RANKS_TIMEOUT_S
         try:
+            mine = meanwhile()
             for p in procs:
-                logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
         except subprocess.TimeoutExpired:
-            for p in procs:
-                p.kill()
-                p.wait()
             raise AssertionError(f"(p2) ranks did not finish in {P_RANKS_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
         for r, (p, log) in enumerate(zip(procs, logs)):
+            with open(log) as f:
+                log = f.read()
             for line in log.splitlines():
                 if r == 0 or p.returncode != 0 or "rank 1" in line:
                     print(f"  [rank {r}] {line}")
@@ -4110,7 +4323,7 @@ def launch_ranks(payload, card):
         for r in range(2):
             with open(os.path.join(tmp, f"result-{r}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
-        return out
+        return out, mine
 
 
 def phase_p_rank(tmp):
@@ -4140,12 +4353,24 @@ def phase_p_rank(tmp):
         payload = pickle.load(f)
     dev = torch.device(payload["device"])  # LOCAL_RANK 0 on both ranks: the one card
     rank, _ = maybe_init_distributed(backend="gloo", device=dev.type)
-    res = {"lacks": []}
+    res = {}
     say = (lambda *a: print(*a, flush=True)) if rank == 0 else (lambda *a: None)
     request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
     gen = payload["gen"]
     cfg = mini_v1_config()
     n_layers = cfg.decoder.num_hidden_layers
+
+    # the bf16 and fp32 all-reduce and all-gather on CUDA tensors over gloo, bit
+    # for bit against the sum and concatenation of both ranks' seeded tensors
+    both = make_mesh(2, 1, device=dev).data
+    exact = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        parts = [torch.randn(1 << 20, generator=torch.Generator(device=dev).manual_seed(100 + r),
+                             device=dev).to(dtype) for r in range(2)]
+        exact[str(dtype)] = (
+            torch.equal(collectives.all_reduce_sum(parts[rank], both), parts[0] + parts[1])
+            and torch.equal(collectives.all_gather_dim(parts[rank], 0, both), torch.cat(parts)))
+    res["collectives_exact"] = exact
 
     def served(fn, args, columns):
         collectives.STATS.update(calls=0, seconds=0.0)
@@ -4162,22 +4387,33 @@ def phase_p_rank(tmp):
                          host_ms_per_collective=(collectives.STATS["seconds"]
                                                  / max(collectives.STATS["calls"], 1) * 1e3))
 
-    def serve_modes(model, mesh, label, columns):
+    def serve_modes(model, mesh, label, columns, want):
+        """A bf16 B=2 run over `columns` after a warm-up, held to `want`
+        (the one-process run) at every column: SampleHook records where
+        this rank's rows part from it, as (column, row of `want`,
+        codebook, own token, wanted token, gap) and forces the wanted
+        token."""
         warm = dataclasses.replace(gen, max_length=P_WARM_COLUMNS, min_new_tokens=P_WARM_COLUMNS)
         make_generate(model, warm, torch.bfloat16, mesh=mesh)(*request)
         g = dataclasses.replace(gen, max_length=columns, min_new_tokens=columns)
-        out, num = served(make_generate(model, g, torch.bfloat16, mesh=mesh), request, columns)
-        say(f"{label} bf16 B=2 over {columns} columns: {num['steps_per_s']:.1f} decode "
-            f"steps/s, K1 {num['k1']} launches on this rank (24 x {columns - 2}: "
-            f"{num['k1'] == num['k1_want']}), {num['collectives_per_step']:.1f} collectives a "
-            f"decode step, {num['host_ms_per_collective']:.3f} host ms each")
-        return out.delayed_ids.cpu(), num
+        first = mesh.data.rank * BATCH // mesh.data.size
+        with SampleHook(want=want[first:first + BATCH // mesh.data.size].to(dev)) as hook:
+            out, num = served(make_generate(model, g, torch.bfloat16, mesh=mesh), request,
+                              columns)
+        partings = [(t, b + first, *rest) for t, b, *rest in hook.partings]
+        say(f"{label} bf16 B=2 over {columns} columns (the check hook syncs each step): "
+            f"{num['steps_per_s']:.1f} decode steps/s, K1 {num['k1']} launches on this rank "
+            f"(24 x {columns - 2}: {num['k1'] == num['k1_want']}), "
+            f"{num['collectives_per_step']:.1f} collectives a decode step, "
+            f"{num['host_ms_per_collective']:.3f} host ms each; {len(partings)} tokens of this "
+            f"rank's rows forced to the one-process run's")
+        return out.delayed_ids.cpu(), num, partings
 
     # ---- DP=2: each rank one row of (b)'s request, the whole bf16 model
     model = ParlerTTS(cfg, device=dev, dtype=torch.bfloat16)
     init_weights(model, torch.Generator(device=dev).manual_seed(0))
     dp = make_mesh(2, 1, device=dev)
-    res["dp2_bf16"] = serve_modes(model, dp, "DP=2", P_DP_COLUMNS)
+    res["dp2_bf16"] = serve_modes(model, dp, "DP=2", P_DP_COLUMNS, payload["want_dp"])
     # ---- TP=2 fp32: greedy B=2 and speculative W=24 B=1 (row 0)
     tp = make_mesh(1, 2, device=dev)
     fp32 = ParlerTTS(cfg, device=dev, dtype=torch.float32)
@@ -4203,9 +4439,8 @@ def phase_p_rank(tmp):
     del fp32, spec
     # ---- TP=2 bf16 over (b)'s request, and its decode-step logits
     shard_params(model, tp)
-    res["tp2_bf16"] = serve_modes(model, tp, "TP=2", P_TP_COLUMNS)
-    logits = decode_step_logits(model, dev, torch.bfloat16)
-    res["tp2_logits"] = logits.float().cpu()
+    res["tp2_bf16"] = serve_modes(model, tp, "TP=2", P_TP_COLUMNS, payload["want_tp"])
+    res["tp2_steps"] = decode_steps_logits(model, dev, torch.bfloat16, P_TIE_STEPS).float().cpu()
     del model
     torch.cuda.empty_cache()
     # ---- K2 under DP: int8 weights, each rank one row over 256 columns
@@ -4221,54 +4456,43 @@ def phase_p_rank(tmp):
     del q8
     torch.cuda.empty_cache()
 
-    # ---- one fp32 train step per mode at dropout 0.1 over phase (i)'s batch (K4
-    # on its SIMT route): TP's partial sums round otherwise than one process's,
-    # so bf16 steps would differ by bf16 noise, which fp32 steps measure
+    # ---- one train step per mode of P_TRAIN_MODES at dropout 0.1 over phase (i)'s batch
     batch = train_batch(dev)
     res["train"] = {}
-    for mode, shape, fsdp in (("DP=2", (2, 1), False), ("TP=2", (1, 2), False),
-                              ("FSDP=2", (2, 1), True)):
+    for mode, shape, fsdp, dtype, fp32_sums in P_TRAIN_MODES:
         mesh = make_mesh(*shape, device=dev)
-        tmodel, tx, state = p_train_model(dev, torch.float32, p_train_config())
+        tmodel, tx, state = p_train_model(dev, dtype, p_train_config())
         positions = sample_positions(tmodel)
-        try:
-            shard_train_state(state, mesh, fsdp=fsdp)
-            rows = slice(mesh.data.rank * BATCH // mesh.data.size,
-                         (mesh.data.rank + 1) * BATCH // mesh.data.size)
-            for key in flash_attention.launches:
-                flash_attention.launches[key] = flash_attention.launches_wgmma[key] = 0
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        shard_train_state(state, mesh, fsdp=fsdp)
+        rows = slice(mesh.data.rank * BATCH // mesh.data.size,
+                     (mesh.data.rank + 1) * BATCH // mesh.data.size)
+        for key in flash_attention.launches:
+            flash_attention.launches[key] = flash_attention.launches_wgmma[key] = 0
+        step = make_train_step(tmodel, tx, mesh=mesh)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with contextlib.ExitStack() as stack:
+            if fp32_sums:
+                stack.enter_context(fp32_partial_sums(tmodel))
+            memory = stack.enter_context(StepMemory(tmodel, tx))
             start.record()
-            state, metrics = make_train_step(tmodel, tx, mesh=mesh)(
-                state, Batch(*(x[rows] for x in batch)), 0)
+            state, metrics = step(state, Batch(*(x[rows] for x in batch)), 0)
             end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            specs = tmodel.shard_specs
-            params = sampled_entries(((n, gather_full(p.detach(), specs[n], mesh))
-                                      for n, p in tmodel.named_parameters()), positions)
-        except RuntimeError as e:
-            if not any(x in str(e) for x in GLOO_LACKS):
-                raise
-            res["lacks"].append(f"{mode}: {str(e).splitlines()[0]}")
-            say(f"{mode}: gloo lacks a collective for CUDA tensors: {str(e).splitlines()[0]}")
-            del tmodel, tx, state
-            torch.cuda.empty_cache()
-            continue
+        ms = start.elapsed_time(end)
+        specs = tmodel.shard_specs
+        params = sampled_entries(((n, gather_full(p.detach(), specs[n], mesh))
+                                  for n, p in tmodel.named_parameters()), positions)
         res["train"][mode] = dict(loss=float(metrics["loss"]),
                                   grad_norm=float(metrics["grad_norm"]),
-                                  num_items=float(metrics["num_items"]), ms=ms, peak_gib=peak,
+                                  num_items=float(metrics["num_items"]), ms=ms,
+                                  memory=memory.numbers(),
                                   k4=dict(flash_attention.launches),
                                   k4_wgmma=dict(flash_attention.launches_wgmma),
                                   params=params if rank == 0 else None)
         say(f"{mode} train step: loss {float(metrics['loss']):.6f}, grad_norm "
-            f"{float(metrics['grad_norm']):.6f}, {ms:.1f} ms, peak {peak:.2f} GiB on this "
-            f"rank, K4 {dict(flash_attention.launches)} on this rank")
-        del tmodel, tx, state, params
+            f"{float(metrics['grad_norm']):.6f}, {ms:.1f} ms (the memory recorder on), K4 "
+            f"{dict(flash_attention.launches)} on this rank; memory on this rank: "
+            + StepMemory.line(res["train"][mode]["memory"]))
+        del tmodel, tx, state, params, step, memory
         torch.cuda.empty_cache()
 
     # ---- the CLI at world 2 (mesh_data=2) over phase (n)'s features, fp32: 3
@@ -4287,19 +4511,32 @@ def phase_p_rank(tmp):
 
     rt.log_metric = record
     t0 = time.perf_counter()
-    try:
-        _, step = rt.run_training(margs, dargs, targs, cli_model, payload["cli_features"],
-                                  device=dev)
-        res["cli"] = dict(losses=losses, step=step, seconds=time.perf_counter() - t0)
-        say(f"CLI at world 2 (mesh_data=2): {step} steps, losses {losses}, "
-            f"{time.perf_counter() - t0:.1f} s with the checkpoint")
-    except RuntimeError as e:
-        if not any(x in str(e) for x in GLOO_LACKS):
-            raise
-        res["lacks"].append(f"CLI: {str(e).splitlines()[0]}")
+    _, step = rt.run_training(margs, dargs, targs, cli_model, payload["cli_features"], device=dev)
+    res["cli"] = dict(losses=losses, step=step, seconds=time.perf_counter() - t0)
+    say(f"CLI at world 2 (mesh_data=2): {step} steps, losses {losses}, "
+        f"{time.perf_counter() - t0:.1f} s with the checkpoint")
     with open(os.path.join(tmp, f"result-{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     torch.distributed.destroy_process_group()
+
+
+def cli_losses(rt, margs, dargs, targs, model, features, dev):
+    """`rt.run_training` over `features` with its train losses recorded:
+    (losses, final state, final step)."""
+    losses = []
+    log = rt.log_metric
+
+    def record(tracker, metrics, *a, prefix="train", **k):
+        if prefix == "train":
+            losses.append(float(metrics["loss"]))
+        return log(tracker, metrics, *a, prefix=prefix, **k)
+
+    rt.log_metric = record
+    try:
+        state, step = rt.run_training(margs, dargs, targs, model, features, device=dev)
+    finally:
+        rt.log_metric = log
+    return losses, state, step
 
 
 def phase_p(dev, card, source, out_b, loss_gap, cli):
@@ -4326,12 +4563,9 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
     t0 = time.perf_counter()
     p0 = phase_p0(dev, card)
     print(f"  (p0) kernels at the sharded shapes: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    phase_p1(dev, card, source, out_b)
-    print(f"  (p1) NCCL at world size 1: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    refs = phase_p2_refs(dev, card, source, out_b)
+    refs = phase_p2_refs(dev, card, source)
     cfg_n, (margs, dargs, targs), feats = cli["cfg"], cli["args"], cli["features"]
     root = tempfile.mkdtemp()
     try:
@@ -4340,14 +4574,45 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
         w2 = dataclasses.replace(targs, output_dir=os.path.join(root, "w2"), max_steps=3,
                                  save_steps=3, save_total_limit=None, eval_steps=100,
                                  mesh_data=2, dtype="float32")
+        w1 = dataclasses.replace(w2, mesh_data=None, max_steps=4, save_steps=100,
+                                 per_device_train_batch_size=2 * w2.per_device_train_batch_size)
+        base = ParlerTTSPipeline.from_random(cfg_n, seed=0, device=dev).model
         payload = dict(device=str(dev), gen=source.generation_config, cli_cfg=cfg_n,
-                       cli_args=(margs, dargs, w2), cli_features=feats["train"])
-        ranks = launch_ranks(payload, card)
+                       cli_args=(margs, dargs, w2), cli_features=feats["train"],
+                       want_tp=refs["ar16"][P_TP_COLUMNS][1].cpu(),
+                       want_dp=refs["ar16"][P_DP_COLUMNS][1].cpu())
+
+        def meanwhile():
+            """This process's work that needs no rank's result: (p1), the
+            train references and world 1's uninterrupted CLI run."""
+            t = time.perf_counter()
+            phase_p1(dev, card, source, out_b)
+            print(f"  (p1) NCCL at world size 1, beside the ranks: "
+                  f"{time.perf_counter() - t:.2f} s")
+            train = p2_train_refs(dev, card)
+            losses, state_a, _ = cli_losses(rt, margs, dargs, dataclasses.replace(
+                w1, output_dir=os.path.join(root, "w1")), copy.deepcopy(base), feats["train"],
+                dev)
+            params_a = sampled_entries(state_a.model.named_parameters(),
+                                       sample_positions(state_a.model))
+            del state_a
+            shutil.rmtree(os.path.join(root, "w1"))
+            torch.cuda.empty_cache()
+            return train, losses, params_a
+
+        (r0, r1), (t_ref, run_a, params_a) = launch_ranks(payload, card, meanwhile)
         print(f"  (p2) two ranks on the shared card: {time.perf_counter() - t0:.2f} s")
-        r0, r1 = ranks
-        for lack in r0["lacks"] + r1["lacks"]:
-            print(f"  (p2) gloo lacks a collective for CUDA tensors, the check rests on the "
-                  f"CPU tests: {lack}")
+        modes = [m[0] for m in P_TRAIN_MODES]
+        missing = [f"rank {i}: {k}" for i, r in enumerate((r0, r1))
+                   for k in ["cli"] + [f"train {m}" for m in modes]
+                   if (k not in r if k == "cli" else k[6:] not in r["train"])]
+        if missing:
+            raise AssertionError(f"(p2) results missing: {missing}")
+
+        exact = [r["collectives_exact"] for r in (r0, r1)]
+        print(f"  gloo on CUDA tensors: all-reduce and all-gather of 2^20 seeded values a rank "
+              f"bit-identical to their sum and concatenation: {exact}")
+        need(all(all(e.values()) for e in exact), f"gloo collectives not exact: {exact}")
 
         # generation: every rank returns the global ids
         for key in ("dp2_bf16", "tp2_bf16", "tp2_fp32", "tp2_spec_fp32", "dp2_int8"):
@@ -4356,17 +4621,34 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
                 num = r[key][1]
                 need(num["k1"] == (n := num["k1_want"]) or key == "tp2_spec_fp32",
                      f"{key}: K1 {num['k1']} launches on a rank, want {n}")
-        tp_gap = float((r0["tp2_logits"] - refs["whole_logits"]).abs().max())
+        # bf16: held to the one-process run at every column. A partition moves
+        # the one-process top-two gap by no more than bf16 moves fp32's over the
+        # same teacher-forced steps, and each parting lies within the
+        # partition's own near-tie
+        tp_moves = top_two_moves(refs["tie_steps"], r0["tp2_steps"])
+        tp_tie, bf16_tie = tp_moves.max().item(), refs["bf16_tie"]
+        print(f"  near-ties over {P_TIE_STEPS} teacher-forced bf16 decode steps "
+              f"({tp_moves.numel()} rows, codebooks and columns), the largest move of the "
+              f"one-process top-two gap: TP=2 {tp_tie:.3e} (median "
+              f"{tp_moves.median().item():.3e}), a row alone (DP=2) {refs['dp_tie']:.3e}, "
+              f"fp32 against bf16 {bf16_tie:.3e}")
         request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
-        for key, gap, cols in (("tp2_bf16", tp_gap, P_TP_COLUMNS),
-                               ("dp2_bf16", refs["dp_gap"], P_DP_COLUMNS)):
+        ties = {}
+        for key, tie, cols in (("tp2_bf16", tp_tie, P_TP_COLUMNS),
+                               ("dp2_bf16", refs["dp_tie"], P_DP_COLUMNS)):
             g, want = refs["ar16"][cols]
-            partings = first_partings(f"{key} vs one process", r0[key][0].to(dev), want, [0, 1])
+            need(tie <= bf16_tie, f"{key}: the partition moves the top-two gap by {tie:.3e}, "
+                                  f"more than bf16 does ({bf16_tie:.3e})")
+            need(torch.equal(r0[key][0].to(dev), want),
+                 f"{key}: the forced run did not follow the one-process run")
+            partings = sorted(set(r0[key][2] + r1[key][2]))
+            print(f"    {key} vs one process: {len(partings)} of the "
+                  f"{(cols - 2) * BATCH * 9} (column, row, codebook) entries of {cols - 2} "
+                  f"decoded columns part, each held to the partition's near-tie {tie:.3e}")
             near_ties(f"{key} vs one process", partings,
                       lambda g=g: make_generate(source.model, g, torch.bfloat16)(*request),
-                      want, need, tie=4 * gap, top_two=False)
-            print(f"    {key}: bf16 near-tie bound 4 x {gap:.3e} (the decode step's largest "
-                  f"logit move under this partition, this run)")
+                      want, need, tie=tie, top_two=False)
+            ties[key] = dict(tie=tie, bf16_tie=bf16_tie, partings=len(partings), columns=cols)
         fp32_model = fp32_copy(source.model, dev)
         gen32 = dataclasses.replace(source.generation_config, max_length=P_FP32_COLUMNS,
                                     min_new_tokens=P_FP32_COLUMNS)
@@ -4386,88 +4668,86 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
             num = r["dp2_int8"][1]
             need(num["k2"] == num["k2_want"], f"DP=2 int8: K2 {num['k2']}, want {num['k2_want']}")
 
-        # fp32 train steps against the single-process fp32 step, within this run's
-        # gaps between its bf16 and fp32 steps
-        t_ref = refs["train"]
-        one = t_ref["fp32"]
+        # train steps against the single-process step of their dtype, within this
+        # run's gaps between its bf16 and fp32 steps
         loss_tol = abs(t_ref["fp32"]["loss"] - t_ref["bf16"]["loss"])
         norm_tol = abs(t_ref["fp32"]["grad_norm"] - t_ref["bf16"]["grad_norm"])
+        flip_limit = max(t_ref["flips"], 1e-4)
         n_train = p_train_config().decoder.num_hidden_layers
         k4_want = {"fwd": 2 * n_train, "dq": n_train, "dkv": n_train}
+        # bf16 TP=2 rounds each rank's partial sums to bf16 before the all-reduce;
+        # the step that sums them in fp32 differs from it in that rounding alone,
+        # so the two steps' distance reads what that rounding moves
+        tp_b, tp_f = r0["train"]["TP=2 bf16"], r0["train"]["TP=2 bf16, fp32 partial sums"]
+        tp_rounding = dict(loss=abs(tp_b["loss"] - tp_f["loss"]),
+                           grad_norm=abs(tp_b["grad_norm"] - tp_f["grad_norm"]))
+        fp32p = t_ref["bf16, fp32 products"]
+        cause_flips, _ = update_flips(tp_f["params"], fp32p["params"], P_TRAIN_LR)
+        print(f"  TP=2 bf16 with fp32 partial sums against one process with fp32 products at the "
+              f"same sites: loss {tp_f['loss']:.6f} vs {fp32p['loss']:.6f} (off by "
+              f"{abs(tp_f['loss'] - fp32p['loss']):.3e}), grad_norm {tp_f['grad_norm']:.6f} vs "
+              f"{fp32p['grad_norm']:.6f}, updates part on {cause_flips:.3%}; one process with "
+              f"and without those fp32 products: loss off by "
+              f"{abs(fp32p['loss'] - t_ref['bf16']['loss']):.3e}, grad_norm by "
+              f"{abs(fp32p['grad_norm'] - t_ref['bf16']['grad_norm']):.3e} ({card})")
         train_out = {}
-        for mode, m0 in r0["train"].items():
-            m1 = r1["train"][mode]
+        for mode, _, _, dtype, _ in P_TRAIN_MODES:
+            m0, m1 = r0["train"][mode], r1["train"][mode]
+            bf16 = dtype == torch.bfloat16
+            one = t_ref["bf16" if bf16 else "fp32"]
+            tp_bf16 = bf16 and mode.startswith("TP=2")
+            loss_limit = loss_tol + (tp_rounding["loss"] if tp_bf16 else 0.0)
+            norm_limit = norm_tol + (tp_rounding["grad_norm"] if tp_bf16 else 0.0)
             flips, worst = update_flips(m0["params"], one["params"], P_TRAIN_LR)
-            ok = [abs(m["loss"] - one["loss"]) <= loss_tol for m in (m0, m1)]
-            ok += [abs(m["grad_norm"] - one["grad_norm"]) <= norm_tol for m in (m0, m1)]
+            ok = [abs(m["loss"] - one["loss"]) <= loss_limit for m in (m0, m1)]
+            ok += [abs(m["grad_norm"] - one["grad_norm"]) <= norm_limit for m in (m0, m1)]
             ok += [m["num_items"] == one["num_items"] for m in (m0, m1)]
-            ok += [flips <= max(t_ref["flips"], 1e-4), worst <= 2 * P_TRAIN_LR * 1.01]
-            ok += [m["k4"] == k4_want and not any(m["k4_wgmma"].values()) for m in (m0, m1)]
+            ok += [flips <= flip_limit, worst <= 2 * P_TRAIN_LR * 1.01]
+            ok += [m["k4"] == k4_want and (m["k4_wgmma"] == k4_want if bf16
+                                           else not any(m["k4_wgmma"].values())) for m in (m0, m1)]
             need(all(ok), f"{mode} train step: checks {ok}")
-            print(f"  {mode} fp32 train step: loss {m0['loss']:.6f} / {m1['loss']:.6f} (ranks) "
-                  f"vs {one['loss']:.6f}, within the bf16-fp32 gap {loss_tol:.3e}; "
-                  f"grad_norm {m0['grad_norm']:.6f} vs {one['grad_norm']:.6f} within "
-                  f"{norm_tol:.3e}; num_items {m0['num_items']:.0f}; updates part from the "
-                  f"single step's on {flips:.3%} of sampled entries (limit "
-                  f"{max(t_ref['flips'], 1e-4):.3%}, the bf16-fp32 steps' share), largest "
-                  f"{worst:.2e}; {m0['ms']:.1f} ms a step, peak {m0['peak_gib']:.2f} / "
-                  f"{m1['peak_gib']:.2f} GiB a rank; K4 {m0['k4']} a rank on the SIMT route; "
-                  f"all {all(ok)} "
-                  f"(two processes on one card, gloo through the host) ({card})")
-            train_out[mode] = dict(ms=m0["ms"], peak_gib=[m0["peak_gib"], m1["peak_gib"]],
-                                   k4=m0["k4"])
+            limit_text = f"the bf16-fp32 gap {loss_tol:.3e}" + (
+                f" + the partial sums' rounding {tp_rounding['loss']:.3e}" if tp_bf16 else "")
+            print(f"  {mode} train step: loss {m0['loss']:.6f} / {m1['loss']:.6f} (ranks) vs "
+                  f"{one['loss']:.6f} one process, off by {abs(m0['loss'] - one['loss']):.3e} "
+                  f"within {limit_text}; grad_norm {m0['grad_norm']:.6f} vs "
+                  f"{one['grad_norm']:.6f} within {norm_limit:.3e}; num_items "
+                  f"{m0['num_items']:.0f}; updates part from the single step's on {flips:.3%} of "
+                  f"sampled entries (limit {flip_limit:.3%}, the bf16-fp32 steps' share), largest "
+                  f"{worst:.2e}; {m0['ms']:.1f} ms a step; K4 {m0['k4']} a rank on the "
+                  f"{'wgmma' if bf16 else 'SIMT'} route; all {all(ok)} (two processes on one "
+                  f"card, gloo through the host) ({card})")
+            for i, m in enumerate((m0, m1)):
+                print(f"    {mode} rank {i} memory: " + StepMemory.line(m["memory"]))
+            train_out[mode] = dict(ms=m0["ms"], peak_gib=[m0["memory"]["peak_gib"],
+                                                          m1["memory"]["peak_gib"]],
+                                   memory=m0["memory"], k4=m0["k4"], k4_wgmma=m0["k4_wgmma"],
+                                   loss_off=abs(m0["loss"] - one["loss"]), loss_limit=loss_limit,
+                                   flips=flips)
 
         # the CLI: world 2's checkpoint resumed at world 1 against world 1 uninterrupted
-        cli_out = None
-        if "cli" in r0:
-            w1 = dataclasses.replace(w2, mesh_data=None, max_steps=4, save_steps=100,
-                                     per_device_train_batch_size=2 * w2.per_device_train_batch_size)
-            base = ParlerTTSPipeline.from_random(cfg_n, seed=0, device=dev).model
-            losses = []
-            log = rt.log_metric
-
-            def record(tracker, metrics, *a, prefix="train", **k):
-                if prefix == "train":
-                    losses.append(float(metrics["loss"]))
-                return log(tracker, metrics, *a, prefix=prefix, **k)
-
-            rt.log_metric = record
-            try:
-                state_a, _ = rt.run_training(margs, dargs, dataclasses.replace(
-                    w1, output_dir=os.path.join(root, "w1")), copy.deepcopy(base),
-                    feats["train"], device=dev)
-                run_a = losses[:]
-                params_a = sampled_entries(state_a.model.named_parameters(),
-                                           sample_positions(state_a.model))
-                del state_a
-                shutil.rmtree(os.path.join(root, "w1"))
-                torch.cuda.empty_cache()
-                losses.clear()
-                state_r, step_r = rt.run_training(margs, dargs, dataclasses.replace(
-                    w1, output_dir=os.path.join(root, "resumed"),
-                    resume_from_checkpoint=get_last_checkpoint(w2.output_dir)),
-                    copy.deepcopy(base), feats["train"], device=dev)
-                run_r = losses[:]
-                params_r = sampled_entries(state_r.model.named_parameters(),
-                                           sample_positions(state_r.model))
-                del state_r, base
-                torch.cuda.empty_cache()
-            finally:
-                rt.log_metric = log
-            flips, worst = update_flips(params_r, params_a, lr)
-            w2_losses = r0["cli"]["losses"]
-            gaps = [abs(a - b) for a, b in zip(w2_losses + run_r, run_a)]
-            ok = [len(w2_losses) == 3 and len(run_r) == 1 and step_r == 4,
-                  max(gaps) <= loss_gap, flips <= max(refs["train"]["flips"], 1e-4),
-                  worst <= 2 * lr * 1.01]
-            need(all(ok), f"CLI world 2 -> world 1: checks {ok}")
-            print(f"  CLI mesh_data=2: losses {w2_losses} at world 2, then {run_r} resumed at "
-                  f"world 1 from its step-3 checkpoint, against {run_a} uninterrupted at world "
-                  f"1: largest gap {max(gaps):.3e} within phase (i)'s bf16 gap {loss_gap:.3e}; "
-                  f"parameters after step 4 part on {flips:.3%} of sampled entries, largest "
-                  f"{worst:.2e} ({r0['cli']['seconds']:.1f} s at world 2) ({card})")
-            cli_out = dict(world2_losses=w2_losses, resumed_losses=run_r, world1_losses=run_a,
-                           seconds=r0["cli"]["seconds"])
+        run_r, state_r, step_r = cli_losses(rt, margs, dargs, dataclasses.replace(
+            w1, output_dir=os.path.join(root, "resumed"),
+            resume_from_checkpoint=get_last_checkpoint(w2.output_dir)), base, feats["train"],
+            dev)
+        params_r = sampled_entries(state_r.model.named_parameters(),
+                                   sample_positions(state_r.model))
+        del state_r, base
+        torch.cuda.empty_cache()
+        flips, worst = update_flips(params_r, params_a, lr)
+        w2_losses = r0["cli"]["losses"]
+        gaps = [abs(a - b) for a, b in zip(w2_losses + run_r, run_a)]
+        ok = [len(w2_losses) == 3 and len(run_r) == 1 and step_r == 4,
+              max(gaps) <= loss_gap, flips <= max(t_ref["flips"], 1e-4),
+              worst <= 2 * lr * 1.01]
+        need(all(ok), f"CLI world 2 -> world 1: checks {ok}")
+        print(f"  CLI mesh_data=2: losses {w2_losses} at world 2, then {run_r} resumed at "
+              f"world 1 from its step-3 checkpoint, against {run_a} uninterrupted at world "
+              f"1: largest gap {max(gaps):.3e} within phase (i)'s bf16 gap {loss_gap:.3e}; "
+              f"parameters after step 4 part on {flips:.3%} of sampled entries, largest "
+              f"{worst:.2e} ({r0['cli']['seconds']:.1f} s at world 2) ({card})")
+        cli_out = dict(world2_losses=w2_losses, resumed_losses=run_r, world1_losses=run_a,
+                       seconds=r0["cli"]["seconds"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if fails:
@@ -4483,9 +4763,10 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
     return dict(
         k1=dict(p0["k1"], launches_per_rank={k: r0[k][1]["k1"] for k in (
             "dp2_bf16", "tp2_bf16", "tp2_fp32", "tp2_spec_fp32", "dp2_int8")},
-            steps_per_s=rate, collectives=coll),
+            steps_per_s=rate, collectives=coll, near_ties=ties),
         k2=dict(p0["k2"], dp2_int8_launches_per_rank=r0["dp2_int8"][1]["k2"]),
-        k4=dict(p0["k4"], train=train_out, cli=cli_out, gloo_lacks=r0["lacks"] + r1["lacks"]),
+        k4=dict(p0["k4"], train=train_out, cli=cli_out, tp_bf16_rounding=tp_rounding,
+                tp_fp32_partial_sums_vs_one_process=abs(tp_f["loss"] - fp32p["loss"])),
     )
 
 

@@ -43,8 +43,8 @@
     all-reduced), fc1 column-parallel over F, the LM heads sharded over V
     (their logits all-gathered), and the self and cross KV caches hold the
     rank's heads (`DecoderCache.zeros(model_shards=n)`). `embed_tokens`
-    (K, vocab+1, D) stays whole where n does not divide vocab+1, as it does
-    not at any Parler config.
+    (K, vocab+1, D) stays whole: n does not divide vocab+1 at any Parler
+    config, and `check_model_axis` refuses a model where it would.
 """
 
 from __future__ import annotations
@@ -375,10 +375,7 @@ class ParlerDecoder(nn.Module):
     """The decoder stack, over a static cache (serving) or without one
     (training). `remat_layers` recomputes each layer of the training route in
     the backward instead of keeping its activations; `remat_policy` (None or
-    "dots") says what the recompute may keep. With `tp` the rank holds its
-    rows of each codebook's embedding table."""
-
-    tp = None
+    "dots") says what the recompute may keep."""
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
@@ -416,14 +413,7 @@ class ParlerDecoder(nn.Module):
         flat = self.embed_tokens.reshape(-1, cfg.hidden_size)
         offsets = (torch.arange(cfg.num_codebooks, device=input_ids.device)
                    * rows)[None, :, None]
-        if self.tp is None:
-            out = F.embedding(input_ids + offsets, flat)
-        else:  # the rank's rows of every codebook's table, summed over the group
-            local = input_ids - self.tp.rank * rows
-            inside = (local >= 0) & (local < rows)
-            out = F.embedding(local.clamp(0, rows - 1) + offsets, flat)
-            out = reduce_from(out * inside[..., None].to(out.dtype), self.tp)
-        out = out.to(self.dtype).sum(dim=1)
+        out = F.embedding(input_ids + offsets, flat).to(self.dtype).sum(dim=1)
         return out * cfg.hidden_size ** 0.5 if cfg.scale_embedding else out
 
     def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):

@@ -194,8 +194,8 @@ def gather_full(t: torch.Tensor, spec: Spec, mesh: Mesh, axes=("data", "model"))
 
 def check_model_axis(model: nn.Module, n_model: int) -> None:
     """Tensor parallelism's demands on a `ParlerTTS`: float, unfused
-    weights (ROADMAP item 23c), and heads and MLP widths that `n_model`
-    divides."""
+    weights and a decoder embedding that stays whole (ROADMAP item 23c),
+    and heads and MLP widths that `n_model` divides."""
     if n_model == 1:
         return
     if model.weight_quant:
@@ -206,6 +206,11 @@ def check_model_axis(model: nn.Module, n_model: int) -> None:
         raise NotImplementedError(
             "tensor parallelism (model axis > 1) with fused_qkv is not ported: ROADMAP item 23c")
     dcfg, tcfg = model.config.decoder, model.config.text_encoder
+    if dcfg.embed_rows % n_model == 0:
+        raise NotImplementedError(
+            f"tensor parallelism over {n_model} ranks would shard the decoder's embed_tokens "
+            f"({dcfg.embed_rows} rows a codebook, as the JAX rules do); a vocab-sharded "
+            "decoder embedding is not ported: ROADMAP item 23c")
     widths = {
         "decoder attention heads": dcfg.num_attention_heads,
         "decoder key/value heads": dcfg.num_key_value_heads,
@@ -239,7 +244,7 @@ def shard_params(model: nn.Module, mesh: Mesh, fsdp: bool = False) -> nn.Module:
 
 
 def _wire_model_axis(model: nn.Module, shard: Shard, specs: Mapping[str, Spec]) -> None:
-    from ..models.decoder import Attention, DecoderLayer, ParlerDecoder, ParlerForCausalLM
+    from ..models.decoder import Attention, DecoderLayer, ParlerForCausalLM
     from ..models.layers import Embed
     from ..models.t5_encoder import T5Encoder, T5FeedForward, T5SelfAttention
 
@@ -253,8 +258,6 @@ def _wire_model_axis(model: nn.Module, shard: Shard, specs: Mapping[str, Spec]) 
         elif isinstance(m, T5Encoder):
             m.tp_heads = shard
             m.tp = shard if sharded(pre + "shared_embedding") else None
-        elif isinstance(m, ParlerDecoder):
-            m.tp = shard if sharded(pre + "embed_tokens") else None
         elif isinstance(m, ParlerForCausalLM):
             m.tp = shard if sharded(pre + "lm_heads") else None
         elif isinstance(m, Embed):

@@ -115,22 +115,18 @@ def world() -> Tuple[int, int]:
     return 0, 1
 
 
-def check_parallel(training_args: TrainingArguments, model: ParlerTTS, n_ranks: int,
-                   n_seq: int = 1) -> int:
+def check_parallel(training_args: TrainingArguments, model: ParlerTTS, n_ranks: int) -> int:
     """What the arguments ask of the mesh, refused where it is not ported
-    (a `seq` axis, `n_seq` > 1: ROADMAP item 23b, which the CLI's arguments
-    do not expose, as the JAX package's do not; `mesh_model` > 1 with int8
-    weights or fused projections: 23c) or does not fit: heads and MLP widths
-    that `mesh_model` does not divide, a mesh whose size is not the world.
+    (`mesh_model` > 1 with int8 weights, fused projections or a decoder
+    vocabulary it divides: ROADMAP item 23c) or does not fit: heads and MLP widths that `mesh_model` does not
+    divide, a mesh whose size is not the world. The arguments have no `seq`
+    axis, as the JAX package's have none (`make_mesh` refuses one: 23b).
     Returns n_data."""
-    if n_seq > 1:
-        raise NotImplementedError(
-            "the seq mesh axis (sequence parallelism) is not ported: ROADMAP item 23b")
     n_model = training_args.mesh_model
     check_model_axis(model, n_model)
     n_data = training_args.mesh_data or max(n_ranks // n_model, 1)
-    if n_data * n_seq * n_model != n_ranks:
-        raise ValueError(f"mesh {n_data}x{n_seq}x{n_model} != {n_ranks} ranks")
+    if n_data * n_model != n_ranks:
+        raise ValueError(f"mesh {n_data}x1x{n_model} != {n_ranks} ranks")
     return n_data
 
 

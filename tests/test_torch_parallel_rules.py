@@ -10,8 +10,9 @@ JAX's through `jax.eval_shape`), `params_shardings` and
 
 Refusals (two gloo ranks of `tests/torch_dist_worker.py`): a `seq` axis
 (ROADMAP item 23b), tensor parallelism with int8 weights or fused q|k|v
-(23c), a mesh whose size is not the world; and, with no process group, the
-fused decode step of a model sharded over heads (23c).
+(23c), a mesh whose size is not the world; and, with no process group, a
+decoder embedding the model axis would shard and the fused decode step of
+a model sharded over heads (23c).
 """
 
 import dataclasses
@@ -31,7 +32,7 @@ from parler_tts_tpu_torch import config as tc
 from parler_tts_tpu_torch.models.parler import ParlerTTS
 from parler_tts_tpu_torch.parallel import fsdp_params_shardings, params_shardings
 from parler_tts_tpu_torch.parallel.collectives import Shard
-from parler_tts_tpu_torch.parallel.mesh import flax_path
+from parler_tts_tpu_torch.parallel.mesh import check_model_axis, flax_path
 from parler_tts_tpu_torch.runtime.generate import generate_tokens_fused
 from test_torch_models import port_config
 from test_training_step import tiny_config
@@ -93,6 +94,25 @@ def test_refusals_name_what_they_lack():
     assert errors["mesh_world"].startswith("ValueError") and "3x1x1 != 2" in errors["mesh_world"]
     for case in ("weight_quant", "fused_qkv"):
         assert errors[case].startswith("NotImplementedError") and "23c" in errors[case], case
+
+
+def test_a_vocab_sharded_decoder_embedding_is_refused():
+    """Where the model axis divides vocab+1, the rules shard `embed_tokens`
+    over vocab (as JAX's do); the port keeps that table whole and refuses
+    such a model (23c) rather than compute it otherwise."""
+    cfg = port_config(tiny_config())
+    even = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, vocab_size=cfg.decoder.vocab_size + 1))
+    sizes = {"data": 1, "seq": 1, "model": 2}
+    for c, sharded in ((cfg, False), (even, True)):
+        model = ParlerTTS(c, device="meta")
+        plan = params_shardings({n: tuple(p.shape) for n, p in model.named_parameters()}, sizes)
+        assert any(plan["decoder.decoder.embed_tokens"]) == sharded
+        if sharded:
+            with pytest.raises(NotImplementedError, match="embed_tokens.*23c"):
+                check_model_axis(model, 2)
+        else:
+            check_model_axis(model, 2)
 
 
 def test_fused_decode_refuses_a_tensor_parallel_model():

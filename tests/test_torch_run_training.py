@@ -35,6 +35,7 @@ from parler_tts_tpu.training import run_training as jrt
 from parler_tts_tpu_torch.codec.registry import build_codec, init_codec_params
 from parler_tts_tpu_torch.convert import dac_to_jax_tree, load_jax_params, to_jax_tree
 from parler_tts_tpu_torch.models.parler import ParlerTTS
+from parler_tts_tpu_torch.parallel import make_mesh
 from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline
 from parler_tts_tpu_torch.training import arguments as ta
 from parler_tts_tpu_torch.training import checkpoints as tck
@@ -237,24 +238,27 @@ def test_more_than_one_device_names_item_23(tmp_path, jax_init, case):
     """What the CLI still refuses at world 1 (the name is kept from when it
     refused every mesh): a 2x1x1 mesh over one rank ("mesh_data"), a model
     axis of 3 over 4 heads ("mesh_model"), a seq axis (ROADMAP item 23b,
-    case "fsdp": the arguments do not expose it, so `check_parallel` is
-    asked) and tensor parallelism with int8 weights (23c, case
-    "world_size")."""
-    kw, n_seq, model, error, match = {
-        "mesh_data": (dict(mesh_data=2), 1, None, ValueError, "mesh 2x1x1 != 1 ranks"),
-        "mesh_model": (dict(mesh_model=3), 1, None, ValueError, "model axis 3 does not divide"),
-        "fsdp": (dict(fsdp=True), 2, None, NotImplementedError, "item 23b"),
-        "world_size": (dict(mesh_model=2), 1, ParlerTTS(port_config(CFG), weight_quant=True),
+    case "fsdp": the CLI's arguments cannot express one, as the JAX
+    package's cannot, so the mesh builder the CLI calls is asked) and tensor
+    parallelism with int8 weights (23c, case "world_size")."""
+    if case == "fsdp":
+        assert not any("seq" in f.name for f in dataclasses.fields(ta.TrainingArguments))
+        with pytest.raises(NotImplementedError, match="item 23b"):
+            make_mesh(1, 1, n_seq=2)
+        return
+    kw, model, error, match = {
+        "mesh_data": (dict(mesh_data=2), None, ValueError, "mesh 2x1x1 != 1 ranks"),
+        "mesh_model": (dict(mesh_model=3), None, ValueError, "model axis 3 does not divide"),
+        "world_size": (dict(mesh_model=2), ParlerTTS(port_config(CFG), weight_quant=True),
                        NotImplementedError, "item 23c"),
     }[case]
     args = targs(ta, tmp_path, DEVICES, **kw)
     model = model or port_model(jax_init[1])
-    if n_seq == 1:
-        with pytest.raises(error, match=match):
-            trt.run_training(ta.ModelArguments(), ta.DataTrainingArguments(), args, model,
-                             FEATURES, device="cpu")
     with pytest.raises(error, match=match):
-        trt.check_parallel(args, model, 1, n_seq=n_seq)
+        trt.run_training(ta.ModelArguments(), ta.DataTrainingArguments(), args, model,
+                         FEATURES, device="cpu")
+    with pytest.raises(error, match=match):
+        trt.check_parallel(args, model, 1)
 
 
 def test_bad_arguments_and_no_gpu_raise(tmp_path, jax_init, monkeypatch):

@@ -232,6 +232,9 @@ def _main(tmp: str, task: str) -> None:
     result = globals()[f"task_{task}"](payload)
     with open(os.path.join(tmp, f"result-{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
+    # rank 0 serves the group's store: leaving before the others are done with it
+    # breaks their pipe to it (a task may end with a rank still in a store call)
+    dist.barrier()
     dist.destroy_process_group()
 
 
