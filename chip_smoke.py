@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels with nvcc, then:
   (a) holds kernel K1 (flash-decode attention) against its plain PyTorch
-      version at the kernel's split count on the card at the main path's
-      shapes (H=16, Dh=64, S = 8 prompt slots + 860 frames) over batch,
+      version at the kernel's split count on the card at the shapes of an
+      860-column run (H=16, Dh=64, S = 8 prompt slots + 860 frames) over batch,
       starts, limits (share boundaries on slots 63/64 and 127/128, rows whose
       shares are all or partly empty), windows, the stacked cache and the
       empty range, each call repeated bit for bit; checks that a result
@@ -16,7 +16,7 @@ Builds the port's CUDA kernels with nvcc, then:
       `F.scaled_dot_product_attention` (a yardstick only: the port never
       calls it) at B=2 over 434 and 868 slots and at B=1 over 868;
   (b) serves parler-tts-mini-v1 (random weights from a seed, initialised on
-      the card, bf16 weights and KV cache): `generate_codes` at B=2 over 860
+      the card, bf16 weights and KV cache): `generate_codes` at B=2 over 430
       greedy columns with codebook_guard=1024, then `decode_codes` to 44.1 kHz
       audio, counting K1's launches (24 per decode step);
   (c) runs one mini-v1 decode step in fp32 through K1 and through the dense
@@ -49,7 +49,7 @@ Builds the port's CUDA kernels with nvcc, then:
       CUDA-graph replay (the profiler's kernel sums beside) and its plain
       version;
   (g) serves mini-v1 at B=1 with `fused_decode=True` (row 1 of (b)'s request,
-      left-padded) over 860 columns, counting one K3 launch per decode step,
+      left-padded) over 430 columns, counting one K3 launch per decode step,
       and prints steps/s, RTF, kernels per decode step and device idle share
       beside the eager bf16 path on the same request;
   (h) holds kernel K4 (training flash attention: forward, dq, dk/dv) against
@@ -92,12 +92,12 @@ Builds the port's CUDA kernels with nvcc, then:
       with v_scale 1.7), each loaded by `from_pretrained` in bf16; every model
       parameter `torch.equal` to the source's and the folded codec kernels
       within 1e-6 of their scale, a transposed decoder kernel and an unfolded
-      conv failing that check; the loaded pipelines give phase (b)'s 860
+      conv failing that check; the loaded pipelines give phase (b)'s 430
       columns (K1 24 a decode step), phase (g)'s B=1 stream over K3 and phase
       (e)'s int8 stream with its K2 count; weight_quant="xla" (a decode
       step within 4 x K2's own float64-summation gap of K2, 256 columns
       timed); fused_qkv (prefill and 8 decode steps' logits within half the
-      bf16 model's gap to its fp32 copy, the 860 columns equal to phase (b)'s
+      bf16 model's gap to its fp32 copy, the 430 columns equal to phase (b)'s
       but at near-ties of phase (b), 2e-4); the bf16 codec (fp32 audio equal
       to the fp32 codec over bf16-rounded weights, relative RMS below 0.12
       with conv_out in the unit range); the sliding-window cache over 512
@@ -135,7 +135,7 @@ Builds the port's CUDA kernels with nvcc, then:
       B=1 and at B=2 with per-row limits that differ, large-v1 W=16; fp32
       and bf16, repeats bit for bit, a last column without its last slot
       fails fp32 TOL), timed beside SDPA with the equal boolean mask; then
-      mini-v1 bf16 W=24, lookup 3, over 860 greedy columns at B=1 (row 1)
+      mini-v1 bf16 W=24, lookup 3, over 430 greedy columns at B=1 (row 1)
       and per-row at B=2, each row equal to phase (b)'s eager row up to its
       first parting, which must be a near-tie of the AR run (its logit of
       the speculative token within 4 x the bf16 decode step's largest logit
@@ -183,36 +183,49 @@ Builds the port's CUDA kernels with nvcc, then:
       TP=2: H=12; the W=24 window at H=8; a DP=2 rank's row: B=1), fp32 and
       bf16 within TOL, repeats bit for bit, a dropped last slot failing fp32
       TOL, each timed by graph replay beside its plain version and SDPA with
-      the equal boolean mask; K2 at a DP rank's M=1 within `k2_close`; K4
-      forward, dq and dk/dv on both routes at H=8 B=2 and H=16 B=1 within
-      `k4_limits`; (p1) NCCL at world size 1 in this process, run beside
+      the equal boolean mask; K2 at a DP rank's M=1 and at each TP=2 rank
+      slice at M=2 (q/k/v 1024 -> 512, out_proj 512 -> 1024, fc1 1024 ->
+      2048, fc2 2048 -> 1024) within `k2_close`, one TP rank's decode layer
+      timed by graph replay beside the bf16 matmul; K4 forward, dq and dk/dv
+      on both routes at H=8 B=2, H=16 B=1 and each seq=2 rank's rows of
+      phase (i)'s sequence (Tq 528 at q_offset 0, Tq 512 at q_offset 528,
+      against Tk 1040) within `k4_limits`, the wgmma kernels timed at those
+      shapes beside their plain versions and SDPA; (p1) NCCL at world size 1
+      in this process, run beside
       (p2)'s ranks with the train references and world 1's CLI run:
       `make_generate(mesh=make_mesh(1, 1))` over (b)'s request bit-identical
       to (b)'s ids, and one train step over the mesh and under FSDP
       bit-identical (loss, grad_norm, every parameter) to the step without a
       mesh; (p2) two ranks of this script (`--phase-p-rank`) sharing the
       card over gloo on CUDA tensors (NCCL refuses two ranks on one GPU):
-      DP=2 bf16 B=2 over 128 columns and TP=2 bf16 over 64 (cut from 860
+      DP=2 bf16 B=2 over 128 columns and TP=2 bf16 over 64 (cut from 430
       for time), each held to the single-process run at every column (its
       token forced where they part), each partition's near-tie (the largest
-      change of the one-process top-two gap over 64 teacher-forced decode
-      steps, under TP or for a row alone) no larger than bf16's own (one
+      change of the one-process top-two gap over 22 teacher-forced decode
+      steps after each of 215, 430 and 645 columns, under TP or for a row
+      alone) no larger than bf16's own (one
       process's bf16 logits against fp32's over the same steps), and every
       parting within its partition's near-tie; gloo's bf16 and fp32
       all-reduce and all-gather on CUDA tensors bit-exact; TP=2 fp32 B=2
-      over 256 columns and TP=2 speculative fp32 W=24 B=1 equal to the fp32
+      over 96 columns and TP=2 speculative fp32 W=24 B=1 equal to the fp32
       AR run but at near-ties of 2e-4, with fewer forwards than columns;
-      DP=2 int8 over K2 at M=1 with exact launch counts; one train step at
-      dropout 0.1 in each mode of P_TRAIN_MODES (DP=2, TP=2 and FSDP=2 in
-      fp32 on K4's SIMT route; DP=2, FSDP=2 and TP=2 in bf16 on its wgmma
-      route; TP=2 bf16 again with its row-parallel partial sums all-reduced
-      in fp32, `fp32_partial_sums`) against the single-process step of its
-      dtype: loss and grad_norm within this run's gaps between its bf16 and
-      fp32 steps (bf16 TP=2's, with and without fp32 partial sums, also
-      within the move between those two steps), num_items
+      DP=2 int8 over K2 at M=1 with exact launch counts; TP=2 bf16 with
+      int8 weights (K2 at the rank's slices, 192 launches a decode step) and
+      with fused q|k|v, each over 64 columns held to the one-process run of
+      the same model at every column within its own near-tie, as TP=2 bf16
+      is; one train step at
+      dropout 0.1 in each mode of P_TRAIN_MODES (DP=2, TP=2, FSDP=2 and
+      SP=2 in fp32 on K4's SIMT route; DP=2, FSDP=2, SP=2 and TP=2 in bf16
+      on its wgmma route; TP=2 bf16 again with its row-parallel partial
+      sums all-reduced in fp32, `fp32_partial_sums`) against the
+      single-process step of its dtype: loss and grad_norm within this
+      run's gaps between its bf16 and fp32 steps (bf16 TP=2's also within
+      the move between TP's steps with and without fp32 partial sums),
+      num_items
       exact, the sampled parameters' updates parting on no larger a share
       than the bf16 and fp32 steps', K4 48 / 24 / 24 a rank on the route of
-      its dtype, and each step's memory a rank by phase with the
+      its dtype at each rank's (Tq, Tk, q_offset), and each step's memory a
+      rank by phase with the
       allocations live at its peak (StepMemory); the CLI at world 2
       (`mesh_data=2`, fp32) over (n)'s features for 3 steps and a gathered
       checkpoint, resumed at world 1 against an uninterrupted world-1 run
@@ -245,8 +258,15 @@ import torch
 
 from parler_tts_tpu_torch.runtime.checkpoint import write_safetensors
 
-S_PROMPT, MAX_LENGTH, BATCH = 8, 860, 2
-S_CACHE = S_PROMPT + MAX_LENGTH
+S_PROMPT, MAX_LENGTH, BATCH = 8, 430, 2
+S_CACHE = S_PROMPT + MAX_LENGTH  # the cache the serving phases give K1 and K3
+# the kernels' own checks and timings, and the teacher-forced decode steps that
+# measure logits and near-ties (decode_prefix), keep an 860-column run's shapes
+# (868 slots; its mean and last decode steps at 434 and 867), whatever the
+# depth the serving phases run to; phases (a) and (f) hold K1 and K3 to their
+# plain versions at S_CACHE as well
+K_COLUMNS = 860
+K_SLOTS = S_PROMPT + K_COLUMNS
 PROFILE_COLUMNS = 240
 # bf16: at most 9.8e-4 read on an H100 80GB HBM3 at 700 W (one bf16 step of outputs
 # up to 0.25 at short prefixes), so a kernel that drops or repeats one 64-slot tile
@@ -371,87 +391,94 @@ def phase_a(dev, card):
     def i32(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
 
+    # the kernel's checks run at an 860-column run's cache (K_SLOTS) and at
+    # the cache the serving phases give it (S_CACHE), each at its split count
     max_err, n_cases = 0.0, 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for b in (1, BATCH, 4):
-            cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=dtype)
-            cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=dtype)
-            k, v = cache_k[5].reshape(b, S_CACHE, h, dh), cache_v[5].reshape(b, S_CACHE, h, dh)
-            zeros = i32([0] * b)
-            rows = i32([0, 3, 8, 5][:b])
-            n_split = split_count(b, h, S_CACHE, 1)
-            cases = [(f"limit={n}", rand(b, h, dh, dtype=dtype), k, v, zeros, n, None)
-                     for n in (1, 63, 64, 65, 128, 640, S_CACHE)]
-            # share boundaries on slots 63/64 and 127/128; rows whose shares
-            # are all or partly empty; short ranges that start late
-            cases += [(f"share edge {e}", rand(b, h, dh, dtype=dtype), k, v, zeros,
-                       e * n_split, None) for e in (64, 128) if e * n_split <= S_CACHE]
-            cases += [
-                ("per-row empty shares", rand(b, h, dh, dtype=dtype), k, v, rows,
-                 i32([S_CACHE, 3, 9, 1][:b]), None),
-                ("starts 3/5 limit=9", rand(b, h, dh, dtype=dtype), k, v, i32([3, 5, 3, 5][:b]),
-                 9, None),
-            ]
-            cases += [
-                ("per-row starts", rand(b, h, dh, dtype=dtype), k, v, rows, 500, None),
-                ("per-row limits", rand(b, h, dh, dtype=dtype), k, v, rows,
-                 i32([S_CACHE, 64, 300, 9][:b]), None),
-                ("W=4 window", rand(b, 4, h, dh, dtype=dtype), k, v, rows, S_CACHE - 3, None),
-                ("stacked layer 0", rand(b, h, dh, dtype=dtype), cache_k, cache_v, rows, 700, 0),
-                ("stacked layer 23", rand(b, h, dh, dtype=dtype), cache_k, cache_v, rows, 700,
-                 23),
-                ("stacked 23 limit=S", rand(b, h, dh, dtype=dtype), cache_k, cache_v, rows,
-                 S_CACHE, 23),
-                ("empty range", rand(b, h, dh, dtype=dtype), k, v, i32([9] * b), 9, None),
-            ]
-            for name, q, kk, vv, starts, limit, layer in cases:
-                got = flash_decode_attention(q, kk, vv, starts, limit, layer=layer)
-                torch.cuda.synchronize()
-                splits = split_count(b, h, S_CACHE, q.shape[1] if q.dim() == 4 else 1)  # MHA
-                want = flash_decode_attention_plain(q, kk, vv, starts, limit, layer=layer,
-                                                    splits=splits)
-                err = (got.float() - want.float()).abs().max().item()
-                torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-                if name == "empty range" and torch.count_nonzero(got).item():
-                    raise AssertionError("K1 on an empty range must return 0")
-                if not torch.equal(flash_decode_attention(q, kk, vv, starts, limit, layer=layer),
-                                   got):
-                    raise AssertionError(f"K1 {name}: a second call gave other bits")
-                max_err, n_cases = max(max_err, err), n_cases + 1
-                print(f"  K1 vs plain {str(dtype)[6:]:8s} B={b} {name:20s} splits={splits} "
-                      f"max_abs_err={err:.3e}")
-            del cache_k, cache_v
+    for slots, dtype, b in [(s, t, b) for s in (K_SLOTS, S_CACHE)
+                            for t in (torch.float32, torch.bfloat16) for b in (1, BATCH, 4)]:
+        cache_k = rand(n_layers, b, slots, h * dh, dtype=dtype)
+        cache_v = rand(n_layers, b, slots, h * dh, dtype=dtype)
+        k, v = cache_k[5].reshape(b, slots, h, dh), cache_v[5].reshape(b, slots, h, dh)
+        zeros = i32([0] * b)
+        rows = i32([0, 3, 8, 5][:b])
+        n_split = split_count(b, h, slots, 1)
+        cases = [(f"limit={n}", rand(b, h, dh, dtype=dtype), k, v, zeros, n, None)
+                 for n in (1, 63, 64, 65, 128, 640, slots) if n <= slots]
+        # share boundaries on slots 63/64 and 127/128; rows whose shares
+        # are all or partly empty; short ranges that start late
+        cases += [(f"share edge {e}", rand(b, h, dh, dtype=dtype), k, v, zeros,
+                   e * n_split, None) for e in (64, 128) if e * n_split <= slots]
+        cases += [
+            ("per-row empty shares", rand(b, h, dh, dtype=dtype), k, v, rows,
+             i32([slots, 3, 9, 1][:b]), None),
+            ("starts 3/5 limit=9", rand(b, h, dh, dtype=dtype), k, v, i32([3, 5, 3, 5][:b]),
+             9, None),
+        ]
+        cases += [
+            ("per-row starts", rand(b, h, dh, dtype=dtype), k, v, rows, min(500, slots - 8),
+             None),
+            ("per-row limits", rand(b, h, dh, dtype=dtype), k, v, rows,
+             i32([slots, 64, 300, 9][:b]), None),
+            ("W=4 window", rand(b, 4, h, dh, dtype=dtype), k, v, rows, slots - 3, None),
+            ("stacked layer 0", rand(b, h, dh, dtype=dtype), cache_k, cache_v, rows,
+             min(700, slots - 8), 0),
+            ("stacked layer 23", rand(b, h, dh, dtype=dtype), cache_k, cache_v, rows,
+             min(700, slots - 8), 23),
+            ("stacked 23 limit=S", rand(b, h, dh, dtype=dtype), cache_k, cache_v, rows,
+             slots, 23),
+            ("empty range", rand(b, h, dh, dtype=dtype), k, v, i32([9] * b), 9, None),
+        ]
+        for name, q, kk, vv, starts, limit, layer in cases:
+            got = flash_decode_attention(q, kk, vv, starts, limit, layer=layer)
+            torch.cuda.synchronize()
+            splits = split_count(b, h, slots, q.shape[1] if q.dim() == 4 else 1)  # MHA
+            want = flash_decode_attention_plain(q, kk, vv, starts, limit, layer=layer,
+                                                splits=splits)
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+            if name == "empty range" and torch.count_nonzero(got).item():
+                raise AssertionError("K1 on an empty range must return 0")
+            if not torch.equal(flash_decode_attention(q, kk, vv, starts, limit, layer=layer),
+                               got):
+                raise AssertionError(f"K1 {name}: a second call gave other bits")
+            max_err, n_cases = max(max_err, err), n_cases + 1
+            print(f"  K1 vs plain {str(dtype)[6:]:8s} S={slots} B={b} {name:20s} "
+                  f"splits={splits} max_abs_err={err:.3e}")
+        del cache_k, cache_v
     print(f"  {n_cases} cases within fp32 atol 2e-5 rtol 1e-4, bf16 atol 2e-3 rtol 1e-2, "
           f"each against the plain version at the kernel's split count, a second call "
           f"bit-identical")
 
     # a result that leaves out one slot must fail the fp32 tolerance: the
-    # first (start + 1), the last (limit - 1), the last slot of share 3
-    b, limit, layer = BATCH, 700, 23
-    cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.float32)
-    cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.float32)
-    q, starts = rand(b, h, dh, dtype=torch.float32), i32([0, 3])
-    n_split = split_count(b, h, S_CACHE, 1)
-    got = flash_decode_attention(q, cache_k, cache_v, starts, limit, layer=layer)
-    edges = split_bounds(*slot_range(starts, limit, 1, S_CACHE), n_split)
-    cut = edges[:, 1:].clone()
-    cut[:, 3] -= 1
-    dropped = {
-        "first slot": flash_decode_attention_plain(q, cache_k, cache_v, starts + 1, limit,
-                                                   layer=layer, splits=n_split),
-        "last slot": flash_decode_attention_plain(q, cache_k, cache_v, starts, limit - 1,
-                                                  layer=layer, splits=n_split),
-        "share 3's last slot": flash_decode_attention_shares(
-            q, cache_k, cache_v, starts, limit, edges[:, :-1], cut, layer=layer),
-    }
-    for name, wrong in dropped.items():
-        gap = (got - wrong).abs().max().item()
-        caught = not torch.allclose(got, wrong, **TOL[torch.float32])
-        print(f"  K1 vs a result without the {name}: max_abs_err={gap:.3e}, fails fp32 TOL: "
-              f"{caught}")
-        if not caught:
-            raise AssertionError(f"fp32 TOL does not see the {name} left out")
-    del cache_k, cache_v
+    # first (start + 1), the last (limit - 1), the last slot of share 3; at
+    # both caches
+    b, layer = BATCH, 23
+    for slots in (K_SLOTS, S_CACHE):
+        limit = min(700, slots - 8)
+        cache_k = rand(n_layers, b, slots, h * dh, dtype=torch.float32)
+        cache_v = rand(n_layers, b, slots, h * dh, dtype=torch.float32)
+        q, starts = rand(b, h, dh, dtype=torch.float32), i32([0, 3])
+        n_split = split_count(b, h, slots, 1)
+        got = flash_decode_attention(q, cache_k, cache_v, starts, limit, layer=layer)
+        edges = split_bounds(*slot_range(starts, limit, 1, slots), n_split)
+        cut = edges[:, 1:].clone()
+        cut[:, 3] -= 1
+        dropped = {
+            "first slot": flash_decode_attention_plain(q, cache_k, cache_v, starts + 1, limit,
+                                                       layer=layer, splits=n_split),
+            "last slot": flash_decode_attention_plain(q, cache_k, cache_v, starts, limit - 1,
+                                                      layer=layer, splits=n_split),
+            "share 3's last slot": flash_decode_attention_shares(
+                q, cache_k, cache_v, starts, limit, edges[:, :-1], cut, layer=layer),
+        }
+        for name, wrong in dropped.items():
+            gap = (got - wrong).abs().max().item()
+            caught = not torch.allclose(got, wrong, **TOL[torch.float32])
+            print(f"  K1 vs a result without the {name} (S={slots}, limit {limit}, {n_split} "
+                  f"splits): max_abs_err={gap:.3e}, fails fp32 TOL: {caught}")
+            if not caught:
+                raise AssertionError(f"fp32 TOL does not see the {name} left out at S={slots}")
+        del cache_k, cache_v
 
     # timing at the main path's shapes: bf16 q and cache, B=2 at 434 slots (the
     # mean decode step of the 860-column run) and 868 (the last), and B=1 at
@@ -460,15 +487,15 @@ def phase_a(dev, card):
     # replays of 24 launches (and the profiler's kernel sums); the host-paced
     # time of back-to-back calls beside it
     timing = {}
-    for b, limit in ((BATCH, S_CACHE // 2), (1, S_CACHE), (BATCH, S_CACHE)):
-        cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
-        cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
+    for b, limit in ((BATCH, K_SLOTS // 2), (1, K_SLOTS), (BATCH, K_SLOTS)):
+        cache_k = rand(n_layers, b, K_SLOTS, h * dh, dtype=torch.bfloat16)
+        cache_v = rand(n_layers, b, K_SLOTS, h * dh, dtype=torch.bfloat16)
         q = rand(b, h, dh, dtype=torch.bfloat16)
         starts = i32([0] * b)
         q4 = q.view(b, h, 1, dh)
-        k_views = [cache_k[i].view(b, S_CACHE, h, dh)[:, :limit].transpose(1, 2)
+        k_views = [cache_k[i].view(b, K_SLOTS, h, dh)[:, :limit].transpose(1, 2)
                    for i in range(n_layers)]
-        v_views = [cache_v[i].view(b, S_CACHE, h, dh)[:, :limit].transpose(1, 2)
+        v_views = [cache_v[i].view(b, K_SLOTS, h, dh)[:, :limit].transpose(1, 2)
                    for i in range(n_layers)]
 
         def k1(i):
@@ -484,7 +511,7 @@ def phase_a(dev, card):
         kernel_paced, sdpa_paced = cuda_ms(k1, iters=480), cuda_ms(sdpa, iters=480)
         plain_ms = cuda_ms(lambda i: flash_decode_attention_plain(
             q, cache_k, cache_v, starts, limit, layer=i % n_layers,
-            splits=split_count(b, h, S_CACHE, 1)), iters=96)
+            splits=split_count(b, h, K_SLOTS, 1)), iters=96)
         bytes_moved = 2 * (b * h * dh) * 2 + 2 * b * limit * h * dh * 2  # q, out; k, v
         ops = 4 * b * h * limit * dh
         byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
@@ -495,7 +522,7 @@ def phase_a(dev, card):
               f"than SDPA: {kernel_ms < sdpa_ms}; plain {plain_ms * 1e3:.2f} us; bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}: {bytes_moved / 1e6:.2f} MB, "
               f"{bound_ms / kernel_ms:.1%} of it) per call at B={b}, bf16, {limit} slots, "
-              f"{split_count(b, h, S_CACHE, 1)} splits ({card})")
+              f"{split_count(b, h, K_SLOTS, 1)} splits ({card})")
         timing = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
                       bound_by=bound_by, device_ms=kernel_dev, library_device_ms=sdpa_dev,
                       paced_ms=kernel_paced, library_paced_ms=sdpa_paced)
@@ -526,7 +553,7 @@ def request_ids(seed):
 
 def phase_b(dev, card):
     """mini-v1 served end to end; returns K1's launches on the main path, the
-    pipeline and its 860-column output (phase j serves them from disk)."""
+    pipeline and its MAX_LENGTH-column output (phase j serves them from disk)."""
     import dataclasses
 
     import numpy as np
@@ -637,16 +664,16 @@ def phase_c(dev, card, config=None):
     desc, desc_mask, prompt, prompt_mask = (torch.as_tensor(x, device=dev)
                                             for x in request_ids(1))
     g = torch.Generator(device=dev).manual_seed(1)
-    n_pre = MAX_LENGTH // 2  # prefill the prompt and 430 columns, then decode the next one
+    n_pre = K_COLUMNS // 2  # prefill the prompt and half the columns, then decode the next one
     cols = torch.randint(0, dcfg.pad_token_id, (BATCH, dcfg.num_codebooks, n_pre + 1),
                          generator=g, device=dev)
     with torch.inference_mode():
         enc = model.encode_description(desc, desc_mask)
-        cache = DecoderCache.zeros(dcfg, BATCH, S_CACHE, enc.shape[1], torch.float32, dev)
+        cache = DecoderCache.zeros(dcfg, BATCH, K_SLOTS, enc.shape[1], torch.float32, dev)
         cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc)
         kv_valid = torch.cat([prompt_mask.bool(),
-                              torch.ones(BATCH, MAX_LENGTH, dtype=torch.bool, device=dev)], 1)
-        pos = torch.arange(S_CACHE, device=dev)[None].expand(BATCH, -1)
+                              torch.ones(BATCH, K_COLUMNS, dtype=torch.bool, device=dev)], 1)
+        pos = torch.arange(K_SLOTS, device=dev)[None].expand(BATCH, -1)
         pre = torch.cat([model.prompt_hidden(prompt),
                          model.decoder.embed_ids(cols[:, :, :n_pre])], dim=1)
         t = S_PROMPT + n_pre
@@ -935,19 +962,19 @@ def int8_decode_step_logits(dev, card):
     desc, desc_mask, prompt, prompt_mask = (torch.as_tensor(x, device=dev)
                                             for x in request_ids(1))
     g = torch.Generator(device=dev).manual_seed(1)
-    n_pre = MAX_LENGTH // 2
+    n_pre = K_COLUMNS // 2
     cols = torch.randint(0, 1024, (BATCH, dcfg.num_codebooks, n_pre + 1), generator=g,
                          device=dev)
     kv_valid = torch.cat([prompt_mask.bool(),
-                          torch.ones(BATCH, MAX_LENGTH, dtype=torch.bool, device=dev)], 1)
-    pos = torch.arange(S_CACHE, device=dev)[None].expand(BATCH, -1)
+                          torch.ones(BATCH, K_COLUMNS, dtype=torch.bool, device=dev)], 1)
+    pos = torch.arange(K_SLOTS, device=dev)[None].expand(BATCH, -1)
     starts = (S_PROMPT - prompt_mask.sum(1)).to(torch.int32)
     t = S_PROMPT + n_pre
 
     def decode_step():
         with torch.inference_mode():
             enc = model.encode_description(desc, desc_mask)
-            cache = DecoderCache.zeros(dcfg, BATCH, S_CACHE, enc.shape[1], torch.float32, dev)
+            cache = DecoderCache.zeros(dcfg, BATCH, K_SLOTS, enc.shape[1], torch.float32, dev)
             cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc)
             pre = torch.cat([model.prompt_hidden(prompt),
                              model.decoder.embed_ids(cols[:, :, :n_pre])], dim=1)
@@ -1015,7 +1042,9 @@ def phase_f(dev, card):
     def bf16(*shape):
         return (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
 
-    cache_k, cache_v = bf16(n_layers, S_CACHE, d), bf16(n_layers, S_CACHE, d)
+    cache_k, cache_v = bf16(n_layers, K_SLOTS, d), bf16(n_layers, K_SLOTS, d)
+    whole = (cache_k, cache_v)
+    served = (bf16(n_layers, S_CACHE, d), bf16(n_layers, S_CACHE, d))  # the serving phases'
     cross_k, cross_v, x = bf16(n_layers, s_enc, d), bf16(n_layers, s_enc, d), bf16(1, d)
     enc_bias = torch.zeros(1, s_enc, device=dev)
     enc_bias[0, 12:] = torch.finfo(torch.float32).min  # 4 masked encoder positions
@@ -1031,12 +1060,12 @@ def phase_f(dev, card):
     if plan["chunk"] != CUDA_CHUNK:
         raise AssertionError(f"kernel chunk {plan['chunk']} != CUDA_CHUNK {CUDA_CHUNK}")
 
-    def args(start, n_rows, params=fp, enc=cross):
-        return (cfg, params, x, cache_k, cache_v, *enc, start, n_rows)
+    def args(start, n_rows, params=fp, enc=cross, cache=whole):
+        return (cfg, params, x, *cache, *enc, start, n_rows)
 
-    def plain(start, n_rows, enc=cross, **kw):  # at the kernel's tiling
-        return fused_decode_layers_plain(*args(start, n_rows, enc=enc), block_s=CUDA_CHUNK,
-                                         tiling="cuda", **kw)
+    def plain(start, n_rows, enc=cross, cache=whole, **kw):  # at the kernel's tiling
+        return fused_decode_layers_plain(*args(start, n_rows, enc=enc, cache=cache),
+                                         block_s=CUDA_CHUNK, tiling="cuda", **kw)
 
     def show(gaps):  # layers 0-3, the largest of layers 4 .. L-1, the hidden state
         return (" ".join(f"{v:.2e}" for v in gaps[:4].tolist())
@@ -1048,26 +1077,32 @@ def phase_f(dev, card):
 
     def run(cases):
         """K3, its plain version and the plain version's fp32-vs-float64
-        noise over `cases`, each (start, n_rows, cross inputs)."""
+        noise over `cases`, each (start, n_rows, cross inputs, cache), keyed
+        (start, n_rows, S_enc, cache slots)."""
         got, want, noise = {}, {}, {}
-        for start, n_rows, enc in cases:
-            case = (start, n_rows, len(enc[2][0]))
-            got[case] = fused_decode_layers(*args(start, n_rows, enc=enc))
+        for start, n_rows, enc, cache in cases:
+            case = (start, n_rows, len(enc[2][0]), cache[0].shape[1])
+            got[case] = fused_decode_layers(*args(start, n_rows, enc=enc, cache=cache))
             torch.cuda.synchronize()
-            want[case] = plain(start, n_rows, enc=enc)
-            noise[case] = fused_gaps(plain(start, n_rows, enc=enc, dtype=torch.float64),
-                                     want[case])
+            want[case] = plain(start, n_rows, enc=enc, cache=cache)
+            noise[case] = fused_gaps(plain(start, n_rows, enc=enc, cache=cache,
+                                           dtype=torch.float64), want[case])
         return got, want, noise
 
-    main = [(start, n_rows, cross) for start in (0, 3) for n_rows in (1, 64, 65, 434, 867)]
+    main = [(start, n_rows, cross, whole) for start in (0, 3)
+            for n_rows in (1, 64, 65, 434, 867)]
     # chunk edges (32 and 33 rows from start), n_rows = start + 1, and the
     # self-attention items' ownership edge: 16 heads x 8 chunks fill fewer
     # than 132 blocks' first warps, 16 x 9 wrap onto second warps; then 33
     # encoder rows (a second group of one row)
-    edges = [(s, n, cross) for s, n in ((0, 32), (0, 33), (3, 35), (3, 36), (3, 4), (0, 256),
-                                          (0, 257))]
-    edges += [(s, n, cross33) for s, n in ((0, 1), (3, 65), (0, 434), (3, 867))]
-    got, want, noise = run(main + edges)
+    edges = [(s, n, cross, whole) for s, n in ((0, 32), (0, 33), (3, 35), (3, 36), (3, 4),
+                                                 (0, 256), (0, 257))]
+    edges += [(s, n, cross33, whole) for s, n in ((0, 1), (3, 65), (0, 434), (3, 867))]
+    # the cache the serving phases give K3 (S_CACHE slots; row 1's prompt
+    # starts at 3), its mean and last decode steps
+    long_served = [(s, n) for s in (0, 3) for n in (S_CACHE // 2, S_CACHE - 1)]
+    at_served = [(s, n, cross, served) for s, n in [(0, 1), (3, 65)] + long_served]
+    got, want, noise = run(main + edges + at_served)
     # one set of limits from the noise over every case held, as in the CPU tests
     all_noise = torch.stack(list(noise.values()))
     limits = fused_limits(all_noise)
@@ -1085,7 +1120,7 @@ def phase_f(dev, card):
         max_abs = max(max_abs, abs_err)
         line = (f"  K3 vs plain {case}: {show(gaps[-1])}; max abs {abs_err:.3e}\n"
                 f"    plain fp32 vs float64: {show(noise[case])}")
-        if case[2] == s_enc and case[:2] in {c[:2] for c in main}:
+        if case[2:] == (s_enc, K_SLOTS) and case[:2] in {c[:2] for c in main}:
             tiling = fused_gaps(fused_decode_layers_plain(*args(*case[:2]), block_s=64),
                                 want[case])
             line += f"\n    plain at the Pallas tiling (block_s=64): {show(tiling)}"
@@ -1096,13 +1131,14 @@ def phase_f(dev, card):
     if not fused_close(gaps, limits):
         raise AssertionError(f"K3 exceeds its limits: worst slice {worst:.2f} x, median at "
                              f"layer 1 {median:.2f} x")
-    want = {case[:2]: out for case, out in want.items() if case[2] == s_enc}
+    want_served = {case[:2]: out for case, out in want.items() if case[3] == S_CACHE}
+    want = {case[:2]: out for case, out in want.items() if case[2:] == (s_enc, K_SLOTS)}
     # negative checks: a kernel that dropped a cache row at either end of the
     # range, or a layer's fc2, must fail the main cases' limits
     no_fc2 = dataclasses.replace(fp, sfc2=fp.sfc2.clone())
     no_fc2.sfc2[12] = 0.0
     want[(0, 8)] = plain(0, 8)
-    long = [(s, n) for s, n, _ in main if n >= 434]
+    long = [(s, n) for s, n, *_ in main if n >= 434]
     broken = {
         "row 0 dropped at n_rows=8": [(fused_decode_layers(*args(1, 8)), want[(0, 8)])],
         "row 7 dropped at n_rows=8": [(fused_decode_layers(*args(0, 7)), want[(0, 8)])],
@@ -1110,6 +1146,12 @@ def phase_f(dev, card):
             [(fused_decode_layers(*args(s + 1, n)), want[(s, n)]) for s, n in long],
         "last row dropped at n_rows 434 and 867, starts 0 and 3":
             [(fused_decode_layers(*args(s, n - 1)), want[(s, n)]) for s, n in long],
+        f"first and last row dropped at the served {S_CACHE}-slot cache, n_rows "
+        f"{S_CACHE // 2} and {S_CACHE - 1}, starts 0 and 3":
+            [(fused_decode_layers(*args(s + 1, n, cache=served)), want_served[(s, n)])
+             for s, n in long_served]
+            + [(fused_decode_layers(*args(s, n - 1, cache=served)), want_served[(s, n)])
+               for s, n in long_served],
         "layer 12's fc2 dropped at n_rows=434":
             [(fused_decode_layers(*args(0, 434, no_fc2)), want[(0, 434)])],
     }
@@ -1185,7 +1227,7 @@ def phase_f(dev, card):
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {bytes_moved / 1e6:.1f} MB) ({card})")
     if graph_error:
         print(f"  K3 does not capture into a CUDA graph: {graph_error}")
-    del fp, cache_k, cache_v
+    del fp, cache_k, cache_v, whole, served
     torch.cuda.empty_cache()
     out = dict(timing[434], graph_error=graph_error)  # the mean decode step of 860 columns
     out.update({f"{k}_867": v for k, v in timing[867].items()
@@ -1806,8 +1848,8 @@ def serve_checked(pipe, request, want, label, card, need):
     need(same and k1 == n_layers * steps, f"{label}: ids equal {same}, K1 launches {k1}")
 
 
-def decode_prefix(model, dev, dtype, n_after):
-    """A B=2 mini-v1 request's cache prefilled with 430 random columns after
+def decode_prefix(model, dev, dtype, n_after, n_pre=K_COLUMNS // 2):
+    """A B=2 mini-v1 request's cache prefilled with `n_pre` random columns after
     the prompt; returns (cache, positions, K1's starts, the next position,
     the `n_after` random columns that follow)."""
     from parler_tts_tpu_torch.models.decoder import DecoderCache
@@ -1817,17 +1859,16 @@ def decode_prefix(model, dev, dtype, n_after):
     desc, desc_mask, prompt, prompt_mask = (torch.as_tensor(x, device=dev)
                                             for x in request_ids(1))
     g = torch.Generator(device=dev).manual_seed(1)
-    n_pre = MAX_LENGTH // 2
     cols = torch.randint(0, min(1024, dcfg.vocab_size), (BATCH, dcfg.num_codebooks,
                                                          n_pre + n_after), generator=g, device=dev)
     kv_valid = torch.cat([prompt_mask.bool(),
-                          torch.ones(BATCH, MAX_LENGTH, dtype=torch.bool, device=dev)], 1)
-    pos = torch.arange(S_CACHE, device=dev)[None].expand(BATCH, -1)
+                          torch.ones(BATCH, K_COLUMNS, dtype=torch.bool, device=dev)], 1)
+    pos = torch.arange(K_SLOTS, device=dev)[None].expand(BATCH, -1)
     starts = (S_PROMPT - prompt_mask.sum(1)).to(torch.int32)
     t = S_PROMPT + n_pre
     with torch.inference_mode():
         enc = model.encode_description(desc, desc_mask)
-        cache = DecoderCache.zeros(dcfg, BATCH, S_CACHE, enc.shape[1], dtype, dev,
+        cache = DecoderCache.zeros(dcfg, BATCH, K_SLOTS, enc.shape[1], dtype, dev,
                                    model.model_shards)
         cache.cross_k, cache.cross_v = model.decoder.precompute_cross_kv(enc)
         pre = torch.cat([model.prompt_hidden(prompt),
@@ -1838,18 +1879,18 @@ def decode_prefix(model, dev, dtype, n_after):
 
 
 def decode_step_logits(model, dev, dtype):
-    """Logits of one mini-v1 decode step at position S_PROMPT + 430 after a
+    """Logits of one mini-v1 decode step at position S_PROMPT + K_COLUMNS // 2 after a
     prefill of random columns (phase e's int8 step, at `dtype`)."""
     return decode_steps_logits(model, dev, dtype, 1)
 
 
-def decode_steps_logits(model, dev, dtype, n, row=None):
+def decode_steps_logits(model, dev, dtype, n, row=None, n_pre=K_COLUMNS // 2):
     """Logits (B, K, n, V) of n one-column decode steps over the random
-    columns that follow decode_prefix, each step fed the given column
-    (teacher-forced); with `row`, that row's steps alone (M = 1)."""
+    columns that follow decode_prefix(n_pre=), each step fed the given
+    column (teacher-forced); with `row`, that row's steps alone (M = 1)."""
     from parler_tts_tpu_torch.models.decoder import DecoderCache
 
-    cache, pos, starts, t, cols = decode_prefix(model, dev, dtype, n)
+    cache, pos, starts, t, cols = decode_prefix(model, dev, dtype, n, n_pre)
     if row is not None:
         r = slice(row, row + 1)
         cache = DecoderCache(cache.self_k[:, r].clone(), cache.self_v[:, r].clone(),
@@ -1863,6 +1904,20 @@ def decode_steps_logits(model, dev, dtype, n, row=None):
                                        cross_attn_bias=None, cache=cache,
                                        decode_lengths=(starts, t + i + 1)))
     return torch.cat(steps, dim=2)
+
+
+def tie_steps_logits(model, dev, dtype, row=None):
+    """Logits (B, K, len(P_TIE_PREFIXES) x P_TIE_STEPS, V) of P_TIE_STEPS
+    teacher-forced decode steps after each prefix of P_TIE_PREFIXES, in
+    that order: the steps a near-tie is measured over."""
+    return torch.cat([decode_steps_logits(model, dev, dtype, P_TIE_STEPS, row=row, n_pre=n)
+                      for n in P_TIE_PREFIXES], dim=2)
+
+
+def per_prefix(moves) -> str:
+    """The largest of `moves` (..., steps, 1) after each prefix of P_TIE_PREFIXES."""
+    return " / ".join(f"{m.max().item():.4f}"
+                      for m in moves.split(P_TIE_STEPS, dim=-2))
 
 
 def top_two_moves(ref, other):
@@ -2075,7 +2130,7 @@ def phase_j(dev, card, source, out_b, stream_e, stream_g):
     del xla, xla_pipe, int8
     torch.cuda.empty_cache()
 
-    # ---- fused_qkv: logits of the prefill and 8 decode steps, then 860 columns
+    # ---- fused_qkv: logits of the prefill and 8 decode steps, then MAX_LENGTH columns
     fqkv = ParlerTTSPipeline(source.model, source.dac, gen, fused_qkv=True, **pipe_kw)
     fp32_model = ParlerTTS(cfg, device=dev, dtype=torch.float32)
     load_jax_params(fp32_model, tensor_tree(source.model))
@@ -2099,7 +2154,7 @@ def phase_j(dev, card, source, out_b, stream_e, stream_g):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if torch.equal(out.delayed_ids, want_b):
-        print(f"  fused_qkv B=2 serve: {(out.steps - 2) / wall:.1f} decode steps/s, the 860 "
+        print(f"  fused_qkv B=2 serve: {(out.steps - 2) / wall:.1f} decode steps/s, the {out.steps} "
               f"columns equal phase (b)'s ({card})")
     else:
         with SampleHook(want=want_b) as hook:
@@ -2438,15 +2493,15 @@ def large_k1(dev, card):
     starts = torch.tensor([0, 3], dtype=torch.int32, device=dev)
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=dtype)
-        cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=dtype)
+        cache_k = rand(n_layers, b, K_SLOTS, h * dh, dtype=dtype)
+        cache_v = rand(n_layers, b, K_SLOTS, h * dh, dtype=dtype)
         cases = [(f"limit={n} layer {layer}", rand(b, h, dh, dtype=dtype), n, layer)
-                 for n in (1, 65, 434, 867, S_CACHE) for layer in (0, n_layers - 1)]
-        cases.append(("W=4 window", rand(b, 4, h, dh, dtype=dtype), S_CACHE - 3, n_layers - 1))
+                 for n in (1, 65, 434, 867, K_SLOTS) for layer in (0, n_layers - 1)]
+        cases.append(("W=4 window", rand(b, 4, h, dh, dtype=dtype), K_SLOTS - 3, n_layers - 1))
         for name, q, limit, layer in cases:
             got = flash_decode_attention(q, cache_k, cache_v, starts, limit, layer=layer)
             torch.cuda.synchronize()
-            splits = split_count(b, h, S_CACHE, q.shape[1] if q.dim() == 4 else 1)
+            splits = split_count(b, h, K_SLOTS, q.shape[1] if q.dim() == 4 else 1)
             want = flash_decode_attention_plain(q, cache_k, cache_v, starts, limit, layer=layer,
                                                 splits=splits)
             err = (got.float() - want.float()).abs().max().item()
@@ -2459,31 +2514,31 @@ def large_k1(dev, card):
             q = cases[6][1]
             got = flash_decode_attention(q, cache_k, cache_v, starts, 434, layer=0)
             dropped = flash_decode_attention_plain(q, cache_k, cache_v, starts + 1, 434,
-                                                   layer=0, splits=split_count(b, h, S_CACHE, 1))
+                                                   layer=0, splits=split_count(b, h, K_SLOTS, 1))
             if torch.allclose(got, dropped, **TOL[dtype]):
                 raise AssertionError("K1 large-v1: fp32 TOL does not see the first slot left out")
         print(f"  K1 at H={h} vs plain {str(dtype)[6:]}: {len(cases)} cases (starts 0/3, "
               f"stacked layers 0 and {n_layers - 1}, W=4) within TOL, max_abs_err "
               f"{max_err:.3e}, repeats "
-              f"bit-identical, {split_count(b, h, S_CACHE, 1)} splits"
+              f"bit-identical, {split_count(b, h, K_SLOTS, 1)} splits"
               + ("; a dropped first slot fails fp32 TOL" if dtype == torch.float32 else ""))
         del cache_k, cache_v
 
-    cache_k = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
-    cache_v = rand(n_layers, b, S_CACHE, h * dh, dtype=torch.bfloat16)
+    cache_k = rand(n_layers, b, K_SLOTS, h * dh, dtype=torch.bfloat16)
+    cache_v = rand(n_layers, b, K_SLOTS, h * dh, dtype=torch.bfloat16)
     q = rand(b, h, dh, dtype=torch.bfloat16)
     zeros = torch.zeros(b, dtype=torch.int32, device=dev)
-    k_views = [cache_k[i].view(b, S_CACHE, h, dh).transpose(1, 2) for i in range(n_layers)]
-    v_views = [cache_v[i].view(b, S_CACHE, h, dh).transpose(1, 2) for i in range(n_layers)]
-    ms = graph_ms(lambda i: flash_decode_attention(q, cache_k, cache_v, zeros, S_CACHE,
+    k_views = [cache_k[i].view(b, K_SLOTS, h, dh).transpose(1, 2) for i in range(n_layers)]
+    v_views = [cache_v[i].view(b, K_SLOTS, h, dh).transpose(1, 2) for i in range(n_layers)]
+    ms = graph_ms(lambda i: flash_decode_attention(q, cache_k, cache_v, zeros, K_SLOTS,
                                                    layer=i % n_layers), n_layers)
     sdpa_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
         q.view(b, h, 1, dh), k_views[i % n_layers], v_views[i % n_layers], scale=1.0), n_layers)
     plain_ms = cuda_ms(lambda i: flash_decode_attention_plain(
-        q, cache_k, cache_v, zeros, S_CACHE, layer=i % n_layers,
-        splits=split_count(b, h, S_CACHE, 1)), iters=60)
-    bound_ms, bound_by = bound(2 * b * h * dh * 2 + 2 * b * S_CACHE * h * dh * 2,
-                               4 * b * h * S_CACHE * dh, BF16_OPS_PER_S)
+        q, cache_k, cache_v, zeros, K_SLOTS, layer=i % n_layers,
+        splits=split_count(b, h, K_SLOTS, 1)), iters=60)
+    bound_ms, bound_by = bound(2 * b * h * dh * 2 + 2 * b * K_SLOTS * h * dh * 2,
+                               4 * b * h * K_SLOTS * dh, BF16_OPS_PER_S)
     print(f"  K1 large-v1 B=2 bf16 868 slots: {ms * 1e3:.2f} us by graph replay of {n_layers} "
           f"launches, "
           f"SDPA {sdpa_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
@@ -2581,7 +2636,7 @@ def large_k3(dev, card):
     def bf16(*shape):
         return (torch.randn(shape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
 
-    cache_k, cache_v = bf16(n_layers, S_CACHE, d), bf16(n_layers, S_CACHE, d)
+    cache_k, cache_v = bf16(n_layers, K_SLOTS, d), bf16(n_layers, K_SLOTS, d)
     cross_k, cross_v, x = bf16(n_layers, s_enc, d), bf16(n_layers, s_enc, d), bf16(1, d)
     enc_bias = torch.zeros(1, s_enc, device=dev)
     enc_bias[0, 12:] = torch.finfo(torch.float32).min
@@ -2596,7 +2651,7 @@ def large_k3(dev, card):
         return fused_decode_layers_plain(*args(start, n_rows), block_s=CUDA_CHUNK, tiling="cuda",
                                          **kw)
 
-    mean, last = S_CACHE // 2, S_CACHE - 1  # 434 and 867: an 860-column run's mean and last step
+    mean, last = K_SLOTS // 2, K_SLOTS - 1  # 434 and 867: an 860-column run's mean and last step
     cases = [(s, n) for s in (0, 3) for n in (1, mean, last)]
     got, want, noise = {}, {}, {}
     for case in cases:
@@ -2755,7 +2810,7 @@ def window_k1(dev, card):
 
     g = torch.Generator(device=dev).manual_seed(21)
     large = large_v1_config().decoder
-    mean = S_PROMPT + MAX_LENGTH // 2
+    mean = S_PROMPT + K_COLUMNS // 2
     cases = [  # label, H, layers, W, starts, limits at the window's first column
         ("mini-v1 W=24 B=1", 16, 24, SPEC_WINDOW, [3], [mean]),
         ("mini-v1 W=24 B=2", 16, 24, SPEC_WINDOW, [0, 3], [mean + 97, mean]),
@@ -2764,7 +2819,7 @@ def window_k1(dev, card):
     ]
     out, max_err = {}, 0.0
     for label, h, n_layers, w, starts_l, limits_l in cases:
-        b, dh, s = len(starts_l), 64, S_CACHE + w
+        b, dh, s = len(starts_l), 64, K_SLOTS + w
         starts = torch.tensor(starts_l, dtype=torch.int32, device=dev)
         limits = torch.tensor(limits_l, dtype=torch.int32, device=dev)
         splits = split_count(b, h, s, w)
@@ -3807,26 +3862,37 @@ def phase_o(dev, card, codec_cfg=None, decoder=None, columns=ENCODEC_COLUMNS):
 # HBM3 at 700 W). The bf16 runs are held to the one-process run at every
 # column (SampleHook forces the reference's token where they part), so 64
 # columns compare 62 columns' decisions
-P_FP32_COLUMNS = 256      # fp32 greedy TP=2 and speculative runs
+P_FP32_COLUMNS = 96       # fp32 greedy TP=2 and speculative runs
 P_INT8_COLUMNS = 128      # int8 DP=2 run
-P_TP_COLUMNS, P_DP_COLUMNS = 64, 128  # bf16 greedy runs (phase (b): 860)
+P_TP_COLUMNS, P_DP_COLUMNS = 64, 128  # bf16 greedy runs (phase (b): MAX_LENGTH)
 P_WARM_COLUMNS = 16       # a warm-up run before each timed bf16 run (> 9 codebooks)
-P_TIE_STEPS = 64          # teacher-forced decode steps that measure a partition's near-tie
+# a partition's near-tie and bf16's own are each the largest move over
+# P_TIE_STEPS teacher-forced decode steps after each of these prefixes (columns
+# of an 860-column run), so that neither bound rests on one stretch of steps
+P_TIE_PREFIXES = (K_COLUMNS // 4, K_COLUMNS // 2, 3 * K_COLUMNS // 4)
+P_TIE_STEPS = 22
 P_WINDOW = 24
 P_TRAIN_LR = 1e-4         # (p1, p2) one train step at a constant lr (no warmup)
 P_SAMPLES = 4096          # (p2) sampled entries a leaf in the parameter comparisons
 P_RANKS_TIMEOUT_S = 600
-# (p2)'s train steps: label, (n_data, n_model), fsdp, compute dtype, and whether
-# the row-parallel partial sums are all-reduced in fp32 (fp32_partial_sums)
+# (p2)'s train steps: label, (n_data, n_model, n_seq), fsdp, compute dtype, and
+# whether the row-parallel partial sums are all-reduced in fp32 (fp32_partial_sums)
 P_TRAIN_MODES = (
-    ("DP=2 fp32", (2, 1), False, torch.float32, False),
-    ("TP=2 fp32", (1, 2), False, torch.float32, False),
-    ("FSDP=2 fp32", (2, 1), True, torch.float32, False),
-    ("DP=2 bf16", (2, 1), False, torch.bfloat16, False),
-    ("FSDP=2 bf16", (2, 1), True, torch.bfloat16, False),
-    ("TP=2 bf16", (1, 2), False, torch.bfloat16, False),
-    ("TP=2 bf16, fp32 partial sums", (1, 2), False, torch.bfloat16, True),
+    ("DP=2 fp32", (2, 1, 1), False, torch.float32, False),
+    ("TP=2 fp32", (1, 2, 1), False, torch.float32, False),
+    ("FSDP=2 fp32", (2, 1, 1), True, torch.float32, False),
+    ("SP=2 fp32", (1, 1, 2), False, torch.float32, False),
+    ("DP=2 bf16", (2, 1, 1), False, torch.bfloat16, False),
+    ("FSDP=2 bf16", (2, 1, 1), True, torch.bfloat16, False),
+    ("SP=2 bf16", (1, 1, 2), False, torch.bfloat16, False),
+    ("TP=2 bf16", (1, 2, 1), False, torch.bfloat16, False),
+    ("TP=2 bf16, fp32 partial sums", (1, 2, 1), False, torch.bfloat16, True),
 )
+# (p2)'s bf16 greedy runs held to one process at every column: result key, the
+# one-process run's payload key, and its teacher-forced decode steps' key
+P_HELD_RUNS = (("dp2_bf16", "want_dp", None), ("tp2_bf16", "want_tp", "tp2_steps"),
+               ("tp2_int8_bf16", "want_tp_int8", "tp2_int8_steps"),
+               ("tp2_fused_bf16", "want_tp", "tp2_fused_steps"))
 
 
 def k1_sharded(dev, card, label, h, b, n_layers, w=None):
@@ -3846,11 +3912,11 @@ def k1_sharded(dev, card, label, h, b, n_layers, w=None):
     dh, cols = 64, w or 1
     g = torch.Generator(device=dev).manual_seed(h * 100 + b)
     starts = torch.tensor([0, 3][:b], dtype=torch.int32, device=dev)
-    limit = S_CACHE - cols + 1
-    splits = split_count(b, h, S_CACHE, cols)
+    limit = K_SLOTS - cols + 1
+    splits = split_count(b, h, K_SLOTS, cols)
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        ck, cv = ((torch.randn(n_layers, b, S_CACHE, h * dh, generator=g, device=dev) * 0.3)
+        ck, cv = ((torch.randn(n_layers, b, K_SLOTS, h * dh, generator=g, device=dev) * 0.3)
                   .to(dtype) for _ in range(2))
         shape = (b, h, dh) if w is None else (b, w, h, dh)
         q = (torch.randn(shape, generator=g, device=dev) * 0.3).to(dtype)
@@ -3878,8 +3944,8 @@ def k1_sharded(dev, card, label, h, b, n_layers, w=None):
             # SDPA over the same slots: column j of row r sees [start_r, limit + j)
             q4 = q.view(b, h, 1, dh) if w is None else q.transpose(1, 2)
             top = limit + cols - 1
-            kv = [(ck[i].view(b, S_CACHE, h, dh)[:, :top].transpose(1, 2),
-                   cv[i].view(b, S_CACHE, h, dh)[:, :top].transpose(1, 2))
+            kv = [(ck[i].view(b, K_SLOTS, h, dh)[:, :top].transpose(1, 2),
+                   cv[i].view(b, K_SLOTS, h, dh)[:, :top].transpose(1, 2))
                   for i in range(n_layers)]
             slot = torch.arange(top, device=dev)
             mask = ((slot[None, None, :] >= starts[:, None, None])
@@ -3890,12 +3956,12 @@ def k1_sharded(dev, card, label, h, b, n_layers, w=None):
             bound_ms, bound_by = bound(2 * b * cols * h * dh * 2 + 2 * slots * h * dh * 2,
                                        4 * h * dh * slots * cols, BF16_OPS_PER_S)
         del ck, cv
-    print(f"  K1 {label}: B={b}, H={h}, W={cols}, {S_CACHE} slots, {splits} splits: max_abs_err "
+    print(f"  K1 {label}: B={b}, H={h}, W={cols}, {K_SLOTS} slots, {splits} splits: max_abs_err "
           f"{max_err:.3e} (fp32 and bf16 within TOL, repeats bit for bit, a dropped last slot "
           f"fails fp32 TOL); bf16 {kernel_ms * 1e3:.2f} us (graph replay), plain "
           f"{plain_ms * 1e3:.2f} us, SDPA "
           + f"{library_ms * 1e3:.2f} us (boolean mask), bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-    return dict(shape=dict(b=b, h=h, w=cols, slots=S_CACHE, splits=splits), max_abs_err=max_err,
+    return dict(shape=dict(b=b, h=h, w=cols, slots=K_SLOTS, splits=splits), max_abs_err=max_err,
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -3922,6 +3988,7 @@ def phase_p0(dev, card):
           + ", ".join(f"{kn} error {v['max_abs_err']:.3e} over {v['slices']} slices"
                       for kn, v in k2.items()) + " within k2_close, repeats bit for bit, a "
           f"dropped K slice caught ({card})")
+    k2["tp2"] = k2_tp_slices(dev, card)
     t = T_PROMPT_TRAIN + T_FRAMES_TRAIN
     k4, fails = {}, []
     for label, b, h, pad in (("TP=2 rank", 2, 8, 5), ("DP=2 rank", 1, 16, 0)):
@@ -3931,9 +3998,140 @@ def phase_p0(dev, card):
             k4[f"{label.split()[0]}_{route}"] = dict(b=b, h=h, t=t, max_abs_err=errs)
             if failure:
                 fails.append(failure)
+    # a seq=2 rank's rows of phase (i)'s sequence (rank 0 also holds the prompt)
+    for rank, (tq, q_offset) in enumerate(seq_rank_rows()):
+        for dtype in (torch.bfloat16, torch.float32):
+            route, errs, failure = k4_case_check(
+                fa, f"mini-v1 SP=2 rank {rank}, q_offset {q_offset}", dtype, BATCH, tq, t, 16,
+                16, True, q_offset, 5, 64, dev)
+            k4[f"SP_rank{rank}_{route}"] = dict(b=BATCH, h=16, tq=tq, tk=t, q_offset=q_offset,
+                                               max_abs_err=errs)
+            if failure:
+                fails.append(failure)
     if fails:
         raise AssertionError(f"K4 at the sharded shapes: {fails}")
+    k4["SP_times"] = [k4_rank_times(dev, card, tq, t, q_offset)
+                      for tq, q_offset in seq_rank_rows()]
     return dict(k1=k1, k2=k2, k4=k4)
+
+
+def seq_rank_rows():
+    """(Tq, q_offset) of each seq=2 rank over phase (i)'s prompt and frames:
+    rank 0 holds the prompt and the first half of the frames."""
+    half = T_FRAMES_TRAIN // 2
+    return [(T_PROMPT_TRAIN + half, 0), (half, T_PROMPT_TRAIN + half)]
+
+
+def k4_rank_times(dev, card, tq, tk, q_offset):
+    """K4's tensor-core kernels at a seq rank's shape (B=2, H=16, bf16, row
+    1's first 5 keys masked), each timed as phase (h) times them, beside its
+    plain version and SDPA (forward, with the equal boolean mask), with the
+    bound of the visible (query, key) pairs."""
+    import torch.nn.functional as F
+
+    from parler_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask, do = k4_inputs(dev, torch.bfloat16, BATCH, tq, tk, 16, 16, 5)
+    b, _, h, dh = q.shape
+    ok = fa._visible(mask, tq, True, q_offset)
+    pairs = int(ok.sum()) * h
+    dims = (1, b, h, tq, tk, dh, 1, q_offset)
+    mask_u8 = mask.to(torch.uint8)
+    q_elems, k_elems = b * tq * h * dh, b * tk * h * dh
+    out = {}
+    with torch.no_grad():
+        o, lse = fa._launch_fwd(q, k, v, mask_u8, dims, "wgmma")
+        _, delta = fa._launch_dq(q, k, v, mask_u8, o, lse, do, dims, "wgmma")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        # name: (kernel, plain version, library call, matmuls a visible pair, bf16
+        # elements read and written (q, o, do, dq: Tq rows; k, v, dk, dv: Tk rows),
+        # fp32 rows of lse / delta)
+        runs = {
+            "fwd": (lambda i: fa._launch_fwd(q, k, v, mask_u8, dims, "wgmma"),
+                    lambda i: fa.flash_attention_plain(q, k, v, mask, q_offset=q_offset),
+                    lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
+                                                             scale=1.0),
+                    2, 2 * q_elems + 2 * k_elems, 1),
+            "dq": (lambda i: fa._launch_dq(q, k, v, mask_u8, o, lse, do, dims, "wgmma"),
+                   lambda i: fa._plain_backward(q, k, v, ok, o, lse, do, torch.float32,
+                                                parts=("dq",)),
+                   None, 3, 4 * q_elems + 2 * k_elems, 2),
+            "dkv": (lambda i: fa._launch_dkv(q, k, v, mask_u8, lse, do, delta, dims, "wgmma"),
+                    lambda i: fa._plain_backward(q, k, v, ok, o, lse, do, torch.float32,
+                                                 parts=("dkv",)),
+                    None, 4, 2 * q_elems + 4 * k_elems, 2),
+        }
+        for name, (kernel, plain, lib, matmuls, elems, lse_rows) in runs.items():
+            bytes_moved = 2 * elems + 4 * b * h * tq * lse_rows + b * tk
+            ops = 2 * dh * pairs * matmuls
+            byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+            out[name] = dict(ms=padded_ms(kernel, iters=20), plain_ms=padded_ms(plain, iters=5),
+                             library_ms=None if lib is None else padded_ms(lib, iters=20),
+                             bound_ms=max(byte_s, op_s) * 1e3,
+                             bound_by="bytes" if byte_s >= op_s else "operations")
+    print(f"  K4 wgmma at a seq=2 rank's shape (B={b}, H={h}, Tq={tq}, Tk={tk}, q_offset "
+          f"{q_offset}, bf16): " + "; ".join(
+              f"{n} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}"
+              + ("" if r["library_ms"] is None else f", SDPA {r['library_ms']:.4f}")
+              + f", bound {r['bound_ms']:.4f} {r['bound_by']})" for n, r in out.items())
+          + f" ({card})")
+    return dict(tq=tq, tk=tk, q_offset=q_offset, **out)
+
+
+# a TP=2 rank's int8 slices of a mini-v1 decoder layer, (K, N) and launches a
+# layer: q/k/v and the cross-attention q by columns, out_proj (self and cross)
+# by rows, fc1 by columns, fc2 by rows
+K2_TP2_SHAPES = ((1024, 512), (512, 1024), (1024, 2048), (2048, 1024))
+K2_TP2_PER_LAYER = (4, 2, 1, 1)
+
+
+def k2_tp_slices(dev, card):
+    """K2 at each TP=2 rank slice, M=2, bf16 x, against its plain version
+    (k2_check); one rank's decode layer (8 launches) timed by CUDA-graph
+    replay over 24 layers' weights beside the bf16 matmul of the same
+    slices and the plain version."""
+    from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    from parler_tts_tpu_torch.utils.quantize import quantize_kernel_torch
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    layers = [[quantize_kernel_torch(torch.randn(k, n, generator=g, device=dev) * 0.02)
+               for (k, n), per in zip(K2_TP2_SHAPES, K2_TP2_PER_LAYER) for _ in range(per)]
+              for _ in range(24)]
+    xs = {k: torch.randn(BATCH, k, generator=g, device=dev).to(torch.bfloat16)
+          for k in (512, 1024, 2048)}
+    for k, n in K2_TP2_SHAPES:
+        w, s = next((w, s) for w, s in layers[0] if w.shape == (k, n))
+        err, slices, _ = k2_check(xs[k], w, s, f"K2 TP=2 rank M={BATCH} {k}x{n}")
+        out[f"{k}x{n}"] = dict(m=BATCH, max_abs_err=err, slices=slices)
+
+    def k2_layer(i):
+        for w, s in layers[i]:
+            quant_matmul(xs[w.shape[0]], w, s)
+
+    deq = [[w.to(torch.bfloat16) for w, _ in layer] for layer in layers]
+
+    def mm_layer(i):
+        for w in deq[i]:
+            torch.matmul(xs[w.shape[0]], w)
+
+    timing = dict(ms=graph_ms(k2_layer, 24), library_ms=graph_ms(mm_layer, 24),
+                  plain_ms=padded_ms(lambda i: [quant_matmul_plain(xs[w.shape[0]], w, s)
+                                                for w, s in layers[i % 24]], iters=10))
+    bytes_moved = sum(per * (k * n + BATCH * k * 2 + n * 4 + BATCH * n * 2)
+                      for (k, n), per in zip(K2_TP2_SHAPES, K2_TP2_PER_LAYER))
+    ops = sum(per * 2 * BATCH * k * n for (k, n), per in zip(K2_TP2_SHAPES, K2_TP2_PER_LAYER))
+    byte_s, op_s = bytes_moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    timing.update(bound_ms=max(byte_s, op_s) * 1e3,
+                  bound_by="bytes" if byte_s >= op_s else "operations")
+    del layers, deq
+    print(f"  K2 at a TP=2 rank's slices, M={BATCH}: " + ", ".join(
+        f"{kn} error {v['max_abs_err']:.3e} over {v['slices']} slices" for kn, v in out.items())
+        + f" within k2_close, repeats bit for bit, a dropped K slice caught; one rank's decode "
+        f"layer (8 launches) {timing['ms'] * 1e3:.2f} us by graph replay, bf16 matmul "
+        f"{timing['library_ms'] * 1e3:.2f} us, plain {timing['plain_ms'] * 1e3:.2f} us, bound "
+        f"{timing['bound_ms'] * 1e3:.2f} us ({timing['bound_by']}) ({card})")
+    return dict(out, layer=timing)
 
 
 def p_train_model(dev, dtype, cfg=None):
@@ -4045,12 +4243,15 @@ def update_flips(a, b, lr):
 
 def phase_p2_refs(dev, card, source):
     """The main process's generation references for (p2): the fp32 AR run
-    over P_FP32_COLUMNS, the bf16 runs the ranks are held to, the
-    one-process logits of P_TIE_STEPS teacher-forced bf16 decode steps (TP's
-    near-tie is read against them), bf16's own near-tie (those steps against
-    fp32's) and a row alone's (DP)."""
+    over P_FP32_COLUMNS, the bf16 runs the ranks are held to (of (b)'s model
+    and of its int8 quantization, `q8`), the one-process logits of
+    the teacher-forced bf16 decode steps of each (tie_steps_logits; TP's near-tie is
+    read against them), bf16's own near-tie (those steps against fp32's)
+    and a row alone's (DP)."""
     import dataclasses
 
+    from parler_tts_tpu_torch.models.layers import init_weights
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
     from parler_tts_tpu_torch.runtime.generate import make_generate
 
     request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
@@ -4059,7 +4260,7 @@ def phase_p2_refs(dev, card, source):
     fp32 = fp32_copy(source.model, dev)
     with torch.inference_mode():
         ar32 = make_generate(fp32, gen32, torch.float32)(*request).delayed_ids
-    tie_steps32 = decode_steps_logits(fp32, dev, torch.float32, P_TIE_STEPS)
+    tie_steps32 = tie_steps_logits(fp32, dev, torch.float32)
     del fp32
     torch.cuda.empty_cache()
     ar16 = {}
@@ -4070,16 +4271,24 @@ def phase_p2_refs(dev, card, source):
     # near-ties over the same teacher-forced steps: bf16's own (one process's
     # bf16 logits against fp32's) and DP's (a rank decodes its row alone, M = 1)
     model = source.model
-    tie_steps = decode_steps_logits(model, dev, torch.bfloat16, P_TIE_STEPS)
+    tie_steps = tie_steps_logits(model, dev, torch.bfloat16)
     bf16_moves = top_two_moves(tie_steps, tie_steps32)
-    dp_tie = max(top_two_moves(tie_steps[r:r + 1], decode_steps_logits(
-        model, dev, torch.bfloat16, P_TIE_STEPS, row=r)).max().item() for r in range(BATCH))
+    dp_tie = max(top_two_moves(tie_steps[r:r + 1], tie_steps_logits(
+        model, dev, torch.bfloat16, row=r)).max().item() for r in range(BATCH))
     del tie_steps32
-    print(f"  references: over {P_TIE_STEPS} teacher-forced decode steps the bf16 logits move "
-          f"the top-two gap from fp32's by at most {bf16_moves.max().item():.3e} (median "
+    # the int8 model the ranks build (the quantization of (b)'s float weights) in one process
+    q8 = ParlerTTS(model.config, device=dev, dtype=torch.bfloat16, weight_quant=True)
+    init_weights(q8, torch.Generator(device=dev).manual_seed(0))
+    g = ar16[P_TP_COLUMNS][0]
+    int8 = (g, make_generate(q8, g, torch.bfloat16)(*request).delayed_ids)
+    int8_steps = tie_steps_logits(q8, dev, torch.bfloat16).float().cpu()
+    print(f"  references: over {P_TIE_STEPS} teacher-forced decode steps after each of the "
+          f"prefixes {P_TIE_PREFIXES} the bf16 logits move the top-two gap from fp32's by at "
+          f"most {bf16_moves.max().item():.3e} ({per_prefix(bf16_moves)} by prefix; median "
           f"{bf16_moves.median().item():.3e}), a row alone by at most {dp_tie:.3e} ({card})")
     return dict(ar32=ar32, ar16=ar16, dp_tie=dp_tie, bf16_tie=bf16_moves.max().item(),
-                tie_steps=tie_steps.float().cpu())
+                bf16_moves=bf16_moves.float().cpu(),
+                tie_steps=tie_steps.float().cpu(), int8=int8, int8_steps=int8_steps, q8=q8)
 
 
 def p2_train_refs(dev, card):
@@ -4334,12 +4543,18 @@ def phase_p_rank(tmp):
 
     from parler_tts_tpu_torch.config import mini_v1_config
     from parler_tts_tpu_torch.convert import tensor_tree
+    from parler_tts_tpu_torch.models import decoder
     from parler_tts_tpu_torch.models.layers import init_weights
-    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.models.parler import ParlerTTS, fused_qkv_model
     from parler_tts_tpu_torch.ops.flash_attention import flash_attention
     from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
     from parler_tts_tpu_torch.ops.quant_matmul import quant_matmul
-    from parler_tts_tpu_torch.parallel import collectives, make_mesh, maybe_init_distributed
+    from parler_tts_tpu_torch.parallel import (
+        collectives,
+        local_seq_slice,
+        make_mesh,
+        maybe_init_distributed,
+    )
     from parler_tts_tpu_torch.parallel.mesh import gather_full, shard_params
     from parler_tts_tpu_torch.runtime.generate import make_generate
     from parler_tts_tpu_torch.runtime.speculative import make_generate_speculative
@@ -4414,8 +4629,14 @@ def phase_p_rank(tmp):
     init_weights(model, torch.Generator(device=dev).manual_seed(0))
     dp = make_mesh(2, 1, device=dev)
     res["dp2_bf16"] = serve_modes(model, dp, "DP=2", P_DP_COLUMNS, payload["want_dp"])
-    # ---- TP=2 fp32: greedy B=2 and speculative W=24 B=1 (row 0)
     tp = make_mesh(1, 2, device=dev)
+    # ---- TP=2 bf16 with one q|k|v kernel a self-attention, each rank its heads' columns
+    fused = shard_params(fused_qkv_model(model), tp)
+    res["tp2_fused_bf16"] = serve_modes(fused, tp, "TP=2 fused q|k|v", P_TP_COLUMNS,
+                                        payload["want_tp"])
+    res["tp2_fused_steps"] = tie_steps_logits(fused, dev, torch.bfloat16).float().cpu()
+    del fused
+    # ---- TP=2 fp32: greedy B=2 and speculative W=24 B=1 (row 0)
     fp32 = ParlerTTS(cfg, device=dev, dtype=torch.float32)
     fp32_tree = tensor_tree(model)
     shard_params(fp32, tp)
@@ -4440,7 +4661,7 @@ def phase_p_rank(tmp):
     # ---- TP=2 bf16 over (b)'s request, and its decode-step logits
     shard_params(model, tp)
     res["tp2_bf16"] = serve_modes(model, tp, "TP=2", P_TP_COLUMNS, payload["want_tp"])
-    res["tp2_steps"] = decode_steps_logits(model, dev, torch.bfloat16, P_TIE_STEPS).float().cpu()
+    res["tp2_steps"] = tie_steps_logits(model, dev, torch.bfloat16).float().cpu()
     del model
     torch.cuda.empty_cache()
     # ---- K2 under DP: int8 weights, each rank one row over 256 columns
@@ -4453,12 +4674,28 @@ def phase_p_rank(tmp):
     res["dp2_int8"] = (out.delayed_ids.cpu(), num)
     say(f"DP=2 int8 B=2 over {P_INT8_COLUMNS} columns: K2 {num['k2']} launches on this rank "
         f"at M=1 (want {num['k2_want']}), K1 {num['k1']} (want {num['k1_want']})")
+    # ---- K2 under TP: each rank its columns of q/k/v/fc1 and rows of out_proj/fc2
+    shard_params(q8, tp)
+    ids, num, partings = serve_modes(q8, tp, "TP=2 int8", P_TP_COLUMNS, payload["want_tp_int8"])
+    num["k2_want"] = 8 * n_layers * (P_TP_COLUMNS - 1) + 2 * n_layers
+    res["tp2_int8_bf16"] = (ids, num, partings)
+    say(f"TP=2 int8 B=2: K2 {num['k2']} launches on this rank at its slices (want "
+        f"{num['k2_want']} = 192 a decode step + 48), K1 {num['k1']} (want {num['k1_want']})")
+    res["tp2_int8_steps"] = tie_steps_logits(q8, dev, torch.bfloat16).float().cpu()
     del q8
     torch.cuda.empty_cache()
 
     # ---- one train step per mode of P_TRAIN_MODES at dropout 0.1 over phase (i)'s batch
     batch = train_batch(dev)
     res["train"] = {}
+    k4_shapes = set()  # (Tq, Tk, q_offset) of the self-attention's K4 calls
+    k4 = decoder.flash_attention
+
+    def k4_recorded(q, k, v, mask, causal=True, q_offset=0):
+        k4_shapes.add((q.shape[1], k.shape[1], q_offset))
+        return k4(q, k, v, mask, causal=causal, q_offset=q_offset)
+
+    decoder.flash_attention = k4_recorded
     for mode, shape, fsdp, dtype, fp32_sums in P_TRAIN_MODES:
         mesh = make_mesh(*shape, device=dev)
         tmodel, tx, state = p_train_model(dev, dtype, p_train_config())
@@ -4466,8 +4703,11 @@ def phase_p_rank(tmp):
         shard_train_state(state, mesh, fsdp=fsdp)
         rows = slice(mesh.data.rank * BATCH // mesh.data.size,
                      (mesh.data.rank + 1) * BATCH // mesh.data.size)
+        cols = local_seq_slice(T_FRAMES_TRAIN, mesh)
+        local = Batch(*(x[rows] for x in batch[:-1]), batch.labels[rows, cols])
         for key in flash_attention.launches:
             flash_attention.launches[key] = flash_attention.launches_wgmma[key] = 0
+        k4_shapes.clear()
         step = make_train_step(tmodel, tx, mesh=mesh)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with contextlib.ExitStack() as stack:
@@ -4475,7 +4715,7 @@ def phase_p_rank(tmp):
                 stack.enter_context(fp32_partial_sums(tmodel))
             memory = stack.enter_context(StepMemory(tmodel, tx))
             start.record()
-            state, metrics = step(state, Batch(*(x[rows] for x in batch)), 0)
+            state, metrics = step(state, local, 0)
             end.record()
         ms = start.elapsed_time(end)
         specs = tmodel.shard_specs
@@ -4487,13 +4727,16 @@ def phase_p_rank(tmp):
                                   memory=memory.numbers(),
                                   k4=dict(flash_attention.launches),
                                   k4_wgmma=dict(flash_attention.launches_wgmma),
+                                  k4_shapes=sorted(k4_shapes),
                                   params=params if rank == 0 else None)
         say(f"{mode} train step: loss {float(metrics['loss']):.6f}, grad_norm "
             f"{float(metrics['grad_norm']):.6f}, {ms:.1f} ms (the memory recorder on), K4 "
-            f"{dict(flash_attention.launches)} on this rank; memory on this rank: "
+            f"{dict(flash_attention.launches)} on this rank at (Tq, Tk, q_offset) "
+            f"{sorted(k4_shapes)}; memory on this rank: "
             + StepMemory.line(res["train"][mode]["memory"]))
         del tmodel, tx, state, params, step, memory
         torch.cuda.empty_cache()
+    decoder.flash_attention = k4
 
     # ---- the CLI at world 2 (mesh_data=2) over phase (n)'s features, fp32: 3
     # steps and a checkpoint at step 3
@@ -4580,6 +4823,7 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
         payload = dict(device=str(dev), gen=source.generation_config, cli_cfg=cfg_n,
                        cli_args=(margs, dargs, w2), cli_features=feats["train"],
                        want_tp=refs["ar16"][P_TP_COLUMNS][1].cpu(),
+                       want_tp_int8=refs["int8"][1].cpu(),
                        want_dp=refs["ar16"][P_DP_COLUMNS][1].cpu())
 
         def meanwhile():
@@ -4615,7 +4859,8 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
         need(all(all(e.values()) for e in exact), f"gloo collectives not exact: {exact}")
 
         # generation: every rank returns the global ids
-        for key in ("dp2_bf16", "tp2_bf16", "tp2_fp32", "tp2_spec_fp32", "dp2_int8"):
+        for key in ("dp2_bf16", "tp2_bf16", "tp2_fp32", "tp2_spec_fp32", "dp2_int8",
+                    "tp2_int8_bf16", "tp2_fused_bf16"):
             need(torch.equal(r0[key][0], r1[key][0]), f"{key}: the ranks' ids differ")
             for r in (r0, r1):
                 num = r[key][1]
@@ -4625,30 +4870,45 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
         # the one-process top-two gap by no more than bf16 moves fp32's over the
         # same teacher-forced steps, and each parting lies within the
         # partition's own near-tie
-        tp_moves = top_two_moves(refs["tie_steps"], r0["tp2_steps"])
-        tp_tie, bf16_tie = tp_moves.max().item(), refs["bf16_tie"]
-        print(f"  near-ties over {P_TIE_STEPS} teacher-forced bf16 decode steps "
-              f"({tp_moves.numel()} rows, codebooks and columns), the largest move of the "
-              f"one-process top-two gap: TP=2 {tp_tie:.3e} (median "
-              f"{tp_moves.median().item():.3e}), a row alone (DP=2) {refs['dp_tie']:.3e}, "
-              f"fp32 against bf16 {bf16_tie:.3e}")
+        bf16_tie = refs["bf16_tie"]
+        one_steps = {"want_tp": refs["tie_steps"], "want_tp_int8": refs["int8_steps"]}
+        moves = {key: top_two_moves(one_steps[want], r0[steps])
+                 for key, want, steps in P_HELD_RUNS if steps is not None}
+        tie = {key: m.max().item() for key, m in moves.items()}
+        tie["dp2_bf16"] = refs["dp_tie"]
+        print(f"  near-ties over {P_TIE_STEPS} teacher-forced bf16 decode steps after each of "
+              f"the prefixes {P_TIE_PREFIXES} ({moves['tp2_bf16'].numel()} rows, codebooks and "
+              f"columns), the largest move of the one-process top-two gap: " + ", ".join(
+                  f"{key} {tie[key]:.3e} ({per_prefix(m)} by prefix; median "
+                  f"{m.median().item():.3e})" for key, m in moves.items())
+              + f", a row alone (DP=2) {refs['dp_tie']:.3e}, fp32 against bf16 {bf16_tie:.3e} "
+              f"({per_prefix(refs['bf16_moves'])} by prefix)")
         request = [torch.as_tensor(x, device=dev) for x in request_ids(0)]
         ties = {}
-        for key, tie, cols in (("tp2_bf16", tp_tie, P_TP_COLUMNS),
-                               ("dp2_bf16", refs["dp_tie"], P_DP_COLUMNS)):
-            g, want = refs["ar16"][cols]
-            need(tie <= bf16_tie, f"{key}: the partition moves the top-two gap by {tie:.3e}, "
-                                  f"more than bf16 does ({bf16_tie:.3e})")
+        for key, want_key, _ in P_HELD_RUNS:
+            cols = P_DP_COLUMNS if key == "dp2_bf16" else P_TP_COLUMNS
+            g, want = refs["int8"] if want_key == "want_tp_int8" else refs["ar16"][cols]
+            one = refs["q8"] if want_key == "want_tp_int8" else source.model
+            need(tie[key] <= bf16_tie, f"{key}: the partition moves the top-two gap by "
+                                       f"{tie[key]:.3e}, more than bf16 does ({bf16_tie:.3e})")
             need(torch.equal(r0[key][0].to(dev), want),
                  f"{key}: the forced run did not follow the one-process run")
             partings = sorted(set(r0[key][2] + r1[key][2]))
             print(f"    {key} vs one process: {len(partings)} of the "
                   f"{(cols - 2) * BATCH * 9} (column, row, codebook) entries of {cols - 2} "
-                  f"decoded columns part, each held to the partition's near-tie {tie:.3e}")
+                  f"decoded columns part, each held to the partition's near-tie {tie[key]:.3e}")
             near_ties(f"{key} vs one process", partings,
-                      lambda g=g: make_generate(source.model, g, torch.bfloat16)(*request),
-                      want, need, tie=tie, top_two=False)
-            ties[key] = dict(tie=tie, bf16_tie=bf16_tie, partings=len(partings), columns=cols)
+                      lambda g=g, one=one: make_generate(one, g, torch.bfloat16)(*request),
+                      want, need, tie=tie[key], top_two=False)
+            ties[key] = dict(tie=tie[key], bf16_tie=bf16_tie, partings=len(partings),
+                             columns=cols, prefixes=P_TIE_PREFIXES,
+                             by_prefix=per_prefix(moves[key]) if key in moves else None,
+                             bf16_by_prefix=per_prefix(refs["bf16_moves"]))
+        for key in ("dp2_int8", "tp2_int8_bf16"):
+            for r in (r0, r1):
+                num = r[key][1]
+                need(num["k2"] == num["k2_want"], f"{key}: K2 {num['k2']}, want {num['k2_want']}")
+        del refs["q8"]
         fp32_model = fp32_copy(source.model, dev)
         gen32 = dataclasses.replace(source.generation_config, max_length=P_FP32_COLUMNS,
                                     min_new_tokens=P_FP32_COLUMNS)
@@ -4664,9 +4924,6 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
         need(0 < forwards < columns, f"speculative TP=2: {forwards} forwards, {columns} columns")
         del fp32_model, pipe32
         torch.cuda.empty_cache()
-        for r in (r0, r1):
-            num = r["dp2_int8"][1]
-            need(num["k2"] == num["k2_want"], f"DP=2 int8: K2 {num['k2']}, want {num['k2_want']}")
 
         # train steps against the single-process step of their dtype, within this
         # run's gaps between its bf16 and fp32 steps
@@ -4691,11 +4948,19 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
               f"{abs(fp32p['loss'] - t_ref['bf16']['loss']):.3e}, grad_norm by "
               f"{abs(fp32p['grad_norm'] - t_ref['bf16']['grad_norm']):.3e} ({card})")
         train_out = {}
-        for mode, _, _, dtype, _ in P_TRAIN_MODES:
+        t_train = T_PROMPT_TRAIN + T_FRAMES_TRAIN
+        for mode, shape, _, dtype, _ in P_TRAIN_MODES:
             m0, m1 = r0["train"][mode], r1["train"][mode]
             bf16 = dtype == torch.bfloat16
+            # the self-attention's K4 calls a rank: its rows against the gathered keys
+            # under SP (rank 0 holds the prompt), the whole sequence otherwise
+            rank_rows = seq_rank_rows() if shape[2] > 1 else [(t_train, 0)] * 2
+            shapes_want = [[(tq, t_train, off)] for tq, off in rank_rows]
             one = t_ref["bf16" if bf16 else "fp32"]
-            tp_bf16 = bf16 and mode.startswith("TP=2")
+            # bf16 TP sums its row-parallel partial products rounded to bf16 over the
+            # ranks: it gets the allowance TP's fp32-partial-sum step measures. DP, FSDP
+            # and SP keep the plain bf16-fp32 gap
+            tp_bf16 = bf16 and shape[1] > 1
             loss_limit = loss_tol + (tp_rounding["loss"] if tp_bf16 else 0.0)
             norm_limit = norm_tol + (tp_rounding["grad_norm"] if tp_bf16 else 0.0)
             flips, worst = update_flips(m0["params"], one["params"], P_TRAIN_LR)
@@ -4705,6 +4970,8 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
             ok += [flips <= flip_limit, worst <= 2 * P_TRAIN_LR * 1.01]
             ok += [m["k4"] == k4_want and (m["k4_wgmma"] == k4_want if bf16
                                            else not any(m["k4_wgmma"].values())) for m in (m0, m1)]
+            ok += [[tuple(x) for x in m["k4_shapes"]] == w
+                   for m, w in zip((m0, m1), shapes_want)]
             need(all(ok), f"{mode} train step: checks {ok}")
             limit_text = f"the bf16-fp32 gap {loss_tol:.3e}" + (
                 f" + the partial sums' rounding {tp_rounding['loss']:.3e}" if tp_bf16 else "")
@@ -4715,13 +4982,15 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
                   f"{m0['num_items']:.0f}; updates part from the single step's on {flips:.3%} of "
                   f"sampled entries (limit {flip_limit:.3%}, the bf16-fp32 steps' share), largest "
                   f"{worst:.2e}; {m0['ms']:.1f} ms a step; K4 {m0['k4']} a rank on the "
-                  f"{'wgmma' if bf16 else 'SIMT'} route; all {all(ok)} (two processes on one "
-                  f"card, gloo through the host) ({card})")
+                  f"{'wgmma' if bf16 else 'SIMT'} route at (Tq, Tk, q_offset) "
+                  f"{m0['k4_shapes']} / {m1['k4_shapes']} (ranks); all {all(ok)} (two "
+                  f"processes on one card, gloo through the host) ({card})")
             for i, m in enumerate((m0, m1)):
                 print(f"    {mode} rank {i} memory: " + StepMemory.line(m["memory"]))
             train_out[mode] = dict(ms=m0["ms"], peak_gib=[m0["memory"]["peak_gib"],
                                                           m1["memory"]["peak_gib"]],
                                    memory=m0["memory"], k4=m0["k4"], k4_wgmma=m0["k4_wgmma"],
+                                   k4_shapes=[m0["k4_shapes"], m1["k4_shapes"]],
                                    loss_off=abs(m0["loss"] - one["loss"]), loss_limit=loss_limit,
                                    flips=flips)
 
@@ -4752,19 +5021,22 @@ def phase_p(dev, card, source, out_b, loss_gap, cli):
         shutil.rmtree(root, ignore_errors=True)
     if fails:
         raise AssertionError(f"phase p: {fails}")
-    rate = {k: r0[k][1]["steps_per_s"] for k in ("dp2_bf16", "tp2_bf16")}
+    rate = {k: r0[k][1]["steps_per_s"] for k in ("dp2_bf16", "tp2_bf16", "tp2_int8_bf16",
+                                                 "tp2_fused_bf16")}
     coll = {k: (r0[k][1]["collectives_per_step"], r0[k][1]["host_ms_per_collective"])
-            for k in ("dp2_bf16", "tp2_bf16")}
+            for k in rate}
     print(f"  shared card, two processes, gloo through the host (not a scaling figure): "
-          f"TP=2 {rate['tp2_bf16']:.1f} and DP=2 {rate['dp2_bf16']:.1f} decode steps/s at B=2 "
-          f"bf16; TP=2 {coll['tp2_bf16'][0]:.1f} collectives a decode step at "
+          f"decode steps/s at B=2 bf16 " + ", ".join(f"{k} {v:.1f}" for k, v in rate.items())
+          + f"; TP=2 {coll['tp2_bf16'][0]:.1f} collectives a decode step at "
           f"{coll['tp2_bf16'][1]:.3f} host ms each; train ms a step "
           + ", ".join(f"{m} {v['ms']:.1f}" for m, v in train_out.items()) + f" ({card})")
     return dict(
         k1=dict(p0["k1"], launches_per_rank={k: r0[k][1]["k1"] for k in (
-            "dp2_bf16", "tp2_bf16", "tp2_fp32", "tp2_spec_fp32", "dp2_int8")},
+            "dp2_bf16", "tp2_bf16", "tp2_fp32", "tp2_spec_fp32", "dp2_int8", "tp2_int8_bf16",
+            "tp2_fused_bf16")},
             steps_per_s=rate, collectives=coll, near_ties=ties),
-        k2=dict(p0["k2"], dp2_int8_launches_per_rank=r0["dp2_int8"][1]["k2"]),
+        k2=dict(p0["k2"], dp2_int8_launches_per_rank=r0["dp2_int8"][1]["k2"],
+                tp2_int8_launches_per_rank=r0["tp2_int8_bf16"][1]["k2"]),
         k4=dict(p0["k4"], train=train_out, cli=cli_out, tp_bf16_rounding=tp_rounding,
                 tp_fp32_partial_sums_vs_one_process=abs(tp_f["loss"] - fp32p["loss"])),
     )

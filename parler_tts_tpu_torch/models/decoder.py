@@ -42,9 +42,20 @@
     column-parallel over heads, out_proj and fc2 row-parallel (their outputs
     all-reduced), fc1 column-parallel over F, the LM heads sharded over V
     (their logits all-gathered), and the self and cross KV caches hold the
-    rank's heads (`DecoderCache.zeros(model_shards=n)`). `embed_tokens`
-    (K, vocab+1, D) stays whole: n does not divide vocab+1 at any Parler
-    config, and `check_model_axis` refuses a model where it would.
+    rank's heads (`DecoderCache.zeros(model_shards=n)`). Int8 projections
+    are split as their float ones (`w_q` as the kernel; a column-parallel
+    `scale` by its columns, a row-parallel one whole, its partial products
+    summed by the all-reduce), and a fused `qkv_proj` holds the rank's q, k
+    and v heads side by side. `embed_tokens` (K, vocab+1, D) is sharded over
+    its rows where n divides vocab+1 (as the JAX rule does; no Parler config
+    has such a vocabulary): each codebook's lookup is vocab-parallel,
+    summed over the group;
+  - under sequence parallelism (the training route given a `SeqShare`,
+    `parallel/collectives.py`) a rank holds its rows of the sequence at
+    their absolute positions: it projects q, k and v for its rows, gathers
+    k and v over `seq` (the gradient reduce-scattered back), and attends its
+    rows at `q_offset` = their first position on every route; its dropout
+    masks are its rows of the global masks.
 """
 
 from __future__ import annotations
@@ -68,7 +79,14 @@ from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.positions import apply_rope, rope_cos_sin, sinusoidal_embed, sinusoidal_table
 from ..ops.quant_matmul import quant_matmul
-from ..parallel.collectives import copy_to, gather_last, reduce_from
+from ..parallel.collectives import (
+    SeqShare,
+    copy_to,
+    gather_last,
+    gather_seq,
+    reduce_from,
+    vocab_embedding,
+)
 from ..utils.quantize import quantize_kernel_torch
 from .layers import Dense, LayerNorm, bernoulli, dropout, fold_in, new_param
 
@@ -238,22 +256,28 @@ class Attention(nn.Module):
         return q
 
     def _qkv(self, x):
-        """Raw q, k and v projections under either layout."""
+        """Raw q, k and v projections under either layout (a fused kernel
+        holds the rank's q, k and v heads side by side under `tp`)."""
         x = self._in(x)
         if self.fused_qkv:
-            kv = self.num_kv_heads * self.config.head_dim
-            return self.qkv_proj(x).split([self.config.hidden_size, kv, kv], dim=-1)
+            n = 1 if self.tp is None else self.tp.size
+            q, kv = self.config.hidden_size // n, self.num_kv_heads * self.config.head_dim // n
+            return self.qkv_proj(x).split([q, kv, kv], dim=-1)
         return self.q_proj(x), self.k_proj(x), self.v_proj(x)
 
     def self_attention(self, x, bias, cos, sin, cache: Optional[DecoderCache], layer_idx: int,
                        decode_lengths: Optional[Tuple[torch.Tensor, int]] = None,
-                       mask_1d: Optional[torch.Tensor] = None):
+                       mask_1d: Optional[torch.Tensor] = None,
+                       seq: Optional[SeqShare] = None):
         """With a cache: writes this step's k/v into it at `cache.index`
         (each row at its own offset when that is a (B,) tensor), then attends through K1 when `decode_lengths` = (starts, limit) is
         given, else densely over the layer's cache with the additive `bias`.
         Without one (training): attends over this call's k/v, through the
         route `use_chunked_attention` picks when `mask_1d` (B, T) is given,
-        else densely with `bias`."""
+        else densely with `bias`. With `seq` (training only) `x` is this
+        rank's rows of the sequence: k and v are gathered over `seq`, the
+        rows attend at their first position, and `mask_1d` (B, T) and `bias`
+        (B, 1, rows, T) cover the whole sequence's keys."""
         b, t, _ = x.shape
         q_raw, k_raw, v_raw = self._qkv(x)
         q = self._scaled_query(q_raw, cos, sin)
@@ -262,13 +286,16 @@ class Attention(nn.Module):
             k = apply_rope(k, cos, sin)
         if cache is None:
             k, v = k.to(q.dtype), v.to(q.dtype)
+            offset = 0
+            if seq is not None:
+                k, v, offset = gather_seq(k, seq), gather_seq(v, seq), seq.first
             route = self.use_chunked_attention
             if route == "pallas" and mask_1d is not None:
-                out = flash_attention(q, k, v, mask_1d, causal=True)
+                out = flash_attention(q, k, v, mask_1d, causal=True, q_offset=offset)
             elif route and mask_1d is not None:
                 chunk = 512 if route is True else int(route)
-                out = chunked_attention(q, k, v, mask_1d, causal=True, chunk_q=chunk,
-                                        chunk_k=chunk)
+                out = chunked_attention(q, k, v, mask_1d, causal=True, q_offset=offset,
+                                        chunk_q=chunk, chunk_k=chunk)
             else:
                 out = _gqa_attention(q, k, v, bias)
             return self._out(out.reshape(b, t, -1))
@@ -335,28 +362,29 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, *, self_attn_bias, cross_k, cross_v, cross_attn_bias, cos, sin,
                 cache: Optional[DecoderCache], layer_idx: int, decode_lengths=None,
-                mask_1d=None, key: Optional[int] = None):
+                mask_1d=None, key: Optional[int] = None, seq: Optional[SeqShare] = None):
         cfg = self.config
+        times = None if seq is None else (seq.total, seq.first)
         h = self.self_attn.self_attention(
             self.self_attn_layer_norm(x), self_attn_bias, cos, sin, cache, layer_idx,
-            decode_lengths, mask_1d,
+            decode_lengths, mask_1d, seq,
         )
-        x = x + dropout(h, cfg.dropout, fold_in(key, "self_attn"))
+        x = x + dropout(h, cfg.dropout, fold_in(key, "self_attn"), times=times)
         if cross_k is not None:
             h = self.encoder_attn.cross_attention(
                 self.encoder_attn_layer_norm(x), cross_k, cross_v, cross_attn_bias, cos, sin
             )
-            x = x + dropout(h, cfg.dropout, fold_in(key, "encoder_attn"))
+            x = x + dropout(h, cfg.dropout, fold_in(key, "encoder_attn"), times=times)
         h = self.final_layer_norm(x)
         cols = None
         if self.tp is not None:
             h = copy_to(h, self.tp)
             cols = (cfg.ffn_dim, self.tp.span(cfg.ffn_dim).start)
         h = self.act(self.fc1(h))
-        h = self.fc2(dropout(h, cfg.activation_dropout, fold_in(key, "activation"), cols))
+        h = self.fc2(dropout(h, cfg.activation_dropout, fold_in(key, "activation"), cols, times))
         if self.tp is not None:
             h = reduce_from(h, self.tp)
-        return x + dropout(h, cfg.dropout, fold_in(key, "fc2"))
+        return x + dropout(h, cfg.dropout, fold_in(key, "fc2"), times=times)
 
 
 # the matrix products with no batch dimension, whose outputs remat_policy="dots" keeps
@@ -375,7 +403,10 @@ class ParlerDecoder(nn.Module):
     """The decoder stack, over a static cache (serving) or without one
     (training). `remat_layers` recomputes each layer of the training route in
     the backward instead of keeping its activations; `remat_policy` (None or
-    "dots") says what the recompute may keep."""
+    "dots") says what the recompute may keep. With `tp` the rank holds its
+    rows of each codebook's embedding table."""
+
+    tp = None
 
     def __init__(self, config: DecoderConfig, device=None, dtype=torch.float32,
                  weight_quant: Any = False, param_dtype=None,
@@ -407,13 +438,19 @@ class ParlerDecoder(nn.Module):
         self.embed_tokens.normal_(0.0, self.config.initializer_factor, generator=generator)
 
     def embed_ids(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Sum of the K codebook embeddings: (B, K, T) -> (B, T, D), one gather."""
+        """Sum of the K codebook embeddings: (B, K, T) -> (B, T, D), one
+        gather (vocab-parallel under `tp`: each codebook's rows summed over
+        the group before the codebooks are summed)."""
         cfg = self.config
         rows = self.embed_tokens.shape[1]
         flat = self.embed_tokens.reshape(-1, cfg.hidden_size)
         offsets = (torch.arange(cfg.num_codebooks, device=input_ids.device)
                    * rows)[None, :, None]
-        out = F.embedding(input_ids + offsets, flat).to(self.dtype).sum(dim=1)
+        if self.tp is None:
+            out = F.embedding(input_ids + offsets, flat)
+        else:
+            out = vocab_embedding(input_ids, flat, self.tp, rows=rows, offsets=offsets)
+        out = out.to(self.dtype).sum(dim=1)
         return out * cfg.hidden_size ** 0.5 if cfg.scale_embedding else out
 
     def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):
@@ -429,11 +466,13 @@ class ParlerDecoder(nn.Module):
                 decode_lengths: Optional[Tuple[torch.Tensor, int]] = None,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 mask_1d: Optional[torch.Tensor] = None,
-                dropout_key: Optional[int] = None) -> torch.Tensor:
+                dropout_key: Optional[int] = None,
+                seq: Optional[SeqShare] = None) -> torch.Tensor:
         """(B, T, D) embeds at absolute positions (B, T) -> hidden (B, T, D).
         With a cache: advances `cache.index` by T. Without one: the training
         route, cross-attending to `encoder_hidden_states` (B, S_enc, D), with
-        dropout and LayerDrop when `dropout_key` is given."""
+        dropout and LayerDrop when `dropout_key` is given; with `seq` the
+        embeds are this rank's rows of the sequence (`Attention.self_attention`)."""
         cfg = self.config
         x = inputs_embeds.to(self.dtype)
         cos = sin = None
@@ -441,7 +480,8 @@ class ParlerDecoder(nn.Module):
             cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, x.dtype)
         else:
             x = x + sinusoidal_embed(self.positions, position_ids)
-        x = dropout(x, cfg.dropout, fold_in(dropout_key, "embed"))
+        times = None if seq is None else (seq.total, seq.first)
+        x = dropout(x, cfg.dropout, fold_in(dropout_key, "embed"), times=times)
         layerdrop = dropout_key is not None and cfg.layerdrop > 0.0 and cache is None
         enc = None if encoder_hidden_states is None else encoder_hidden_states.to(self.dtype)
         for i, layer in enumerate(self.layers):
@@ -458,15 +498,16 @@ class ParlerDecoder(nn.Module):
                 cross_k, cross_v = layer.encoder_attn.project_kv(enc)
             kw = dict(self_attn_bias=self_attn_bias, cross_k=cross_k, cross_v=cross_v,
                       cross_attn_bias=cross_attn_bias, cos=cos, sin=sin, cache=None,
-                      layer_idx=i, mask_1d=mask_1d, key=key)
+                      layer_idx=i, mask_1d=mask_1d, key=key, seq=seq)
             if self.remat_layers and torch.is_grad_enabled():
-                # the layer's dropout masks come from `key`, so the recompute
-                # draws the same ones without restoring any generator state
+                # the layer's dropout masks come from `key` (and its rows from
+                # `seq`), so the recompute draws the same ones without restoring
+                # any generator state; it gathers k and v over `seq` again
                 out = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False,
                                  **REMAT_POLICIES[self.remat_policy], **kw)
             else:
                 out = layer(x, **kw)
-            if layerdrop:
+            if layerdrop:  # a select of one scalar draw: every seq rank runs the layer
                 dropped = bernoulli(cfg.layerdrop, fold_in(dropout_key, "layerdrop", i),
                                     x.device)
                 out = torch.where(dropped, x, out)

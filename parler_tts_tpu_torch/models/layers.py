@@ -17,8 +17,9 @@ again under `torch.utils.checkpoint` draws the same masks: checkpoint's
 `preserve_rng_state` restores only the default generators, never these.
 Over a mesh a mask is drawn for the global tensor and the rank keeps its
 part (`parallel/rows.py`): its rows under data parallelism, and with `cols`
-its columns of a tensor-parallel activation, so the masks do not depend on
-the partition.
+its columns of a tensor-parallel activation, and with `times` its time
+rows of a sequence-parallel one, so the masks do not depend on the
+partition.
 """
 
 from __future__ import annotations
@@ -48,18 +49,20 @@ def fold_in(key: Optional[int], *data) -> Optional[int]:
 
 
 def dropout(x: torch.Tensor, rate: float, key: Optional[int],
-            cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            cols: Optional[Tuple[int, int]] = None,
+            times: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax `nn.Dropout`: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate). `key=None` is deterministic.
     `cols` = (global width, first column): `x` holds those columns of the
-    last dim of a wider activation, whose mask is drawn."""
+    last dim of a wider activation, whose mask is drawn; `times` = (global
+    length, first row) likewise for dim 1."""
     if key is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     gen = torch.Generator(device=x.device).manual_seed(key)
     keep = draw_sliced(lambda shape: torch.rand(shape, generator=gen, device=x.device),
-                       x.shape, cols=cols) >= rate
+                       x.shape, cols=cols, times=times) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -24,6 +24,7 @@ from ..convert import as_tensor, load_jax_params, tensor_tree
 from ..ops.losses import shift_tokens_right
 from ..ops.masks import dense_self_attention_bias, padding_cross_attention_bias
 from ..ops.positions import sinusoidal_embed, sinusoidal_table
+from ..parallel.collectives import SeqShare, gather_rows, previous_last
 from .decoder import ParlerForCausalLM
 from .layers import Dense, Embed, fold_in
 from .t5_encoder import T5Encoder, convert_t5_encoder_params
@@ -43,7 +44,8 @@ class ParlerTTS(nn.Module):
 
     `parallel.mesh.shard_params(model, mesh)` slices the parameters to a
     rank's shards in place and sets `mesh` and `shard_specs` (the plan per
-    parameter); `model_shards` is then the `model` axis's size."""
+    parameter); `model_shards` is then the `model` axis's size. Over a mesh
+    with a `seq` axis `forward` is sequence-parallel (its docstring)."""
 
     mesh = None
     shard_specs = None
@@ -148,49 +150,69 @@ class ParlerTTS(nn.Module):
 
         T5-encode, embed the prompt, shift the labels right, decode over
         [prompt prefix, labels] (default mode) at absolute positions, and drop
-        the prefix from the output."""
+        the prefix from the output.
+
+        Over a mesh with a `seq` axis, `labels` are this rank's share of the
+        label columns (`parallel.mesh.local_seq_slice`), and so are the
+        outputs: the shift takes its first column from the previous rank's
+        last label column, rank 0 of `seq` holds the prompt prefix (so the
+        whole sequence, gathered in rank order, is [prompt; frames]), every
+        rank decodes its rows at their absolute positions against the
+        gathered keys, and the T5 encoder and the cross-attention run whole on
+        every rank."""
         cfg = self.config
         dcfg = cfg.decoder
         if not deterministic and dropout_key is None:
             raise ValueError("deterministic=False needs a dropout_key")
         key = None if deterministic else dropout_key
+        seq = self.mesh.seq if self.mesh is not None and self.mesh.seq.size > 1 else None
         enc = self.encode_description(input_ids, attention_mask, fold_in(key, "text_encoder"))
         prompt = self.prompt_hidden(prompt_input_ids)
+        first_column = None if seq is None else previous_last(labels, seq)
         decoder_input_ids = shift_tokens_right(labels, cfg.pad_token_id,
-                                               cfg.decoder_start_token_id)
+                                               cfg.decoder_start_token_id, first_column)
         dec_embeds = self.decoder.embed_ids(decoder_input_ids)
         b, t, _ = dec_embeds.shape
         device = dec_embeds.device
         enc_states, enc_mask = self.build_encoder_states(enc, attention_mask, prompt,
                                                          prompt_attention_mask)
         ones = torch.ones((b, t), dtype=torch.int32, device=device)
-        if cfg.prompt_cross_attention:
-            full_embeds, dec_mask, s_p = dec_embeds, ones, 0
-        else:
+        # under `seq` rank 0 of the axis holds the prompt prefix and its first
+        # frames, so the gathered sequence is [prompt; frames] in order
+        owns_prompt = seq is None or seq.rank == 0
+        s_p = 0 if cfg.prompt_cross_attention else prompt.shape[1]
+        if s_p and owns_prompt:
             full_embeds = torch.cat([prompt.to(dec_embeds.dtype), dec_embeds], dim=1)
             if prompt_attention_mask is None:
                 prompt_attention_mask = torch.ones(prompt.shape[:2], dtype=torch.int32,
                                                    device=device)
             dec_mask = torch.cat([prompt_attention_mask.to(torch.int32), ones], dim=1)
-            s_p = prompt.shape[1]
-        full_t = full_embeds.shape[1]
+        else:
+            full_embeds, dec_mask = dec_embeds, ones
+        share = None if seq is None else SeqShare(seq, (s_p + t,) + (t,) * (seq.size - 1))
+        first = 0 if share is None else share.first
+        full_t = s_p + t if share is None else share.total
         if full_t > dcfg.max_position_embeddings:
             raise ValueError(
-                f"decoder sequence (prompt {s_p} + frames {t} = {full_t}) exceeds "
+                f"decoder sequence (prompt {s_p} + frames {full_t - s_p} = {full_t}) exceeds "
                 f"max_position_embeddings={dcfg.max_position_embeddings}"
             )
+        rows = full_embeds.shape[1]
+        key_mask = dec_mask if share is None else gather_rows(dec_mask, share)
         # absolute positions in every mode: masked prompt tokens count
-        position_ids = torch.arange(full_t, device=device)[None, :].expand(b, full_t)
+        position_ids = torch.arange(first, first + rows, device=device)[None, :].expand(b, rows)
         chunked = bool(self.use_chunked_attention)
         hidden = self.decoder.decoder(
             full_embeds, position_ids,
-            self_attn_bias=None if chunked else dense_self_attention_bias(dec_mask),
-            cross_attn_bias=padding_cross_attention_bias(enc_mask, full_t),
+            self_attn_bias=None if chunked else dense_self_attention_bias(key_mask)[
+                :, :, first:first + rows],
+            cross_attn_bias=padding_cross_attention_bias(enc_mask, rows),
             encoder_hidden_states=enc_states,
-            mask_1d=dec_mask if chunked else None,
+            mask_1d=key_mask if chunked else None,
             dropout_key=fold_in(key, "decoder"),
+            seq=share,
         )
-        hidden = hidden[:, s_p:]
+        hidden = hidden[:, rows - t:]
         if return_hidden:
             return hidden, decoder_input_ids
         return self.decoder.logits(hidden), decoder_input_ids

@@ -120,10 +120,15 @@ def mean_loss_reference_style(
 
 
 def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
-                       decoder_start_token_id: int) -> torch.Tensor:
+                       decoder_start_token_id: int,
+                       first_column: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, T, K) labels -> (B, K, T) decoder input ids: shifted right along T,
-    the start token first, -100 replaced by pad."""
+    the start token first (or `first_column` (B, 1, K), the label column
+    before these under sequence parallelism), -100 replaced by pad."""
     shifted = torch.roll(labels, 1, dims=1)
-    shifted[:, 0, :] = decoder_start_token_id
+    if first_column is None:
+        shifted[:, 0, :] = decoder_start_token_id
+    else:
+        shifted[:, :1, :] = first_column
     shifted = shifted.masked_fill(shifted == -100, pad_token_id)
     return shifted.transpose(1, 2)

@@ -7,6 +7,7 @@ from .distributed import host_local_to_global, local_batch_slice, maybe_init_dis
 from .mesh import (
     Mesh,
     fsdp_params_shardings,
+    local_seq_slice,
     make_mesh,
     param_partition_spec,
     params_shardings,
@@ -18,6 +19,7 @@ __all__ = [
     "fsdp_params_shardings",
     "host_local_to_global",
     "local_batch_slice",
+    "local_seq_slice",
     "make_mesh",
     "maybe_init_distributed",
     "param_partition_spec",

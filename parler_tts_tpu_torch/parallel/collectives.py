@@ -15,6 +15,16 @@ as `torch.autograd.Function`s the sharded modules call on their group:
     sharded: each rank looks up the ids it holds, zeroes the rest, and the
     rows are summed by `reduce_from`.
 
+Sequence parallelism (the `seq` axis) cuts a sequence's rows over the
+ranks of a `seq` group (`SeqShare`: every rank's row count, in rank order;
+rank 0 of `seq` may hold more, the prompt prefix):
+
+  - `gather_seq(x, seq)`: the group's rows concatenated in rank order
+    (all-gather forward, reduce-scatter of the gradient backward: each
+    rank's keys and values are attended by every rank's queries);
+  - `previous_last(x, shard)`: the last row of the previous rank's share
+    (the label column the right shift moves across a rank boundary).
+
 An all-reduce of one rank's tensor is summed in rank order by the backend,
 so every rank of a group gets the same bits, and a `model` group computes
 the same tokens on each of its ranks.
@@ -32,7 +42,7 @@ collective counts that `chip_smoke.py` prints.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List
+from typing import Any, List, Optional, Tuple
 
 import time
 
@@ -54,6 +64,28 @@ class Shard:
         """This rank's contiguous share of `total` (which `size` divides)."""
         n = total // self.size
         return slice(self.rank * n, (self.rank + 1) * n)
+
+
+@dataclass(frozen=True)
+class SeqShare:
+    """A rank's rows of a sequence cut over a `seq` group: `sizes` are every
+    rank's row counts in rank order; this rank holds rows [first, first +
+    rows) of `total`."""
+
+    shard: Shard
+    sizes: Tuple[int, ...]
+
+    @property
+    def rows(self) -> int:
+        return self.sizes[self.shard.rank]
+
+    @property
+    def first(self) -> int:
+        return sum(self.sizes[:self.shard.rank])
+
+    @property
+    def total(self) -> int:
+        return sum(self.sizes)
 
 
 STATS = {"calls": 0, "seconds": 0.0}
@@ -152,12 +184,63 @@ def gather_last(x: torch.Tensor, shard: Shard) -> torch.Tensor:
     return _GatherLast.apply(x, shard)
 
 
-def vocab_embedding(ids: torch.Tensor, table: torch.Tensor, shard: Shard) -> torch.Tensor:
+def vocab_embedding(ids: torch.Tensor, table: torch.Tensor, shard: Shard,
+                    rows: Optional[int] = None, offsets=0) -> torch.Tensor:
     """`F.embedding(ids, full_table)` for the rank's rows `table` of a table
     sharded by rows: the ids outside the rank's rows look up zeros, and the
-    group's lookups are summed."""
-    rows = table.shape[0]
+    group's lookups are summed (each entry has one nonzero term, so the sum
+    is exact). A stacked table flattened to (K x rows, D) passes `rows`, the
+    rank's rows of one table, and `offsets`, each id's table x rows."""
+    rows = table.shape[0] if rows is None else rows
     local = ids - shard.rank * rows
     inside = (local >= 0) & (local < rows)
-    out = F.embedding(local.clamp(0, rows - 1), table)
+    out = F.embedding(local.clamp(0, rows - 1) + offsets, table)
     return reduce_from(out * inside[..., None].to(out.dtype), shard)
+
+
+def _padded(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    pad = size - x.shape[dim]
+    if pad == 0:
+        return x.contiguous()
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def gather_rows(x: torch.Tensor, seq: SeqShare, dim: int = 1) -> torch.Tensor:
+    """Every rank's share of `dim` concatenated in rank order (not
+    differentiated): shares are padded to the largest for the all-gather
+    and cut back after."""
+    most = max(seq.sizes)
+    full = all_gather_dim(_padded(x, dim, most), dim, seq.shard)
+    return torch.cat([full.narrow(dim, r * most, n) for r, n in enumerate(seq.sizes)], dim=dim)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seq, dim):
+        ctx.seq, ctx.dim = seq, dim
+        return gather_rows(x, seq, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        seq, dim = ctx.seq, ctx.dim
+        most = max(seq.sizes)
+        parts = grad.split(list(seq.sizes), dim=dim)
+        mine = reduce_scatter_dim(torch.cat([_padded(p, dim, most) for p in parts], dim=dim),
+                                  dim, seq.shard)
+        return mine.narrow(dim, 0, seq.rows), None, None
+
+
+def gather_seq(x: torch.Tensor, seq: SeqShare, dim: int = 1) -> torch.Tensor:
+    """The whole sequence of the rank's share `x` (rows on `dim`): forward
+    all-gathered over `seq`, the gradient reduce-scattered back, so a rank
+    gets the sum of every rank's gradient of its rows."""
+    return _GatherSeq.apply(x, seq, dim)
+
+
+def previous_last(x: torch.Tensor, shard: Shard, dim: int = 1) -> Optional[torch.Tensor]:
+    """The last row (on `dim`, kept) of the previous rank's share of a
+    sequence cut over `shard`, or None on rank 0 (not differentiated)."""
+    last = all_gather_dim(x.narrow(dim, x.shape[dim] - 1, 1), dim, shard)
+    return None if shard.rank == 0 else last.narrow(dim, shard.rank - 1, 1)

@@ -6,7 +6,8 @@ batch of `rows`. Inside `row_share(rows, first)` every draw of the port
 `runtime/speculative.py`, dropout masks in `models/layers.py`) draws the
 global tensor from its generator and keeps the rank's rows, so a sampled or
 dropout run over a mesh equals the single-process run at the same seed.
-Tensor parallelism does the same for the columns a rank holds (`cols=`).
+Tensor parallelism does the same for the columns a rank holds (`cols=`),
+and sequence parallelism for the time rows (dim 1) a rank holds (`times=`).
 """
 
 from __future__ import annotations
@@ -31,14 +32,19 @@ def row_share(rows: int, first: int):
 
 
 def draw_sliced(draw: Callable[[tuple], torch.Tensor], shape, batch_dim: Optional[int] = 0,
-                cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                cols: Optional[Tuple[int, int]] = None,
+                times: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """`draw(shape)`, or under a row share (rows on `batch_dim`; None: the
-    draw has no batch) and a column share `cols` = (global width, first
-    column) of the last dim, the rank's part of the global draw."""
+    draw has no batch), a column share `cols` = (global width, first
+    column) of the last dim and a time share `times` = (global length,
+    first row) of dim 1, the rank's part of the global draw."""
     full, index = list(shape), [slice(None)] * len(shape)
     if _ROWS is not None and batch_dim is not None:
         rows, first = _ROWS
         full[batch_dim], index[batch_dim] = rows, slice(first, first + shape[batch_dim])
+    if times is not None:
+        length, first = times
+        full[1], index[1] = length, slice(first, first + shape[1])
     if cols is not None:
         width, first = cols
         full[-1], index[-1] = width, slice(first, first + shape[-1])

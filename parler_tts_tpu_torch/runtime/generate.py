@@ -173,8 +173,9 @@ def generate_tokens_fused(
         raise ValueError(f"the fused decode path serves B=1, got B={desc_ids.shape[0]}")
     check_fused_config(dcfg)
     if model.model_shards > 1:
-        raise NotImplementedError("the fused decode step runs the whole model; tensor "
-                                  "parallelism with it is ROADMAP item 23c")
+        raise NotImplementedError("the fused decode step runs the whole model on one "
+                                  "device: it takes no mesh, as the JAX package's fused "
+                                  "path (make_generate_fused) takes none")
     if gen.cache_implementation == "sliding_window":
         raise ValueError("the fused decode step uses [start, n_rows) bounds; "
                          "sliding_window needs the eager path")

@@ -33,8 +33,9 @@ the features and the export. Checkpoints are gathered full and written by
 rank 0 (`checkpoints.py`), so they resume at any world size. `run_eval`
 gives the global eval loss; `run_eval_generation` gathers the FSDP
 parameters or runs tensor-parallel, so every rank produces the same clips.
-Not ported: a `seq` axis (ROADMAP item 23b) and `mesh_model` > 1 with int8
-weights or fused projections (23c).
+The arguments have no `seq` axis, as the JAX package's have none: sequence
+parallelism is a library surface (`parallel.mesh.make_mesh(n_seq=)` and
+`training.make_train_step(mesh=)`).
 
 Differences from the JAX package, each a consequence of the port's scope:
   - `main` takes the description and prompt tokenizers from its caller
@@ -116,12 +117,15 @@ def world() -> Tuple[int, int]:
 
 
 def check_parallel(training_args: TrainingArguments, model: ParlerTTS, n_ranks: int) -> int:
-    """What the arguments ask of the mesh, refused where it is not ported
-    (`mesh_model` > 1 with int8 weights, fused projections or a decoder
-    vocabulary it divides: ROADMAP item 23c) or does not fit: heads and MLP widths that `mesh_model` does not
-    divide, a mesh whose size is not the world. The arguments have no `seq`
-    axis, as the JAX package's have none (`make_mesh` refuses one: 23b).
-    Returns n_data."""
+    """What the arguments ask of the model and the mesh, refused where it
+    does not train or does not fit: int8 or fused q|k|v weights (serving
+    layouts, trained in neither package), heads and MLP widths that
+    `mesh_model` does not divide, a mesh whose size is not the world. The
+    arguments have no `seq` axis, as the JAX package's have none. Returns
+    n_data."""
+    if model.weight_quant or model.fused_qkv:
+        raise ValueError("the trainer takes a float, unfused ParlerTTS: int8 and fused "
+                         "q|k|v weights are serving layouts")
     n_model = training_args.mesh_model
     check_model_axis(model, n_model)
     n_data = training_args.mesh_data or max(n_ranks // n_model, 1)
@@ -234,8 +238,6 @@ def _reconcile(model: ParlerTTS, device, **changes) -> ParlerTTS:
     `changes`: the model itself when nothing changes, else one built anew
     around the same parameter tensors (cast only where `param_dtype`
     changes), so that one copy of the parameters stays on the device."""
-    if model.weight_quant or model.fused_qkv:
-        raise ValueError("the trainer takes a float, unfused ParlerTTS")
     kw = dict(dtype=model.dtype, param_dtype=model.param_dtype,
               use_chunked_attention=model.use_chunked_attention,
               remat_layers=model.remat_layers, remat_policy=model.remat_policy)

@@ -31,23 +31,28 @@ to fp32 summation order. Dropout keys derive from the step's integer seed
 
 Over a mesh (`make_train_step(mesh=)`, the model sharded by
 `shard_train_state`) each rank is given its `data` share of the batch's
-rows, and its `model` group runs tensor parallelism inside the forward:
+rows and, with a `seq` axis, its `seq` share of their label columns
+(`parallel.mesh.local_seq_slice`, as JAX's `P("data", "seq")` cuts them);
+its `model` group runs tensor parallelism and its `seq` group sequence
+parallelism inside the forward (`models/parler.py:ParlerTTS.forward`):
   * the valid-token count, the loss sum and the per-codebook sums are
-    all-reduced over `data`, so the loss divides by the global count, as
-    the JAX psum does; the gradients are summed over `data` (each rank's
-    share already carries the global division), in buckets of one
-    all-reduce each;
+    all-reduced over `data` x `seq` (`mesh.batch`), so the loss divides by
+    the global count, as the JAX psum does; the gradients are summed over
+    `data` x `seq` (each rank's share already carries the global division),
+    in buckets of one all-reduce each: the parameters are replicated over
+    `seq`, and each `seq` rank holds the part of a gradient its rows give;
   * dropout masks are drawn for the global batch, each rank keeping its
     rows (and under tensor parallelism its columns), so a step at dropout
     0.1 equals the single-process step; with micro-batches each rank's
     micro-batch i holds its share of its own rows;
   * `grad_norm` and the clip see the logical global gradient: the squares
     of a leaf sharded over an axis are summed over that axis's group, a
-    replicated leaf is counted once;
+    replicated leaf (every leaf over `seq`, once summed) is counted once;
   * FSDP (`shard_train_state(fsdp=True)`): at rest the parameters and both
     moments are 1/n_data shards on the dim `fsdp_params_shardings` picks.
-    The step all-gathers the full parameters at its start, reduce-scatters
-    each gradient after the backward, and runs AdamW on the shards. The
+    The step all-gathers the full parameters at its start, sums each
+    gradient over `seq` and reduce-scatters it over `data` after the
+    backward, and runs AdamW on the shards. The
     whole model is gathered at once: per-layer gathering overlapped with
     compute is not done.
 """
@@ -67,7 +72,13 @@ from ..models.layers import fold_in
 from ..models.parler import ParlerTTS
 from ..ops.losses import chunked_per_codebook_cross_entropy, per_codebook_cross_entropy
 from ..parallel.collectives import all_gather_dim, all_reduce_sum, reduce_scatter_dim
-from ..parallel.mesh import fsdp_params_shardings, local_part, params_shardings, shard_params
+from ..parallel.mesh import (
+    fsdp_params_shardings,
+    local_part,
+    params_shardings,
+    shard_params,
+    spec_axes,
+)
 from ..parallel.rows import row_share
 
 Schedule = Callable[[int], float]
@@ -243,7 +254,8 @@ def make_train_step(
     grad_norm, num_items, per_codebook_loss (K,).
 
     `mesh`: the step over a mesh (module docstring); `batch` is this rank's
-    `data` share of the global batch, the metrics are the global batch's.
+    `data` share of the global batch (and its `seq` share of the label
+    columns), the metrics are the global batch's.
     `loss_chunk_size`: fuse the LM heads with the cross-entropy chunk by
     chunk over T (`ops/losses.py:chunked_per_codebook_cross_entropy`)
     instead of materialising (B, K, T, V) logits. `microbatch_steps=G`:
@@ -254,8 +266,9 @@ def make_train_step(
     specs = model.shard_specs
 
     def total(x: torch.Tensor) -> torch.Tensor:
-        """A sum over the batch: over every `data` rank's rows."""
-        return x if mesh is None else all_reduce_sum(x, mesh.data)
+        """A sum over the batch: over every `data` rank's rows and every
+        `seq` rank's columns."""
+        return x if mesh is None else all_reduce_sum(x, mesh.batch)
 
     def raw_loss(batch: Batch, key: int):
         out, dec_ids = model(*batch, deterministic=False,
@@ -339,7 +352,8 @@ GRAD_BUCKET = 2 ** 26  # elements summed by one all-reduce
 
 
 def _data_dim(spec) -> Optional[int]:
-    return spec.index("data") if "data" in spec else None
+    axes = spec_axes(spec)
+    return axes.index("data") if "data" in axes else None
 
 
 def _gather_fsdp(params, specs, mesh) -> Dict[str, torch.Tensor]:
@@ -376,15 +390,16 @@ def gathered_params(model: ParlerTTS):
 
 
 def _reduce_grads(grads, specs, mesh) -> Dict[str, torch.Tensor]:
-    """Sum each gradient over `data`: reduce-scattered to the rank's shard
-    for an FSDP leaf, all-reduced in buckets (per dtype) for the rest."""
+    """Sum each gradient over `data` x `seq`: all-reduced over `seq` and
+    reduce-scattered over `data` to the rank's shard for an FSDP leaf,
+    all-reduced over both in buckets (per dtype) for the rest."""
     out = {}
     bucket: List[str] = []
 
     def flush():
         if not bucket:
             return
-        flat = all_reduce_sum(torch.cat([grads[n].reshape(-1) for n in bucket]), mesh.data)
+        flat = all_reduce_sum(torch.cat([grads[n].reshape(-1) for n in bucket]), mesh.batch)
         for n, part in zip(bucket, flat.split([grads[n].numel() for n in bucket])):
             out[n] = part.view_as(grads[n])
         bucket.clear()
@@ -393,6 +408,8 @@ def _reduce_grads(grads, specs, mesh) -> Dict[str, torch.Tensor]:
         for n, g in grads.items():
             dim = _data_dim(specs[n])
             if dim is not None:
+                if mesh.seq.size > 1:
+                    g = all_reduce_sum(g, mesh.seq)
                 out[n] = reduce_scatter_dim(g, dim, mesh.data)
                 continue
             if bucket and (grads[bucket[0]].dtype != g.dtype or sum(
@@ -411,7 +428,8 @@ def sharded_norm(names: List[str], tensors: List[torch.Tensor], specs, mesh) -> 
     norms = torch._foreach_norm(tensors)
     by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
     for n, v in zip(names, norms):
-        axes = tuple(a for a in ("data", "model") if a in specs[n] and mesh.axis(a).size > 1)
+        axes = tuple(a for a in ("data", "model")
+                     if a in spec_axes(specs[n]) and mesh.axis(a).size > 1)
         by_axes.setdefault(axes, []).append(v)
     if set(by_axes) <= {()}:
         return torch.linalg.vector_norm(torch.stack(norms))

@@ -7,8 +7,10 @@ tensors, the launch counts of a remat'd train step, what remat_policy="dots"
 keeps on the card, and speculative
 decoding (K1 at the W=24 window, K2 at M = 24 and 48, a greedy fp32 run
 equal to the AR run but at near-ties within 2e-4), K1 at a tensor-parallel
-rank's heads, and fp32 greedy generation at TP=2 by two gloo ranks sharing
-the card. Marked `cuda`; without a GPU each test
+rank's heads, K4 at a seq=2 rank's rows (q_offset > 0, Tq < Tk), K2 at a
+TP=2 rank's slices, and by two gloo ranks sharing the card: fp32 greedy
+generation at TP=2 (float, int8 and fused q|k|v weights) and seq=2 train
+steps. Marked `cuda`; without a GPU each test
 skips (a CUDA kernel has no CPU mode). This file imports no JAX, since the
 machine with the card has none. Run there with
 
@@ -318,7 +320,9 @@ def test_kernel_at_the_speculative_window(cuda, dtype, b):
 
 # ------------------------------------------------------------------ K2
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 1040)])
+@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 1040),
+                                 # a TP=2 rank's slices: q/k/v, out_proj, fc1, fc2
+                                 (1024, 512), (512, 1024), (1024, 2048), (2048, 1024)])
 @pytest.mark.parametrize("m", [1, 2, 18, 24, 32, 48])
 def test_quant_matmul_matches_plain(cuda, m, k, n, dtype):
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
@@ -515,6 +519,9 @@ K4_CASES = {
     "tq_gt_tk": (2, 264, 200, 4, 4, True, 0, 7, 64),
     "tq_gt_tk_noncausal": (2, 264, 200, 4, 4, False, 0, 7, 64),
     "dh32": (2, 200, 200, 4, 4, True, 0, 3, 32),
+    # a seq=2 rank's rows of mini-v1's training sequence against the gathered keys
+    "seq_rank0": (2, 528, 1040, 16, 16, True, 0, 5, 64),
+    "seq_rank1": (2, 512, 1040, 16, 16, True, 528, 5, 64),
 }
 
 
@@ -923,3 +930,90 @@ def test_tensor_parallel_greedy_on_the_shared_card(cuda):
                                      inputs=[x.numpy() for x in inputs])]}, timeout=300)
     for rank in got:
         assert (rank["tp2"]["delayed"] == want).all()
+
+
+def test_tensor_parallel_int8_and_fused_qkv_on_the_shared_card(cuda):
+    """TP=2 greedy generation by two gloo ranks on the card with int8
+    weights (K2 at each rank's column and row slices) and with the fused
+    q|k|v projection: both return the ids of the single-process run of the
+    same model on the card."""
+    from parler_tts_tpu_torch.convert import to_jax_tree
+    from parler_tts_tpu_torch.models.parler import ParlerTTS, fused_qkv_model
+    from parler_tts_tpu_torch.runtime.generate import make_generate
+    from torch_dist_worker import launch
+
+    cfg = tiny_config()
+    desc, _, prompt, prompt_mask = tiny_request()
+    inputs = [torch.as_tensor(x, dtype=torch.int64)
+              for x in (desc, torch.ones_like(desc), prompt, prompt_mask)]
+    cases, want = [], {}
+    for name, kw in (("int8", dict(weight_quant=True)), ("fused_qkv", dict(fused_qkv=True))):
+        model = ParlerTTS(cfg, device=cuda, weight_quant=kw.get("weight_quant", False))
+        init_weights(model, torch.Generator(device=cuda).manual_seed(0))
+        if name == "fused_qkv":
+            model = fused_qkv_model(model)
+        want[name] = make_generate(model, TINY_GEN, torch.float32)(
+            *(x.to(cuda) for x in inputs)).delayed_ids.cpu().numpy()
+        cases.append(dict(name=name, mesh=(1, 2), gen=TINY_GEN, model_kw=kw,
+                          params=to_jax_tree(model.named_parameters()),
+                          inputs=[x.numpy() for x in inputs]))
+    got = launch(2, "generate", {"cfg": cfg, "params": cases[0]["params"], "device": "cuda",
+                                 "cases": cases}, timeout=300)
+    for rank in got:
+        for name in want:
+            assert (rank[name]["delayed"] == want[name]).all(), name
+
+
+def test_sequence_parallel_train_steps_on_the_shared_card(cuda):
+    """Two gloo ranks on the card at seq=2 (K4 on each rank's rows against
+    the gathered keys, the fp32 SIMT route at the tiny config's head dim 16)
+    take 3 train steps at dropout 0.1 equal to the single-process steps on
+    the card: loss within rtol 2e-4, grad_norm within rtol 2e-3, every
+    parameter within 3e-5; K4 2 x 2 forward and 2 backward launches a step a
+    rank (remat)."""
+    import numpy as np
+
+    from parler_tts_tpu_torch.convert import load_jax_params, to_jax_tree
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.training import Batch, TrainState, make_optimizer, make_train_step
+    from torch_dist_worker import launch
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, dropout=0.1))
+    model = ParlerTTS(cfg, device=cuda, use_chunked_attention="pallas", remat_layers=True)
+    init_weights(model, torch.Generator(device=cuda).manual_seed(0))
+    params = to_jax_tree(model.named_parameters())
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        labels = rng.integers(0, 88, size=(2, 12, 4))
+        labels[0, -3:] = -100
+        prompt_mask = np.ones((2, 5), np.int64)
+        prompt_mask[1, :2] = 0
+        batches.append((rng.integers(0, 120, size=(2, 9)), np.ones((2, 9), np.int64),
+                        rng.integers(0, 256, size=(2, 5)), prompt_mask, labels))
+    opt = dict(learning_rate=1e-3, warmup_steps=2)
+    tx = make_optimizer(**opt)
+    state, step = TrainState.create(model, tx), make_train_step(model, tx)
+    want = []
+    for i, arrays in enumerate(batches):
+        state, m = step(state, Batch(*(torch.from_numpy(x).to(cuda) for x in arrays)), i)
+        want.append({k: v.detach().cpu().numpy() for k, v in m.items()})
+    want_params = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+    got = launch(2, "train", {"cfg": cfg, "params": params, "opt": opt, "batches": batches,
+                              "device": "cuda", "cases": [dict(
+                                  name="sp2", mesh=(1, 1, 2), model_kw=dict(
+                                      use_chunked_attention="pallas", remat_layers=True))]},
+                 timeout=300)
+    layers = cfg.decoder.num_hidden_layers
+    for rank in got:
+        out = rank["sp2"]
+        for m, w in zip(out["metrics"], want):
+            np.testing.assert_allclose(m["loss"], w["loss"], rtol=2e-4)
+            np.testing.assert_allclose(m["grad_norm"], w["grad_norm"], rtol=2e-3)
+        assert out["k4"] == {"fwd": 2 * layers * 3, "dq": layers * 3, "dkv": layers * 3}
+        trained = ParlerTTS(cfg)
+        load_jax_params(trained, out["params"])
+        for n, p in trained.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), want_params[n], rtol=0, atol=3e-5,
+                                       err_msg=n)

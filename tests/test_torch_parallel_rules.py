@@ -8,11 +8,13 @@ JAX's through `jax.eval_shape`), `params_shardings` and
 `PartitionSpec` that the JAX package's give, on the meshes (data, model) =
 (2, 1), (1, 2), (2, 2) and (1, 4) of the session's 8 virtual CPU devices.
 
-Refusals (two gloo ranks of `tests/torch_dist_worker.py`): a `seq` axis
-(ROADMAP item 23b), tensor parallelism with int8 weights or fused q|k|v
-(23c), a mesh whose size is not the world; and, with no process group, a
-decoder embedding the model axis would shard and the fused decode step of
-a model sharded over heads (23c).
+What a mesh takes and refuses (two gloo ranks of
+`tests/torch_dist_worker.py`): a `seq` axis builds a (1, 2, 1) mesh, tensor
+parallelism shards int8 and fused q|k|v models, a mesh whose size is not
+the world is refused; and, with no process group, a decoder embedding the
+model axis divides is planned sharded over vocab and taken, and the fused
+decode step refuses a model sharded over heads (the JAX fused path takes no
+mesh). The test names are kept from when these were refusals.
 """
 
 import dataclasses
@@ -85,21 +87,29 @@ def test_partition_plan_equals_jax(name):
 
 
 def test_refusals_name_what_they_lack():
+    """A seq axis and tensor parallelism over int8 or fused q|k|v weights
+    are taken (each rank reports its mesh or the shards it holds); a mesh
+    that is not the world is refused."""
     cfg = port_config(dataclasses.replace(tiny_config(), decoder=dataclasses.replace(
         tiny_config().decoder, dropout=0.0)))
     got = launch(2, "refusals", {"cfg": cfg})
-    assert got[0] == got[1]
     errors = got[0]
-    assert errors["n_seq"].startswith("NotImplementedError") and "23b" in errors["n_seq"]
+    assert errors["n_seq"] == "no error: {'data': 1, 'seq': 2, 'model': 1}"
+    assert [r["seq_rank"] for r in got] == [0, 1]
     assert errors["mesh_world"].startswith("ValueError") and "3x1x1 != 2" in errors["mesh_world"]
-    for case in ("weight_quant", "fused_qkv"):
-        assert errors[case].startswith("NotImplementedError") and "23c" in errors[case], case
+    layer = "decoder.decoder.layers.0.self_attn."
+    d = cfg.decoder.hidden_size
+    kv = cfg.decoder.num_key_value_heads * cfg.decoder.head_dim
+    for r in got:
+        assert r["weight_quant"] == f"no error: {layer}q_proj.w_q {(d, d // 2)}"
+        assert r["fused_qkv"] == f"no error: {layer}qkv_proj.kernel {(d, (d + 2 * kv) // 2)}"
 
 
 def test_a_vocab_sharded_decoder_embedding_is_refused():
     """Where the model axis divides vocab+1, the rules shard `embed_tokens`
-    over vocab (as JAX's do); the port keeps that table whole and refuses
-    such a model (23c) rather than compute it otherwise."""
+    over vocab (as JAX's do), and the port takes such a model: each
+    codebook's lookup is vocab-parallel (`models/decoder.py:embed_ids`,
+    held against JAX in `tests/test_torch_parallel_quant.py`)."""
     cfg = port_config(tiny_config())
     even = dataclasses.replace(cfg, decoder=dataclasses.replace(
         cfg.decoder, vocab_size=cfg.decoder.vocab_size + 1))
@@ -107,12 +117,9 @@ def test_a_vocab_sharded_decoder_embedding_is_refused():
     for c, sharded in ((cfg, False), (even, True)):
         model = ParlerTTS(c, device="meta")
         plan = params_shardings({n: tuple(p.shape) for n, p in model.named_parameters()}, sizes)
-        assert any(plan["decoder.decoder.embed_tokens"]) == sharded
-        if sharded:
-            with pytest.raises(NotImplementedError, match="embed_tokens.*23c"):
-                check_model_axis(model, 2)
-        else:
-            check_model_axis(model, 2)
+        assert plan["decoder.decoder.embed_tokens"] == ((None, "model", None) if sharded
+                                                        else (None, None, None))
+        check_model_axis(model, 2)
 
 
 def test_fused_decode_refuses_a_tensor_parallel_model():
@@ -123,6 +130,6 @@ def test_fused_decode_refuses_a_tensor_parallel_model():
                               pad_token_id=cfg.decoder.pad_token_id,
                               eos_token_id=cfg.decoder.eos_token_id)
     ids = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="23c"):
+    with pytest.raises(NotImplementedError, match="takes no mesh, as the JAX package's fused"):
         generate_tokens_fused(model, gen, None, ids, None, ids, None)
     np.testing.assert_equal(model.model_shards, 2)

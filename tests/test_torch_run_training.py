@@ -43,6 +43,7 @@ from parler_tts_tpu_torch.training import run_training as trt
 from test_torch_models import host, port_config
 from test_torch_training import flat, norm_rel
 from test_training_step import PAD, tiny_config
+from torch_dist_worker import _free_port
 
 DEVICES = 8  # the JAX session's virtual CPU devices (tests/conftest.py)
 STEPS, ACCUM = 3, 2
@@ -237,20 +238,27 @@ def test_run_training_trains_the_model_passed_in(tmp_path, jax_init, rebuilt):
 def test_more_than_one_device_names_item_23(tmp_path, jax_init, case):
     """What the CLI still refuses at world 1 (the name is kept from when it
     refused every mesh): a 2x1x1 mesh over one rank ("mesh_data"), a model
-    axis of 3 over 4 heads ("mesh_model"), a seq axis (ROADMAP item 23b,
-    case "fsdp": the CLI's arguments cannot express one, as the JAX
-    package's cannot, so the mesh builder the CLI calls is asked) and tensor
-    parallelism with int8 weights (23c, case "world_size")."""
+    axis of 3 over 4 heads ("mesh_model"), and training int8 weights over a
+    model axis ("world_size": int8 weights train in neither package). Case
+    "fsdp": the CLI's arguments have no seq axis, as the JAX package's have
+    none, and the mesh builder the CLI calls takes one (a 1x2x1 mesh is
+    refused only for not being the world of one rank)."""
     if case == "fsdp":
         assert not any("seq" in f.name for f in dataclasses.fields(ta.TrainingArguments))
-        with pytest.raises(NotImplementedError, match="item 23b"):
-            make_mesh(1, 1, n_seq=2)
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+        try:
+            with pytest.raises(ValueError, match="mesh 1x2x1 != 1 ranks"):
+                make_mesh(1, 1, n_seq=2)
+            assert make_mesh(1, 1, n_seq=1).shape == {"data": 1, "seq": 1, "model": 1}
+        finally:
+            torch.distributed.destroy_process_group()
         return
     kw, model, error, match = {
         "mesh_data": (dict(mesh_data=2), None, ValueError, "mesh 2x1x1 != 1 ranks"),
         "mesh_model": (dict(mesh_model=3), None, ValueError, "model axis 3 does not divide"),
         "world_size": (dict(mesh_model=2), ParlerTTS(port_config(CFG), weight_quant=True),
-                       NotImplementedError, "item 23c"),
+                       ValueError, "float, unfused ParlerTTS: int8 and fused q|k|v weights"),
     }[case]
     args = targs(ta, tmp_path, DEVICES, **kw)
     model = model or port_model(jax_init[1])

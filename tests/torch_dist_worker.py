@@ -13,7 +13,10 @@ Tasks:
   train     - `make_train_step` over a mesh per case: per-step metrics and
               the full parameters after the last step;
   cli       - `run_training` at the launched world, then evaluations;
-  refusals  - what a mesh refuses, each error's text.
+  seq_shift - a seq-parallel teacher-forced forward: each rank's shifted
+              inputs and its partial loss sums ("seq shift");
+  refusals  - what a mesh takes or refuses, each error's text;
+  many      - several of these in one process group, their results merged.
 """
 
 from __future__ import annotations
@@ -83,10 +86,13 @@ def _port_model(cfg, params, **kw):
 def task_generate(payload):
     """One model per case, sharded on the case's mesh, the global request
     on every rank, on the payload's `device` (default the CPU; "cuda" puts
-    every rank's tensors on the card, gloo carrying them through the host)."""
+    every rank's tensors on the card, gloo carrying them through the host).
+    A case may bring its own `cfg`, `params` and `model_kw` (weight_quant,
+    fused_qkv), and with `tree` returns the model's full tree gathered from
+    the ranks' shards."""
     import torch
 
-    from parler_tts_tpu_torch.convert import load_jax_params
+    from parler_tts_tpu_torch.convert import load_jax_params, to_jax_tree
     from parler_tts_tpu_torch.models.parler import ParlerTTS
     from parler_tts_tpu_torch.parallel import make_mesh, shard_params
     from parler_tts_tpu_torch.runtime.generate import make_generate
@@ -96,9 +102,9 @@ def task_generate(payload):
     out = {}
     for case in payload["cases"]:
         mesh = make_mesh(*case["mesh"], device=dev)
-        model = ParlerTTS(payload["cfg"], device=dev)
+        model = ParlerTTS(case.get("cfg", payload["cfg"]), device=dev, **case.get("model_kw", {}))
         shard_params(model, mesh)
-        load_jax_params(model, payload["params"])  # each rank takes its shards
+        load_jax_params(model, case.get("params", payload["params"]))  # each rank its shards
         if case.get("window"):
             fn = make_generate_speculative(model, case["gen"], window=case["window"],
                                            cache_dtype=torch.float32,
@@ -111,38 +117,50 @@ def task_generate(payload):
         res = fn(*(torch.from_numpy(x).to(dev) for x in case["inputs"]), generator=generator)
         gen_out, stats = (res[0], tuple(res[1])) if case.get("window") else (res, None)
         out[case["name"]] = dict(delayed=gen_out.delayed_ids.cpu().numpy(), steps=gen_out.steps,
-                                 stats=stats)
+                                 stats=stats, shapes={n: tuple(p.shape) for n, p in
+                                                      model.named_parameters()})
+        if case.get("tree"):
+            out[case["name"]]["tree"] = to_jax_tree(model.named_parameters(), model=model)
     return out
 
 
 def task_train(payload):
     """`steps` train steps per case from the same full tree, each rank fed
-    its data share of every global batch."""
+    its data share of every global batch and its seq share of the label
+    columns (a case's `mesh` is (n_data, n_model[, n_seq])), on the
+    payload's `device` (default the CPU); each case also reports the K4
+    launches of its steps on this rank."""
     import torch
 
     from parler_tts_tpu_torch.convert import to_jax_tree
-    from parler_tts_tpu_torch.parallel import local_batch_slice, make_mesh
+    from parler_tts_tpu_torch.ops.flash_attention import flash_attention
+    from parler_tts_tpu_torch.parallel import local_batch_slice, local_seq_slice, make_mesh
     from parler_tts_tpu_torch.training import Batch, TrainState, make_optimizer, make_train_step
     from parler_tts_tpu_torch.training.train_state import shard_train_state
 
+    dev = torch.device(payload.get("device", "cpu"))
     out = {}
     for case in payload["cases"]:
-        mesh = make_mesh(*case["mesh"])
+        mesh = make_mesh(*case["mesh"], device=dev)
         model = _port_model(case.get("cfg", payload["cfg"]), payload["params"],
-                            **case.get("model_kw", {}))
+                            **case.get("model_kw", {})).to(dev)
         tx = make_optimizer(**payload["opt"])
         state = shard_train_state(TrainState.create(model, tx), mesh, fsdp=case.get("fsdp", False))
         step = make_train_step(model, tx, mesh=mesh, loss_chunk_size=case.get("chunk"),
                                microbatch_steps=case.get("micro"))
+        before = dict(flash_attention.launches)
         metrics = []
         for i, arrays in enumerate(payload["batches"]):
             rows = local_batch_slice(arrays[0].shape[0], mesh.data.rank, mesh.data.size)
-            batch = Batch(*(torch.from_numpy(x[rows]) for x in arrays))
+            cols = local_seq_slice(arrays[-1].shape[1], mesh)
+            batch = Batch(*(torch.from_numpy(x[rows]).to(dev) for x in arrays[:-1]),
+                          torch.from_numpy(arrays[-1][rows, cols]).to(dev))
             state, m = step(state, batch, payload.get("seed", 0) + i)
-            metrics.append({k: v.detach().numpy().copy() for k, v in m.items()})
+            metrics.append({k: v.detach().cpu().numpy().copy() for k, v in m.items()})
         shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
         out[case["name"]] = dict(metrics=metrics, shapes=shapes,
-                                 params=to_jax_tree(model.named_parameters(), model=model))
+                                 params=to_jax_tree(model.named_parameters(), model=model),
+                                 k4={n: flash_attention.launches[n] - before[n] for n in before})
     return out
 
 
@@ -194,8 +212,45 @@ def task_cli(payload):
     return out
 
 
+def task_seq_shift(payload):
+    """Over a (1, 1, world) mesh, one deterministic teacher-forced forward
+    per batch: the rank's shifted decoder inputs and its own (unsummed)
+    loss sum and token count."""
+    import torch
+
+    from parler_tts_tpu_torch.ops.losses import per_codebook_cross_entropy
+    from parler_tts_tpu_torch.parallel import local_seq_slice, make_mesh, shard_params
+
+    mesh = make_mesh(1, 1, n_seq=payload["world"])
+    model = shard_params(_port_model(payload["cfg"], payload["params"]), mesh)
+    dcfg = payload["cfg"].decoder
+    out = []
+    with torch.no_grad():
+        for arrays in payload["batches"]:
+            cols = local_seq_slice(arrays[-1].shape[1], mesh)
+            batch = [torch.from_numpy(x) for x in arrays[:-1]]
+            labels = torch.from_numpy(arrays[-1][:, cols])
+            logits, dec_ids = model(*batch, labels)
+            loss, items, _, _ = per_codebook_cross_entropy(
+                logits, labels, dec_ids, bos_token_id=dcfg.bos_token_id,
+                eos_token_id=dcfg.eos_token_id)
+            out.append(dict(dec_ids=dec_ids.numpy(), loss=float(loss), items=float(items)))
+    return {"seq shift": out}
+
+
+def task_many(payload):
+    """Each (task, payload) of `payload["tasks"]` in turn, over one process
+    group; their {case name: result} dicts merged."""
+    out = {}
+    for task, sub in payload["tasks"]:
+        out.update(globals()[f"task_{task}"](sub))
+    return out
+
+
 def task_refusals(payload):
-    """Each refusal's error (type name and text), or "no error"."""
+    """What a mesh refuses: each error (type name and text), or "no error"
+    and what was built (the mesh's shape; a sharded model's first
+    self-attention input projection and its shape on this rank)."""
     from parler_tts_tpu_torch.models.parler import ParlerTTS
     from parler_tts_tpu_torch.parallel import make_mesh, shard_params
 
@@ -203,18 +258,23 @@ def task_refusals(payload):
 
     def attempt(fn):
         try:
-            fn()
+            built = fn()
         except Exception as e:  # noqa: BLE001 - the test reads the error
             return f"{type(e).__name__}: {e}"
-        return "no error"
+        return f"no error: {built}"
+
+    def sharded(**kw):
+        model = shard_params(ParlerTTS(cfg, device="cpu", **kw), make_mesh(1, 2))
+        name, p = next((n, p) for n, p in model.named_parameters()
+                       if ".self_attn." in n and n.endswith(("q_proj.w_q", "qkv_proj.kernel")))
+        return f"{name} {tuple(p.shape)}"
 
     return {
-        "n_seq": attempt(lambda: make_mesh(1, 1, n_seq=2)),
+        "n_seq": attempt(lambda: make_mesh(1, 1, n_seq=2).shape),
+        "seq_rank": make_mesh(1, 1, n_seq=2).seq.rank,
         "mesh_world": attempt(lambda: make_mesh(3, 1)),
-        "weight_quant": attempt(lambda: shard_params(
-            ParlerTTS(cfg, device="cpu", weight_quant=True), make_mesh(1, 2))),
-        "fused_qkv": attempt(lambda: shard_params(
-            ParlerTTS(cfg, device="cpu", fused_qkv=True), make_mesh(1, 2))),
+        "weight_quant": attempt(lambda: sharded(weight_quant=True)),
+        "fused_qkv": attempt(lambda: sharded(fused_qkv=True)),
     }
 
 
