@@ -233,13 +233,29 @@ Builds the port's CUDA kernels with nvcc, then:
       steps'); decode steps/s, collectives a decode step, host ms a
       collective, train ms and peak GiB a rank printed as two processes on
       one card, not a scaling figure. Any failure of a rank fails (p).
+  (q, after o) runs the helper scripts (`parler_tts_tpu_torch/scripts/`) at
+      mini-v1 width: `init_model_600M --device cuda --seed 0` into a
+      temporary directory (GB and seconds printed), loaded back in fp32 with
+      every parameter `torch.equal` to the drawn ones and the script's
+      configs, served in bf16 B=2 over 64 greedy columns (K1 24 a decode
+      step); `push_trained_parler_tts_to_hub` on its params.pkl and
+      config.json, the export loaded in bf16 with the model and codec equal
+      to the native load's; the real-size codec's state dict
+      (`export_dac_params`, weight_g / weight_v with v_scale 1.7) as
+      `.safetensors` and `.pth` through `push_dac_to_hub`, each tree's folded
+      kernels within 1e-6 of their scale and its decode of the served codes
+      within 1e-3 (relative RMS) of the pipeline's codec, one kernel left
+      unfolded failing that; the demo's CLI loop over the
+      directory (stub tokenizer, speculative W=16, sampled over 64 columns),
+      its WAV finite and K1 24 a forward.
 TF32 is off for matmuls and cuDNN convolutions throughout, so fp32 means fp32.
 
 Prints each phase's seconds with the card's name and power limit, one JSON
 line of kernel numbers (K1, K2 and K3 with their large-v1 numbers under
 `large_v1`, K1's window numbers under `window` and phase (m)'s runs under
 `speculative`, phase (n)'s under `training_cli`, phase (o)'s under
-`encodec`, and phase (p)'s under `parallel` for K1, K2 and K4), the `nvidia-smi` name/power-limit line, and last
+`encodec`, phase (q)'s under `helper_scripts`, and phase (p)'s under
+`parallel` for K1, K2 and K4), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 there is no CUDA device, when the port is not beside this script, or when
 any check fails.
@@ -3856,6 +3872,241 @@ def phase_o(dev, card, codec_cfg=None, decoder=None, columns=ENCODEC_COLUMNS):
     return dict(steps_per_s=steps / (t1 - t0), rtf=rtf, k1=k1)
 
 
+# ----------------------------------------------------------- helper scripts
+Q_COLUMNS = 64       # (q) the init directory served greedily, and the demo's max_length
+# (q) a converted codec's decode against the source's, relative RMS. A correct
+# fold leaves each kernel within FOLD_REL, yet the random real-width DAC moves
+# its decode by ~5e-5 for such a 1e-7 change (4.8e-5 on the CPU); a kernel left
+# unfolded (x 1.7, the export's v_scale) moves it by far more than this limit
+DAC_DECODE_REL = 1e-3
+
+
+def phase_q(dev, card):
+    """The helper scripts (`parler_tts_tpu_torch/scripts/`) at mini-v1 width:
+    `init_model_600M` on the card, its directory loaded back (fp32, equal to
+    the drawn weights) and served (bf16, greedy, K1 24 a decode step);
+    `push_trained_parler_tts_to_hub` on its params.pkl (the HF export loads
+    with the native load's parameters and codec); `push_dac_to_hub` on the
+    real-size codec's state dict as `.safetensors` and `.pth` (each tree's
+    kernels within FOLD_REL of the codec's, its decode of the served codes
+    within DAC_DECODE_REL, a kernel left unfolded outside it); the demo's
+    CLI loop over the
+    directory (speculative, W=16, sampled over Q_COLUMNS columns). Returns
+    the phase's numbers."""
+    import dataclasses
+    import json
+    import os
+    import shutil
+    import tempfile
+    import wave
+
+    import numpy as np
+
+    from parler_tts_tpu_torch.codec.convert import export_dac_params
+    from parler_tts_tpu_torch.codec.registry import build_codec
+    from parler_tts_tpu_torch.convert import load_jax_dac_params, tensor_tree
+    from parler_tts_tpu_torch.models.parler import ParlerTTS
+    from parler_tts_tpu_torch.ops.flash_decode import flash_decode_attention
+    from parler_tts_tpu_torch.runtime.pipeline import ParlerTTSPipeline, load_pickle
+    from parler_tts_tpu_torch.scripts import (
+        gradio_demo,
+        init_model_600M,
+        push_dac_to_hub,
+        push_trained_parler_tts_to_hub,
+    )
+
+    failed = []
+
+    def need(ok, what):
+        if not ok:
+            failed.append(what)
+            print(f"  FAILED: {what}")
+
+    cfg, script_gen = init_model_600M.configs()
+    n_layers, size = cfg.decoder.num_hidden_layers, cfg.audio_encoder.codebook_size
+    gen = dataclasses.replace(script_gen, max_length=Q_COLUMNS, min_new_tokens=Q_COLUMNS,
+                              do_sample=False, codebook_guard=size)
+    model_bytes = 4 * sum(p.numel() for p in ParlerTTS(cfg, device="meta").parameters())
+    dac_bytes = 4 * sum(p.numel() for p in build_codec(cfg.audio_encoder, "meta").parameters())
+    request = request_ids(0)
+    numbers = {}
+    root = tempfile.mkdtemp()
+    saved = {name: getattr(gradio_demo, name) for name in ("OUTPUT_WAV", "write_wav")}
+    try:
+        # the native directory, the HF export, two codec files and two codec trees
+        check_disk(root, 2 * model_bytes + 5 * dac_bytes)
+
+        # ---- 1. init_model_600M on the card
+        init_dir = os.path.join(root, "init")
+        t0 = time.perf_counter()
+        source = init_model_600M.main([init_dir, "--device", "cuda", "--seed", "0"])
+        torch.cuda.synchronize()
+        numbers["init_s"] = time.perf_counter() - t0
+        numbers["init_gb"] = dir_bytes(init_dir) / 1e9
+        print(f"  init_model_600M --device cuda --seed 0: {numbers['init_gb']:.3f} GB drawn on "
+              f"the card and written in {numbers['init_s']:.2f} s ({card})")
+
+        # ---- 2. loaded back in fp32: the weights drawn from the seed
+        t0 = time.perf_counter()
+        fp32 = ParlerTTSPipeline.from_pretrained(init_dir, device=dev)
+        torch.cuda.synchronize()
+        numbers["load_fp32_s"] = time.perf_counter() - t0
+        bad, worst = param_mismatches(fp32.model, fp32.dac, source.model, source.dac)
+        bad += ["codec"] * (worst > 0.0)  # the pickled codec is exact, not only within FOLD_REL
+        for name in ("config.json", "generation_config.json"):
+            with open(os.path.join(init_dir, name)) as f:
+                print(f"  {name}: {json.dumps(json.load(f))}")
+        print(f"  loaded in fp32 in {numbers['load_fp32_s']:.2f} s: parameters equal to "
+              f"from_random(cfg, seed=0)'s: {not bad}; config and generation config the "
+              f"script's: {fp32.config == cfg and fp32.generation_config == script_gen}")
+        need(not bad and fp32.config == cfg and fp32.generation_config == script_gen,
+             f"init directory in fp32: {bad[:5]}")
+        del fp32, source
+        torch.cuda.empty_cache()
+
+        # ---- 3. served in bf16, greedy over Q_COLUMNS columns
+        t0 = time.perf_counter()
+        native = ParlerTTSPipeline.from_pretrained(init_dir, generation_config=gen, device=dev,
+                                                   dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        numbers["load_bf16_s"] = time.perf_counter() - t0
+        flash_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        out = native.generate_codes(*request)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, steps = flash_decode_attention.launches, out.steps - 2
+        audio, _ = native.decode_codes(out.codes, out.lengths)
+        numbers.update(k1=k1, steps_per_s=steps / wall)
+        print(f"  served in bf16 (loaded in {numbers['load_bf16_s']:.2f} s), B=2 greedy: "
+              f"{out.steps} columns, {steps / wall:.1f} decode steps/s, K1 launches {k1} = "
+              f"{n_layers} x {steps}: {k1 == n_layers * steps}; audio {audio.shape} finite "
+              f"{bool(np.isfinite(audio).all())} ({card})")
+        need(out.steps == Q_COLUMNS and k1 == n_layers * steps and np.isfinite(audio).all(),
+             f"serving the init directory: {out.steps} columns, K1 {k1}")
+
+        # ---- 4. push_trained_parler_tts_to_hub on its params.pkl and config.json
+        export_dir = os.path.join(root, "hf")
+        t0 = time.perf_counter()
+        push_trained_parler_tts_to_hub.main([os.path.join(init_dir, "params.pkl"),
+                                             os.path.join(init_dir, "config.json"), export_dir,
+                                             "--device", "cuda"])
+        numbers["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hf = ParlerTTSPipeline.from_pretrained(export_dir, generation_config=gen, device=dev,
+                                               dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        numbers["export_load_s"] = time.perf_counter() - t0
+        bad, worst = param_mismatches(hf.model, hf.dac, native.model, native.dac)
+        bad += ["codec"] * (worst > 0.0)
+        print(f"  push_trained_parler_tts_to_hub: {dir_bytes(export_dir) / 1e9:.3f} GB "
+              f"({', '.join(sorted(os.listdir(export_dir)))}) in {numbers['export_s']:.2f} s, "
+              f"loaded in bf16 in {numbers['export_load_s']:.2f} s: model and codec equal to "
+              f"the native load's: {not bad} ({card})")
+        need(not bad, f"trained-checkpoint export: {bad[:5]}")
+        del hf
+        shutil.rmtree(export_dir)
+
+        # ---- 5. push_dac_to_hub on the real-size codec's state dict, both forms
+        state = export_dac_params(tensor_tree(native.dac), cfg.audio_encoder, prefix="",
+                                  v_scale=1.7)
+        write_safetensors(os.path.join(root, "dac.safetensors"), state)
+        torch.save({"state_dict": {k: v.cpu() for k, v in state.items()}},
+                   os.path.join(root, "dac.pth"))
+        del state
+        codes = out.codes.clamp(0, size - 1)
+
+        def decode(tree):
+            dac = build_codec(cfg.audio_encoder, dev)
+            load_jax_dac_params(dac, tree)
+            with torch.inference_mode():
+                return dac.eval().decode(codes).double(), dac
+
+        with torch.inference_mode():
+            want = native.dac.decode(codes).double()
+        numbers["dac_rel"] = {}
+        for form in ("safetensors", "pth"):
+            out_dir = os.path.join(root, f"dac_{form}")
+            t0 = time.perf_counter()
+            push_dac_to_hub.main([os.path.join(root, f"dac.{form}"), out_dir, "--device", "cuda"])
+            seconds = time.perf_counter() - t0
+            tree = load_pickle(os.path.join(out_dir, "dac_params.pkl"))
+            got, dac = decode(tree)
+            bad, fold = param_mismatches(native.model, dac, native.model, native.dac)
+            rel = ((got - want).norm() / want.norm()).item()
+            tree["decoder"]["conv_in"]["kernel"] = tree["decoder"]["conv_in"]["kernel"] * 1.7
+            unfolded = decode(tree)[0]
+            neg = ((unfolded - want).norm() / want.norm()).item()
+            numbers["dac_rel"][form] = rel
+            print(f"  push_dac_to_hub .{form}: {seconds:.2f} s; its folded kernels within "
+                  f"{fold:.2e} of their scale (limit {FOLD_REL:g}), the rest equal: {not bad}; "
+                  f"its decode of the served codes within {rel:.2e} of the pipeline codec's "
+                  f"(relative RMS; limit {DAC_DECODE_REL:g}); one kernel left unfolded: "
+                  f"{neg:.2e}")
+            need(not bad and 0.0 < fold and rel <= DAC_DECODE_REL < neg,
+                 f"push_dac_to_hub .{form}: {bad[:5]}, fold {fold:.2e}, decode {rel:.2e}, "
+                 f"unfolded {neg:.2e}")
+            del dac, got, unfolded
+        del native, want
+        torch.cuda.empty_cache()
+
+        # ---- 6. the demo's CLI loop: speculative W=16, sampled over Q_COLUMNS columns
+        answers = ["", ""]  # the default prompt and description, then EOF
+
+        def answer(prompt=""):
+            if not answers:
+                raise EOFError
+            return answers.pop(0)
+
+        waves = []
+        gradio_demo.OUTPUT_WAV = os.path.join(root, "demo.wav")
+        gradio_demo.input = answer
+        gradio_demo.write_wav = lambda path, rate, wav: waves.append(wav) or saved[
+            "write_wav"](path, rate, wav)
+        gradio = sys.modules.get("gradio")
+        sys.modules["gradio"] = None  # the CLI loop, whatever the machine has installed
+        flash_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        try:
+            demo = gradio_demo.main(["--model", init_dir, "--device", "cuda"],
+                                    tokenizer=stub_tokenizer, dtype=torch.bfloat16,
+                                    generation_config=dataclasses.replace(
+                                        script_gen, max_length=Q_COLUMNS,
+                                        min_new_tokens=Q_COLUMNS, codebook_guard=size))
+        finally:
+            if gradio is None:
+                del sys.modules["gradio"]
+            else:
+                sys.modules["gradio"] = gradio
+        numbers["demo_s"] = time.perf_counter() - t0
+        stats, k1 = demo.last_spec_stats, flash_decode_attention.launches
+        with wave.open(gradio_demo.OUTPUT_WAV) as f:
+            frames, rate = f.getnframes(), f.getframerate()
+        want_frames = (Q_COLUMNS - cfg.decoder.num_codebooks) * cfg.audio_encoder.hop_length
+        numbers.update(demo_k1=k1, demo_forwards=stats.forwards, demo_frozen=stats.frozen,
+                       demo_columns=stats.columns)
+        k1_ok = k1 == n_layers * (stats.forwards + stats.frozen)
+        print(f"  demo (load, then one request): {numbers['demo_s']:.2f} s; window "
+              f"{demo.spec_window}, {stats.columns} columns in {stats.forwards} forwards "
+              f"(+{stats.frozen} frozen); K1 launches {k1} = {n_layers} x "
+              f"({stats.forwards} + {stats.frozen}): {k1_ok}; WAV {frames} samples at {rate} "
+              f"Hz, finite {bool(np.isfinite(waves[0]).all())} ({card})")
+        need(demo.spec_window == 16 and k1_ok
+             and stats.forwards > 0 and len(waves) == 1 and np.isfinite(waves[0]).all()
+             and frames == want_frames == waves[0].size and rate == cfg.sampling_rate,
+             f"demo: window {demo.spec_window}, K1 {k1}, {stats}, {frames} samples")
+        del demo
+    finally:
+        for name, value in saved.items():
+            setattr(gradio_demo, name, value)
+        gradio_demo.__dict__.pop("input", None)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase q: {len(failed)} checks failed: {failed}")
+    return numbers
+
+
 # ----------------------------------------------------------- parallelism
 # (p2)'s runs, cut for time: at TP=2 each of the 73 collectives of a decode step
 # goes through the host (gloo on CUDA tensors; 1.5-2.2 ms each on an H100 80GB
@@ -5114,6 +5365,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[phase o] Encodec on the card: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
+    scripts = phase_q(dev, card)
+    print(f"[phase q] helper scripts at mini-v1 width: {time.perf_counter() - t0:.2f} s "
+          f"({card})")
+    t0 = time.perf_counter()
     large, large_eager, large_out = phase_l(dev, card)
     print(f"[phase l] large-v1 kernels and serving: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
@@ -5139,7 +5394,7 @@ def main() -> int:
              launches=launches, max_abs_err=max_err, **timing, large_v1=large["k1"],
              window=spec.pop("k1"), speculative=spec,
              training_cli_eval_generation=cli["k1_eval_generation"], encodec=encodec,
-             parallel=parallel["k1"]),
+             parallel=parallel["k1"], helper_scripts=scripts),
         dict(name="quant_matmul", route="cuda",
              source="parler_tts_tpu_torch/csrc/quant_matmul.cu",
              replaces="parler_tts_tpu/ops/pallas/quant_matmul.py:39",

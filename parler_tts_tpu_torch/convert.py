@@ -121,8 +121,10 @@ def _tree(named: Iterable[Tuple[str, torch.Tensor]], modules: Mapping[str, nn.Mo
     return tree
 
 
-def _numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    return {k: _numpy(v) if isinstance(v, Mapping) else
+def numpy_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A nested dict of tensors (on any device) -> the same dict of numpy
+    arrays on the host, fp32 for floats: the leaves the JAX package pickles."""
+    return {k: numpy_tree(v) if isinstance(v, Mapping) else
             (v.cpu().float() if v.is_floating_point() else v.cpu()).numpy()
             for k, v in tree.items()}
 
@@ -145,14 +147,14 @@ def to_jax_tree(named: Iterable[Tuple[str, torch.Tensor]], model: nn.Module = No
     specs = getattr(model, "shard_specs", None)
     if specs is not None:
         named = [(n, gather_full(t.detach(), specs[n], model.mesh)) for n, t in named]
-    return _numpy(_tree(named, {}))
+    return numpy_tree(_tree(named, {}))
 
 
 def dac_to_jax_tree(dac: nn.Module) -> Dict[str, Any]:
     """The reverse of `load_jax_dac_params`: a codec's parameters (`DACModel`
     or `EncodecCodec`) as the JAX codec's tree (names and layouts; encoder,
     quantizer and decoder), numpy fp32."""
-    return _numpy(tensor_tree(dac))
+    return numpy_tree(tensor_tree(dac))
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> None:

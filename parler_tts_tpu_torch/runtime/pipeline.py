@@ -102,7 +102,9 @@ class _ArrayUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(f"a checkpoint pickle may not load {module}.{name}")
 
 
-def _load_pickle(filename: str):
+def load_pickle(filename: str):
+    """A checkpoint's pickled tree (`params.pkl`, `dac_params.pkl`), read by
+    `_ArrayUnpickler`."""
     with open(filename, "rb") as f:
         return _ArrayUnpickler(f).load()
 
@@ -237,9 +239,9 @@ class ParlerTTSPipeline:
         if os.path.exists(os.path.join(path, "params.pkl")):
             with open(os.path.join(path, "config.json")) as f:
                 cfg = ParlerTTSConfig.from_json(f.read())
-            params = _load_pickle(os.path.join(path, "params.pkl"))
+            params = load_pickle(os.path.join(path, "params.pkl"))
             dac_path = os.path.join(path, "dac_params.pkl")
-            dac_params = _load_pickle(dac_path) if os.path.exists(dac_path) else None
+            dac_params = load_pickle(dac_path) if os.path.exists(dac_path) else None
         else:
             cfg = load_hf_config(path)
             tensors = load_safetensors_dir(path)
@@ -247,7 +249,7 @@ class ParlerTTSPipeline:
             dac_path = os.path.join(path, "dac_params.pkl")
             if not any(n.startswith("audio_encoder.") for n in tensors) and os.path.exists(
                     dac_path):  # the training CLI's export: the codec beside the tensors
-                dac_params = _load_pickle(dac_path)
+                dac_params = load_pickle(dac_path)
             else:
                 dac_params = convert_codec_params(tensors, cfg.audio_encoder)
         gen_path = os.path.join(path, "generation_config.json")

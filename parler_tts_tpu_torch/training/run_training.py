@@ -76,7 +76,7 @@ from ..parallel.distributed import host_local_to_global, local_batch_slice, rank
 from ..parallel.mesh import check_model_axis
 from ..runtime.generate import resolve_device
 from ..runtime.pipeline import ParlerTTSPipeline
-from ..utils.hf_export import export_composite_to_hf_tensors
+from ..utils.hf_export import export_composite_to_hf_tensors, push_folder
 from ..utils.logging_utils import init_tracker, log_metric, log_pred
 from . import data as data_mod
 from .arguments import DataTrainingArguments, ModelArguments, TrainingArguments
@@ -568,15 +568,7 @@ def export_and_push(output_dir: str, export_dir: str, cfg: ParlerTTSConfig,
     with open(os.path.join(export_dir, "dac_params.pkl"), "wb") as f:
         pickle.dump(dac_to_jax_tree(dac), f, protocol=4)
     if hub_model_id:
-        try:
-            from huggingface_hub import HfApi
-
-            api = HfApi()
-            api.create_repo(hub_model_id, exist_ok=True)
-            api.upload_folder(folder_path=export_dir, repo_id=hub_model_id)
-            logger.info("pushed %s to hub repo %s", export_dir, hub_model_id)
-        except Exception as e:  # noqa: BLE001 - a push is optional, as in the JAX package
-            logger.warning("hub push skipped: %s", e)
+        push_folder(export_dir, hub_model_id)
     return export_dir
 
 

@@ -7,12 +7,14 @@
 
 Tensors in, tensors out (`convert.load_jax_params` takes the tree): the
 kernels are transposed views of the checkpoint's tensors, not copies.
+`torch_state_dict_to_numpy` copies a state dict to the host as numpy.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping
 
+import numpy as np
 import torch
 
 from ..config import DecoderConfig
@@ -56,3 +58,8 @@ def convert_decoder_params(tensors: Mapping[str, torch.Tensor], config: DecoderC
             "final_layer_norm": _ln(tensors, lp + "final_layer_norm"),
         }
     return {"decoder": decoder, "lm_heads": lm_heads}
+
+
+def torch_state_dict_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A state dict's tensors, detached, as host numpy arrays in their dtypes."""
+    return {k: v.detach().cpu().numpy() for k, v in state_dict.items()}

@@ -3,16 +3,20 @@
 (`utils/hf_bridge.py`, `models/t5_encoder.py`, `models/parler.py`): stacked
 tables and heads are unstacked per codebook and (in, out) kernels become
 torch's (out, in). Leaves may be arrays or tensors; the outputs are tensors
-in the leaves' dtypes (views where only the layout changes)."""
+in the leaves' dtypes (views where only the layout changes). `push_folder`
+uploads an exported directory to the hub."""
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Mapping
 
 import torch
 
 from ..config import ParlerTTSConfig, T5Config
 from ..convert import as_tensor
+
+logger = logging.getLogger(__name__)
 
 
 def _t(w) -> torch.Tensor:
@@ -85,3 +89,18 @@ def export_composite_to_hf_tensors(params: Mapping, config: ParlerTTSConfig
         out["enc_to_dec_proj.weight"] = _t(params["enc_to_dec_proj"]["kernel"])
         out["enc_to_dec_proj.bias"] = as_tensor(params["enc_to_dec_proj"]["bias"])
     return out
+
+
+def push_folder(folder: str, repo_id: str) -> None:
+    """Upload `folder` to the hub repo `repo_id`, created if missing. A push
+    that fails (no `huggingface_hub`, no network) is logged and skipped, as
+    the JAX package skips it: the exported directory is the result."""
+    try:
+        from huggingface_hub import HfApi
+
+        api = HfApi()
+        api.create_repo(repo_id, exist_ok=True)
+        api.upload_folder(folder_path=folder, repo_id=repo_id)
+        logger.info("pushed %s to hub repo %s", folder, repo_id)
+    except Exception as e:  # noqa: BLE001 - a push is optional, as in the JAX package
+        logger.warning("hub push skipped: %s", e)

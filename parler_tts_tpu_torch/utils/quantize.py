@@ -6,7 +6,8 @@ Symmetric per-output-channel scales:
     scale[o] = max(max_i |w[i, o]| / 127, 1e-12)      (fp32)
     w_q[i, o] = clip(round_half_even(w[i, o] / scale[o]), -127, 127)   (int8)
 
-Two forms with the same arithmetic, bit for bit: `quantize_kernel` and
+Two forms with the same arithmetic, bit for bit: `quantize_kernel`,
+`quantize_stacked_heads` (a scale per LM head and column) and
 `quantize_decoder_params` take numpy arrays and trees (the JAX package's
 parameter trees, as numpy); `quantize_kernel_torch` quantizes a float kernel
 on its own device (`models.decoder.QuantDense` initialises through it, and
@@ -22,6 +23,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from ..convert import as_tensor
+
 QUANT_DENSE_NAMES = frozenset({"q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"})
 
 
@@ -31,6 +34,23 @@ def quantize_kernel(w: np.ndarray) -> Dict[str, np.ndarray]:
     scale = np.maximum(np.abs(w).max(axis=0) / np.float32(127.0), np.float32(1e-12))
     w_q = np.clip(np.round(w / scale[None, :]), -127, 127).astype(np.int8)
     return {"w_q": w_q, "scale": scale.astype(np.float32)}
+
+
+def quantize_stacked_heads(w: np.ndarray) -> Dict[str, np.ndarray]:
+    """(K, D, V) stacked LM heads -> {'w_q': int8 (K, D, V), 'scale': (K, 1, V)
+    fp32}: a scale per head and output column, the arithmetic of
+    `quantize_kernel`."""
+    w = np.asarray(w, np.float32)
+    scale = np.maximum(np.abs(w).max(axis=1, keepdims=True) / np.float32(127.0),
+                       np.float32(1e-12))
+    w_q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return {"w_q": w_q, "scale": scale.astype(np.float32)}
+
+
+def dequantize_for_reference(qtree: Mapping[str, Any]) -> torch.Tensor:
+    """{'w_q', 'scale'} (arrays or tensors) -> the fp32 kernel w_q * scale,
+    on the leaves' device: the float weights a quantized result is held to."""
+    return as_tensor(qtree["w_q"]).float() * as_tensor(qtree["scale"]).float()
 
 
 def quantize_kernel_torch(w: torch.Tensor):

@@ -10,7 +10,8 @@ equal to the AR run but at near-ties within 2e-4), K1 at a tensor-parallel
 rank's heads, K4 at a seq=2 rank's rows (q_offset > 0, Tq < Tk), K2 at a
 TP=2 rank's slices, and by two gloo ranks sharing the card: fp32 greedy
 generation at TP=2 (float, int8 and fused q|k|v weights) and seq=2 train
-steps. Marked `cuda`; without a GPU each test
+steps, and the four init scripts writing a tiny model from the card.
+Marked `cuda`; without a GPU each test
 skips (a CUDA kernel has no CPU mode). This file imports no JAX, since the
 machine with the card has none. Run there with
 
@@ -46,6 +47,7 @@ tile must fail them. K4's launch counters show the route: bf16 at head dim
 
 import copy
 import dataclasses
+import importlib
 
 import pytest
 import torch
@@ -672,6 +674,26 @@ def test_from_pretrained_defaults_to_the_gpu(cuda, tmp_path):
     request = tiny_request()
     assert torch.equal(pipe.generate_codes(*request).delayed_ids,
                        src.generate_codes(*request).delayed_ids)
+
+
+@pytest.mark.parametrize("script", ["init_dummy_model", "init_dummy_model_with_encodec",
+                                    "init_model_600M", "init_large_model"])
+def test_init_scripts_write_on_the_gpu(cuda, script, tmp_path, monkeypatch):
+    """Each init script's `main` with `--device cuda`, its `configs` cut to
+    the tiny config: the weights drawn on the card from the seed, written,
+    and loaded back equal, with the generation config written beside."""
+    module = importlib.import_module(f"parler_tts_tpu_torch.scripts.{script}")
+    cfg, gen = tiny_config(), None if module.configs()[1] is None else TINY_GEN
+    monkeypatch.setattr(module, "configs", lambda: (cfg, gen))
+    pipe = module.main([str(tmp_path), "--seed", "3", "--device", "cuda"])
+    assert pipe.device.type == "cuda"
+    loaded = ParlerTTSPipeline.from_pretrained(str(tmp_path))
+    again = ParlerTTSPipeline.from_random(cfg, seed=3, generation_config=gen)
+    assert loaded.config == cfg and loaded.generation_config == pipe.generation_config
+    for got, want in ((loaded.model, again.model), (loaded.dac, again.dac)):
+        params = dict(want.named_parameters())
+        for name, p in got.named_parameters():
+            assert p.is_cuda and torch.equal(p, params[name]), name
 
 
 def test_a_bf16_shard_loads_bit_exact_onto_the_gpu(cuda, tmp_path):

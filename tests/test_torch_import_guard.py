@@ -1,7 +1,8 @@
 """The port stands alone: every module of `parler_tts_tpu_torch`, and
 `chip_smoke.py`, imports in a fresh interpreter where `jax`, `flax`,
-`optax`, `orbax`, `safetensors`, `transformers`, `datasets`, `wandb` and the
-JAX package `parler_tts_tpu` cannot be imported (`sys.modules[name] = None` makes any import of them raise). A leak
+`optax`, `orbax`, `safetensors`, `transformers`, `datasets`, `wandb`,
+`gradio`, `huggingface_hub` and the JAX package `parler_tts_tpu` cannot be
+imported (`sys.modules[name] = None` makes any import of them raise). A leak
 then fails here on the CPU rather than on the machine with the card, which
 has none of them."""
 
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "flax", "optax", "orbax", "safetensors", "transformers", "datasets", "wandb",
-           "parler_tts_tpu")
+           "gradio", "huggingface_hub", "parler_tts_tpu")
 
 
 def port_modules():
@@ -55,4 +56,8 @@ def test_imports_without_jax(target):
                 "parler_tts_tpu_torch.utils.logging_utils",
                 "parler_tts_tpu_torch.parallel.distributed", "parler_tts_tpu_torch.parallel.mesh",
                 "parler_tts_tpu_torch.parallel.collectives",
-                "parler_tts_tpu_torch.parallel.rows"} <= set(modules)
+                "parler_tts_tpu_torch.parallel.rows",
+                *(f"parler_tts_tpu_torch.scripts.{name}" for name in (
+                    "init_dummy_model", "init_dummy_model_with_encodec", "init_model_600M",
+                    "init_large_model", "push_dac_to_hub", "push_trained_parler_tts_to_hub",
+                    "gradio_demo"))} <= set(modules)
