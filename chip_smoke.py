@@ -289,8 +289,8 @@ PROFILE_COLUMNS = 240
 # (~4e-3) fails; fp32: a result without one slot fails (phase a checks it)
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
 LOGITS_TOL = dict(atol=2e-4, rtol=2e-4)
-KERNEL_SOURCES = ("flash_decode", "quant_matmul", "fused_decode_step", "flash_attention",
-                  "flash_attention_wgmma")
+KERNEL_SOURCES = ("flash_decode", "flash_decode_window", "quant_matmul", "fused_decode_step",
+                  "flash_attention", "flash_attention_wgmma")
 T_PROMPT_TRAIN, T_FRAMES_TRAIN, TRAIN_STEPS = 16, 1024, 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
@@ -2813,15 +2813,53 @@ def window_tie(label, model, dev, w):
     return tie
 
 
+def window_dropped_slot(q, cache_k, cache_v, layer, label):
+    """The window kernel's negative check in its own dtype, bf16: over a short
+    range (row 0's last column sees W + 5 slots, row 1's W + 6) the kernel
+    passes TOL against its plain version, and a result whose last column
+    lacks its last slot must fail it. Returns that result's largest gap."""
+    from parler_tts_tpu_torch.ops.flash_decode import (
+        flash_decode_attention,
+        flash_decode_attention_plain,
+        kernel_split_count,
+    )
+
+    b, w, h, dh = q.shape
+    s, h_kv = cache_k.shape[2], cache_k.shape[3] // dh
+    dev = q.device
+    starts = torch.tensor([0, 3][:b], dtype=torch.int32, device=dev)
+    limits = torch.tensor([6, 10][:b], dtype=torch.int32, device=dev)
+    got = flash_decode_attention(q, cache_k, cache_v, starts, limits, layer=layer)
+    splits = kernel_split_count(cache_k.dtype, b, h, h_kv, s, w, dh)
+    want = flash_decode_attention_plain(q, cache_k, cache_v, starts, limits, layer=layer,
+                                        splits=splits)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    wrong = want.clone()
+    wrong[:, -1] = flash_decode_attention_plain(
+        q[:, -1:].contiguous(), cache_k, cache_v, starts, limits + w - 2, layer=layer,
+        splits=splits)[:, 0]
+    gap = (got.float() - wrong.float()).abs().max().item()
+    if torch.allclose(got.float(), wrong.float(), **TOL[torch.bfloat16]):
+        raise AssertionError(f"K1 {label}: bf16 TOL does not see the last column's last slot "
+                             f"left out (gap {gap:.3e})")
+    return gap
+
+
 def window_k1(dev, card):
     """K1 at the speculative window's shapes: W query columns, per-row (B,)
-    limits, the cache s_p + L + W slots long. Returns the timings."""
+    limits, the cache s_p + L + W slots long. fp32 runs the split kernel,
+    bf16 the window kernel (the route read off the launch counters), each
+    held to its plain version at its own split count, with a dropped last
+    slot caught (fp32 over the whole range, bf16 over a short one); bf16
+    timed by CUDA-graph replay beside SDPA with the equal boolean mask.
+    Returns the timings."""
     import torch.nn.functional as F
 
     from parler_tts_tpu_torch.ops.flash_decode import (
         flash_decode_attention,
         flash_decode_attention_plain,
-        split_count,
+        k1_route,
+        kernel_split_count,
     )
 
     g = torch.Generator(device=dev).manual_seed(21)
@@ -2833,43 +2871,54 @@ def window_k1(dev, card):
         ("large-v1 W=16 B=1", large.num_attention_heads, large.num_hidden_layers,
          SPEC_WINDOW_LARGE, [3], [mean]),
     ]
-    out, max_err = {}, 0.0
+    out = {}
     for label, h, n_layers, w, starts_l, limits_l in cases:
         b, dh, s = len(starts_l), 64, K_SLOTS + w
         starts = torch.tensor(starts_l, dtype=torch.int32, device=dev)
         limits = torch.tensor(limits_l, dtype=torch.int32, device=dev)
-        splits = split_count(b, h, s, w)
+        errs, routes = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             def rand(*shape):
                 return (torch.randn(shape, generator=g, device=dev) * 0.3).to(dtype)
 
             cache_k, cache_v = rand(n_layers, b, s, h * dh), rand(n_layers, b, s, h * dh)
             q = rand(b, w, h, dh)
+            splits = kernel_split_count(dtype, b, h, h, s, w, dh)
+            route = k1_route(dtype, 1, w, dh)
+            window_before, err = flash_decode_attention.launches_window, 0.0
             for layer in (0, n_layers - 1):
                 got = flash_decode_attention(q, cache_k, cache_v, starts, limits, layer=layer)
                 torch.cuda.synchronize()
                 want = flash_decode_attention_plain(q, cache_k, cache_v, starts, limits,
                                                     layer=layer, splits=splits)
-                err = (got.float() - want.float()).abs().max().item()
+                err = max(err, (got.float() - want.float()).abs().max().item())
                 torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
                 if not torch.equal(flash_decode_attention(q, cache_k, cache_v, starts, limits,
                                                           layer=layer), got):
                     raise AssertionError(f"K1 {label}: a second call gave other bits")
-                max_err = max(max_err, err)
+            errs[str(dtype)[6:]] = err
+            window = flash_decode_attention.launches_window - window_before
+            if window != (4 if route == "window" else 0):
+                raise AssertionError(f"K1 {label} {dtype}: route {route}, but {window} of 4 "
+                                     f"launches on the window kernel")
+            routes[str(dtype)[6:]] = route
             if dtype == torch.float32:
                 # the last window column without its last slot (limit + W - 2)
                 wrong = want.clone()
                 wrong[:, -1] = flash_decode_attention_plain(
                     q[:, -1:].contiguous(), cache_k, cache_v, starts, limits + w - 2,
-                    layer=n_layers - 1, splits=split_count(b, h, s, 1))[:, 0]
+                    layer=n_layers - 1, splits=splits)[:, 0]
                 if torch.allclose(got, wrong, **TOL[dtype]):
                     raise AssertionError(f"K1 {label}: fp32 TOL does not see the last column's "
                                          f"last slot left out")
-            print(f"  K1 {label} {str(dtype)[6:]} vs plain at {splits} splits, {n_layers} "
-                  f"layers' stacked cache of {s} slots, starts {starts_l}, limits {limits_l}: "
-                  f"max_abs_err {err:.3e}, repeats bit-identical"
-                  + ("; the last column's last slot dropped fails fp32 TOL"
-                     if dtype == torch.float32 else ""))
+                caught = "the last column's last slot dropped fails fp32 TOL"
+            else:
+                gap = window_dropped_slot(q, cache_k, cache_v, n_layers - 1, label)
+                caught = (f"over limits [6, 10][:B] the last column's last slot dropped moves "
+                          f"it by {gap:.3e}, outside bf16 TOL")
+            print(f"  K1 {label} {str(dtype)[6:]} on the {route} kernel vs plain at {splits} "
+                  f"splits, {n_layers} layers' stacked cache of {s} slots, starts {starts_l}, "
+                  f"limits {limits_l}: max_abs_err {err:.3e}, repeats bit-identical; {caught}")
             del cache_k, cache_v
 
         # bf16 timing over the stacked cache, one launch per layer
@@ -2885,6 +2934,7 @@ def window_k1(dev, card):
         qs = q.transpose(1, 2)
         k_views = [cache_k[i].view(b, s, h, dh).transpose(1, 2) for i in range(n_layers)]
         v_views = [cache_v[i].view(b, s, h, dh).transpose(1, 2) for i in range(n_layers)]
+        splits = kernel_split_count(torch.bfloat16, b, h, h, s, w, dh)
         ms = graph_ms(lambda i: flash_decode_attention(q, cache_k, cache_v, starts, limits,
                                                        layer=i % n_layers), n_layers)
         sdpa_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
@@ -2897,13 +2947,15 @@ def window_k1(dev, card):
         ops = 4 * h * dh * sum(lim + i - st for st, lim in zip(starts_l, limits_l)
                                for i in range(w))
         bound_ms, bound_by = bound(bytes_moved, ops, BF16_OPS_PER_S)
-        print(f"  K1 {label} bf16: {ms * 1e3:.2f} us by graph replay of {n_layers} launches, "
-              f"SDPA with the equal boolean mask {sdpa_ms * 1e3:.2f} us, plain "
-              f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
-              f"{bytes_moved / 1e6:.2f} MB; {bound_ms / ms:.1%} of it), {splits} splits of "
-              f"{b * h * -(-w // 8)} row tiles ({card})")
+        print(f"  K1 {label} bf16 on the {routes['bfloat16']} kernel: {ms * 1e3:.2f} us by graph "
+              f"replay of {n_layers} launches, SDPA with the equal boolean mask "
+              f"{sdpa_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}: {bytes_moved / 1e6:.2f} MB; "
+              f"{bound_ms / ms:.1%} of it), {splits} splits of {b * h} (row, kv head) blocks "
+              f"({card})")
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, max_abs_err=max_err)
+                          bound_by=bound_by, max_abs_err=errs["bfloat16"],
+                          max_abs_err_fp32=errs["float32"], routes=routes, splits=splits)
         del cache_k, cache_v, k_views, v_views
     return out
 
@@ -2993,11 +3045,25 @@ def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
         near_ties(label, first_partings(label, got, want, rows), replay, want, need, tie,
                   top_two, stop_early=True)
 
-    def k1_check(label, st, k1, layers=n_layers):
+    def k1_reset():
+        flash_decode_attention.launches = flash_decode_attention.launches_window = 0
+        flash_decode_attention.launches_split = 0
+
+    def k1_check(label, st, k1, layers=n_layers, window=True):
+        """K1 launched once a layer and forward run, all on the window kernel
+        (bf16 caches) or all on the split kernel (fp32). Returns the window
+        kernel's launches."""
         runs = st.forwards + st.frozen
+        k1w = flash_decode_attention.launches_window
+        want_w = k1 if window else 0
         print(f"    {label}: K1 launches {k1} = {layers} x {runs} forwards run "
-              f"({st.forwards} advancing, {st.frozen} frozen): {k1 == layers * runs}")
-        need(k1 == layers * runs, f"{label}: K1 launched {k1} times, want {layers} x {runs}")
+              f"({st.forwards} advancing, {st.frozen} frozen): {k1 == layers * runs}; on the "
+              f"window kernel {k1w} (want {want_w}), on the split kernel "
+              f"{flash_decode_attention.launches_split}")
+        need(k1 == layers * runs and k1w == want_w and k1w + flash_decode_attention.launches_split
+             == k1, f"{label}: K1 launched {k1} times ({k1w} on the window kernel), want "
+             f"{layers} x {runs} ({want_w})")
+        return k1w
 
     # warm-up: the window's shapes over 64 columns
     short = dataclasses.replace(source.generation_config, max_length=64, min_new_tokens=64)
@@ -3018,13 +3084,14 @@ def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
     for label, per_row, req in (("spec W=24 B=1", False, row1),
                                 ("spec W=24 per-row B=2", True, request)):
         pipe = spec_pipeline(source, speculative_per_row=per_row)
-        flash_decode_attention.launches = 0
+        k1_reset()
         out, st, gen_s = spec_serve(pipe, req, label, card)
-        k1_check(label, st, flash_decode_attention.launches)
+        k1w = k1_check(label, st, flash_decode_attention.launches)
         got[label] = out.delayed_ids
         numbers[label] = dict(forwards=st.forwards, frozen=st.frozen, columns=st.columns,
                               columns_per_s=st.columns / gen_s,
-                              k1_launches=flash_decode_attention.launches)
+                              k1_launches=flash_decode_attention.launches,
+                              k1_window_launches=k1w)
     held("greedy B=1 and per-row B=2 vs phase (b)",
          torch.cat([got["spec W=24 B=1"], got["spec W=24 per-row B=2"]]), out_b, [1, 0, 1],
          lambda: source.generate_codes(*request, seed=0), ties["mini_v1"], top_two=False)
@@ -3037,10 +3104,10 @@ def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
     want32 = ar32.generate_codes(*request, seed=0).delayed_ids
     for label, per_row, req, rows in (("fp32 spec W=24 B=1", False, row1, [1]),
                                       ("fp32 spec W=24 per-row B=2", True, request, [0, 1])):
-        flash_decode_attention.launches = 0
+        k1_reset()
         out, st, _ = spec_serve(spec_pipeline(ar32, speculative_per_row=per_row), req, label,
                                 card)
-        k1_check(label, st, flash_decode_attention.launches)
+        k1_check(label, st, flash_decode_attention.launches, window=False)
         held(f"{label} vs the fp32 AR run", out.delayed_ids, want32, rows,
              lambda: ar32.generate_codes(*request, seed=0))
 
@@ -3113,17 +3180,19 @@ def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
               f"max_abs_err {err:.3e} within k2_close, {slices} x {slice_}-row slices, a "
               f"repeat bit-identical, a dropped slice outside")
     ties["int8"] = window_tie("mini-v1 int8", int8.model, dev, SPEC_WINDOW)
-    flash_decode_attention.launches = quant_matmul.launches = 0
+    k1_reset()
+    quant_matmul.launches = 0
     out, st, gen_s = spec_serve(pipe, row1, "int8 spec W=24 B=1", card)
     runs = st.forwards + st.frozen
     k2, want_k2 = quant_matmul.launches, 8 * n_layers * (runs + 1) + 2 * n_layers
     print(f"    int8: K2 launches {k2} = 192 x ({runs} forwards run + prefill) + 48 cross-kv: "
           f"{k2 == want_k2}")
     need(k2 == want_k2, f"int8 spec: K2 launched {k2} times, want {want_k2}")
-    k1_check("int8 spec", st, flash_decode_attention.launches)
+    k1w = k1_check("int8 spec", st, flash_decode_attention.launches)
     held("int8 spec B=1 vs phase (e)", out.delayed_ids, stream_e, [1],
          lambda: int8.generate_codes(*request, seed=0), ties["int8"], top_two=False)
     numbers["int8"] = dict(forwards=st.forwards, columns=st.columns, k2_launches=k2,
+                           k1_window_launches=k1w,
                            columns_per_s=st.columns / gen_s,
                            k2_shapes=[list(key) for key in sorted(shapes)])
     del int8, pipe, shapes
@@ -3135,22 +3204,23 @@ def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
     ties["large_v1"] = window_tie("large-v1 bf16", large_eager.model, dev, SPEC_WINDOW_LARGE)
     pipe = spec_pipeline(large_eager, speculative_window=SPEC_WINDOW_LARGE)
     pipe.generate_codes(*row1, seed=0)  # warm-up
-    flash_decode_attention.launches = 0
+    k1_reset()
     out, st, gen_s = spec_serve(pipe, row1, "large-v1 spec W=16 B=1", card)
-    k1_check("large-v1 spec", st, flash_decode_attention.launches, large_layers)
+    k1w = k1_check("large-v1 spec", st, flash_decode_attention.launches, large_layers)
     held("large-v1 spec B=1 vs phase (l)", out.delayed_ids, large_out, [1],
          lambda: large_eager.generate_codes(*request, seed=0), ties["large_v1"], top_two=False)
     numbers["large-v1"] = dict(forwards=st.forwards, columns=st.columns,
-                               columns_per_s=st.columns / gen_s)
+                               columns_per_s=st.columns / gen_s, k1_window_launches=k1w)
     del pipe
     large_ar32 = ParlerTTSPipeline(fp32_copy(large_eager.model, dev), large_eager.dac,
                                    large_eager.generation_config, cache_dtype=torch.float32,
                                    device=dev)
     want = large_ar32.generate_codes(*request, seed=0).delayed_ids
-    flash_decode_attention.launches = 0
+    k1_reset()
     out, st, _ = spec_serve(spec_pipeline(large_ar32, speculative_window=SPEC_WINDOW_LARGE),
                             row1, "large-v1 fp32 spec W=16 B=1", card)
-    k1_check("large-v1 fp32 spec", st, flash_decode_attention.launches, large_layers)
+    k1_check("large-v1 fp32 spec", st, flash_decode_attention.launches, large_layers,
+             window=False)
     held("large-v1 fp32 spec B=1 vs the fp32 AR run", out.delayed_ids, want, [1],
          lambda: large_ar32.generate_codes(*request, seed=0))
     del large_ar32
@@ -3175,7 +3245,7 @@ def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
     ar = decoder_only_ar()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    flash_decode_attention.launches = 0
+    k1_reset()
     spec, st = generate_tokens_decoder_only_speculative(model, gen, 1, window=SPEC_WINDOW,
                                                         lookup_ngram=SPEC_LOOKUP, **kw)
     torch.cuda.synchronize()
@@ -3183,7 +3253,7 @@ def phase_m(dev, card, source, out_b, stream_e, large_eager, large_out):
     print(f"  decoder-only fp32 B=1 over {DECODER_ONLY_COLUMNS} columns: AR {t1 - t0:.3f} s, "
           f"spec W=24 {t2 - t1:.3f} s ({st.forwards} forwards, {st.columns / st.forwards:.2f} "
           f"columns per forward) ({card})")
-    k1_check("decoder-only spec", st, flash_decode_attention.launches)
+    k1_check("decoder-only spec", st, flash_decode_attention.launches, window=False)
     need(ar.steps == DECODER_ONLY_COLUMNS and spec.steps == DECODER_ONLY_COLUMNS,
          f"decoder-only: {ar.steps} / {spec.steps} columns")
     held("decoder-only fp32 spec vs AR", spec.delayed_ids, ar.delayed_ids, [0], decoder_only_ar)
@@ -4065,7 +4135,7 @@ def phase_q(dev, card):
             "write_wav"](path, rate, wav)
         gradio = sys.modules.get("gradio")
         sys.modules["gradio"] = None  # the CLI loop, whatever the machine has installed
-        flash_decode_attention.launches = 0
+        flash_decode_attention.launches = flash_decode_attention.launches_window = 0
         t0 = time.perf_counter()
         try:
             demo = gradio_demo.main(["--model", init_dir, "--device", "cuda"],
@@ -4080,17 +4150,19 @@ def phase_q(dev, card):
                 sys.modules["gradio"] = gradio
         numbers["demo_s"] = time.perf_counter() - t0
         stats, k1 = demo.last_spec_stats, flash_decode_attention.launches
+        k1w = flash_decode_attention.launches_window
         with wave.open(gradio_demo.OUTPUT_WAV) as f:
             frames, rate = f.getnframes(), f.getframerate()
         want_frames = (Q_COLUMNS - cfg.decoder.num_codebooks) * cfg.audio_encoder.hop_length
-        numbers.update(demo_k1=k1, demo_forwards=stats.forwards, demo_frozen=stats.frozen,
-                       demo_columns=stats.columns)
-        k1_ok = k1 == n_layers * (stats.forwards + stats.frozen)
+        numbers.update(demo_k1=k1, demo_k1_window=k1w, demo_forwards=stats.forwards,
+                       demo_frozen=stats.frozen, demo_columns=stats.columns)
+        k1_ok = k1 == n_layers * (stats.forwards + stats.frozen) == k1w
         print(f"  demo (load, then one request): {numbers['demo_s']:.2f} s; window "
               f"{demo.spec_window}, {stats.columns} columns in {stats.forwards} forwards "
               f"(+{stats.frozen} frozen); K1 launches {k1} = {n_layers} x "
-              f"({stats.forwards} + {stats.frozen}): {k1_ok}; WAV {frames} samples at {rate} "
-              f"Hz, finite {bool(np.isfinite(waves[0]).all())} ({card})")
+              f"({stats.forwards} + {stats.frozen}), {k1w} on the window kernel: {k1_ok}; WAV "
+              f"{frames} samples at {rate} Hz, finite {bool(np.isfinite(waves[0]).all())} "
+              f"({card})")
         need(demo.spec_window == 16 and k1_ok
              and stats.forwards > 0 and len(waves) == 1 and np.isfinite(waves[0]).all()
              and frames == want_frames == waves[0].size and rate == cfg.sampling_rate,
@@ -4148,25 +4220,30 @@ P_HELD_RUNS = (("dp2_bf16", "want_dp", None), ("tp2_bf16", "want_tp", "tp2_steps
 
 def k1_sharded(dev, card, label, h, b, n_layers, w=None):
     """K1 against its plain version at a tensor-parallel rank's head count
-    (fp32 and bf16 within TOL at the kernel's split count, a second call
-    bit for bit, a dropped last slot failing fp32 TOL), then timed in bf16
-    by CUDA-graph replay over the stacked cache beside its plain version
-    and SDPA. Returns the numbers for the kernels line."""
+    (fp32 and bf16 within TOL at the split count of the kernel each routes
+    to, the route read off the launch counters, a second call bit for bit,
+    a dropped last slot failing fp32 TOL and, on the window kernel, bf16 TOL
+    over a short range), then timed in bf16 by CUDA-graph replay over the
+    stacked cache beside its plain version and SDPA. Returns the numbers for
+    the kernels line."""
     import torch.nn.functional as F
 
     from parler_tts_tpu_torch.ops.flash_decode import (
         flash_decode_attention,
         flash_decode_attention_plain,
-        split_count,
+        k1_route,
+        kernel_split_count,
     )
 
     dh, cols = 64, w or 1
     g = torch.Generator(device=dev).manual_seed(h * 100 + b)
     starts = torch.tensor([0, 3][:b], dtype=torch.int32, device=dev)
     limit = K_SLOTS - cols + 1
-    splits = split_count(b, h, K_SLOTS, cols)
-    max_err = 0.0
+    max_err, routes = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
+        splits = kernel_split_count(dtype, b, h, h, K_SLOTS, cols, dh)
+        route = routes[str(dtype)[6:]] = k1_route(dtype, 1, cols, dh)
+        window_before = flash_decode_attention.launches_window
         ck, cv = ((torch.randn(n_layers, b, K_SLOTS, h * dh, generator=g, device=dev) * 0.3)
                   .to(dtype) for _ in range(2))
         shape = (b, h, dh) if w is None else (b, w, h, dh)
@@ -4185,6 +4262,14 @@ def k1_sharded(dev, card, label, h, b, n_layers, w=None):
                                                      splits=splits)
                 if torch.allclose(got, short, **TOL[dtype]):
                     raise AssertionError(f"K1 {label}: fp32 TOL misses a dropped last slot")
+        window = flash_decode_attention.launches_window - window_before
+        if window != (4 if route == "window" else 0):
+            raise AssertionError(f"K1 {label} {dtype}: route {route}, but {window} of 4 launches "
+                                 f"on the window kernel")
+        if route == "window":
+            gap = window_dropped_slot(q, ck, cv, n_layers - 1, label)
+            print(f"  K1 {label} bf16 on the window kernel: over limits [6, 10][:B] the last "
+                  f"column's last slot dropped moves it by {gap:.3e}, outside bf16 TOL")
         if dtype == torch.bfloat16:
             def k1(i):
                 return flash_decode_attention(q, ck, cv, starts, limit, layer=i % n_layers)
@@ -4207,12 +4292,14 @@ def k1_sharded(dev, card, label, h, b, n_layers, w=None):
             bound_ms, bound_by = bound(2 * b * cols * h * dh * 2 + 2 * slots * h * dh * 2,
                                        4 * h * dh * slots * cols, BF16_OPS_PER_S)
         del ck, cv
-    print(f"  K1 {label}: B={b}, H={h}, W={cols}, {K_SLOTS} slots, {splits} splits: max_abs_err "
+    print(f"  K1 {label}: B={b}, H={h}, W={cols}, {K_SLOTS} slots, routes {routes}, {splits} "
+          f"splits in bf16: max_abs_err "
           f"{max_err:.3e} (fp32 and bf16 within TOL, repeats bit for bit, a dropped last slot "
           f"fails fp32 TOL); bf16 {kernel_ms * 1e3:.2f} us (graph replay), plain "
           f"{plain_ms * 1e3:.2f} us, SDPA "
           + f"{library_ms * 1e3:.2f} us (boolean mask), bound {bound_ms * 1e3:.2f} us ({bound_by}) ({card})")
-    return dict(shape=dict(b=b, h=h, w=cols, slots=K_SLOTS, splits=splits), max_abs_err=max_err,
+    return dict(shape=dict(b=b, h=h, w=cols, slots=K_SLOTS, splits=splits), routes=routes,
+                max_abs_err=max_err,
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -5314,7 +5401,8 @@ def main() -> int:
     for name, log in zip(KERNEL_SOURCES, logs):
         for line in log.splitlines():  # every line of the tensor-core kernels, and warnings
             if (name == "flash_attention_wgmma" and "Compile time" not in line
-                    or "Used" in line or "spill" in line or "arning" in line):
+                    or "Used" in line or "spill" in line or "arning" in line
+                    or name.startswith("flash_decode") and "Function properties" in line):
                 print(f"  ptxas {name}:", line.strip())
 
     t0 = time.perf_counter()
@@ -5373,6 +5461,7 @@ def main() -> int:
     print(f"[phase l] large-v1 kernels and serving: {time.perf_counter() - t0:.2f} s ({card})")
     t0 = time.perf_counter()
     spec = phase_m(dev, card, source, out_b.delayed_ids, stream_e, large_eager, large_out)
+    window = spec.pop("k1")
     del stream_e, large_eager, large_out
     torch.cuda.empty_cache()
     print(f"[phase m] speculative and decoder-only serving: {time.perf_counter() - t0:.2f} s "
@@ -5392,9 +5481,20 @@ def main() -> int:
              source="parler_tts_tpu_torch/csrc/flash_decode.cu",
              replaces="parler_tts_tpu/ops/pallas/flash_decode.py:192",
              launches=launches, max_abs_err=max_err, **timing, large_v1=large["k1"],
-             window=spec.pop("k1"), speculative=spec,
              training_cli_eval_generation=cli["k1_eval_generation"], encodec=encodec,
-             parallel=parallel["k1"], helper_scripts=scripts),
+             parallel={k: v for k, v in parallel["k1"].items() if k != "mini_v1_tp2_window"},
+             helper_scripts=scripts),
+        # K1's W-column form (G x W > 8 rows a kv head, bf16): its times at
+        # mini-v1 W=24 B=2, its launches in the bf16 W=24 B=1 serving run
+        dict(name="flash_decode_window", route="cuda",
+             source="parler_tts_tpu_torch/csrc/flash_decode_window.cu",
+             replaces="parler_tts_tpu/ops/pallas/flash_decode.py:192",
+             launches=spec["spec W=24 B=1"]["k1_window_launches"],
+             max_abs_err=max(v["max_abs_err"] for v in window.values()),
+             **{k: window["mini-v1 W=24 B=2"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             cases=window, speculative=spec, parallel=parallel["k1"]["mini_v1_tp2_window"],
+             helper_scripts_demo=scripts["demo_k1_window"]),
         dict(name="quant_matmul", route="cuda",
              source="parler_tts_tpu_torch/csrc/quant_matmul.cu",
              replaces="parler_tts_tpu/ops/pallas/quant_matmul.py:39",
@@ -5414,8 +5514,8 @@ def main() -> int:
         for route, tag in (("wgmma", "_wgmma"), ("simt", ""))
         for name, line in (("fwd", 67), ("dq", 144), ("dkv", 180))
     ]
-    kernels[3]["training_cli"] = {k: v for k, v in cli.items() if k != "k4_per_step"}
-    for entry in kernels[3:]:
+    kernels[4]["training_cli"] = {k: v for k, v in cli.items() if k != "k4_per_step"}
+    for entry in kernels[4:]:
         entry["parallel"] = parallel["k4"]
     print(json.dumps({"kernels": kernels}))
     print(card)

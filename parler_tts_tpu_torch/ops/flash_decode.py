@@ -1,9 +1,14 @@
 """Flash-decode attention over the static KV cache (kernel K1).
 
 Port of `parler_tts_tpu/ops/pallas/flash_decode.py:flash_decode_attention`.
-`flash_decode_attention` launches the CUDA kernel `csrc/flash_decode.cu` for
-CUDA tensors and runs `flash_decode_attention_plain`, the plain PyTorch
-version with the same semantics, for CPU tensors; there is no other route.
+`flash_decode_attention` launches a CUDA kernel for CUDA tensors and runs
+`flash_decode_attention_plain`, the plain PyTorch version with the same
+semantics, for CPU tensors. Of the two kernels, `k1_route` picks one from the
+dtype and shapes alone: "window" (`csrc/flash_decode_window.cu`, both
+products on the tensor cores, one pass over each kv head's cache for all its
+rows) for a bf16 cache with W > 1 columns and 8 < G x W <= 64 query rows a kv
+head at Dh a multiple of 16 up to 128; "split" (`csrc/flash_decode.cu`) for
+every other shape, every single-column decode and every fp32 cache among them.
 
 Semantics (those of the Pallas kernel, not of its XLA oracle):
   * q (B, H, Dh), or (B, W, H, Dh) for W window columns; pre-scaled, RoPE'd;
@@ -16,11 +21,13 @@ Semantics (those of the Pallas kernel, not of its XLA oracle):
     the cache dtype before the P . V product, and the output is in q's dtype;
   * an empty range returns 0 (the XLA oracle returns the mean of V there).
 
-The kernel cuts each row's range [start, limit + W - 1) into `split_count`
-contiguous shares by `split_bounds`, one block of a thread-block cluster
-each, and merges the shares' softmax states in rank order. The plain
-version's `splits=n` form computes the same shares and merges them the same
-way, so the merge is testable where the kernel cannot run.
+Both kernels cut each row's range [0, limit + W - 1) into contiguous shares
+by `split_bounds` (`split_count` of them on the split route,
+`window_split_count` on the window route; `kernel_split_count` gives the one
+of the route a shape takes), one block of a thread-block cluster each, and
+merge the shares' softmax states in rank order. The plain version's
+`splits=n` form computes the same shares and merges them the same way, so the
+merge is testable where the kernels cannot run.
 """
 
 from __future__ import annotations
@@ -42,6 +49,11 @@ MAX_SPLITS = 8
 _TARGET_BLOCKS = 264
 _MIN_SHARE = 16      # cache slots a share should hold at S, at the least
 _MAX_ROW_BYTES = 512  # Dh * itemsize: one 16-byte vector per lane of a 32-lane group
+# the window kernel: at most this many query rows a kv head (four 16-row
+# tiles of its tensor-core products), cache tiles of 64 slots, Dh up to 128
+WINDOW_MAX_ROWS = 64
+WINDOW_TILE = 64
+WINDOW_MAX_DH = 128
 
 Limit = Union[int, torch.Tensor]
 
@@ -111,6 +123,42 @@ def split_count(b: int, h_kv: int, s: int, rows: int) -> int:
     return n
 
 
+def k1_route(kv_dtype: torch.dtype, g: int, w: int, dh: int) -> str:
+    """The kernel a CUDA launch takes, from dtype and shapes alone: "window"
+    (csrc/flash_decode_window.cu) for a bf16 cache with W > 1 window columns,
+    8 < G x W <= WINDOW_MAX_ROWS query rows a kv head (G = H / H_kv) and Dh a
+    multiple of 16 up to WINDOW_MAX_DH; "split" (csrc/flash_decode.cu) for
+    every other shape, every single-column decode and fp32 cache among them."""
+    rows = g * w
+    if (kv_dtype == torch.bfloat16 and w > 1 and 8 < rows <= WINDOW_MAX_ROWS
+            and dh % 16 == 0 and dh <= WINDOW_MAX_DH):
+        return "window"
+    return "split"
+
+
+def window_split_count(b: int, h_kv: int, s: int, rows: int) -> int:
+    """The window kernel's cluster size: a power of two up to MAX_SPLITS, so
+    that the grid holds about _TARGET_BLOCKS blocks of one (row, kv head,
+    share) each (all `rows` query rows of the kv head in one block, whose
+    tensor-core tiles take WINDOW_MAX_ROWS), with at least one WINDOW_TILE-slot
+    tile per share at the cache's length S. Shapes only, never `limit`."""
+    tiles = b * h_kv * _cdiv(rows, WINDOW_MAX_ROWS)
+    n = 1
+    while n < MAX_SPLITS and 2 * n * tiles <= _TARGET_BLOCKS and 2 * n * WINDOW_TILE <= s:
+        n *= 2
+    return n
+
+
+def kernel_split_count(kv_dtype: torch.dtype, b: int, h: int, h_kv: int, s: int, w: int,
+                       dh: int) -> int:
+    """The split count of the kernel `k1_route` picks for these shapes: the
+    `splits=` at which the plain version repeats that kernel's shares."""
+    g = h // h_kv
+    if k1_route(kv_dtype, g, w, dh) == "window":
+        return window_split_count(b, h_kv, s, g * w)
+    return split_count(b, h_kv, s, g * w)
+
+
 def split_bounds(begin, end, n_split: int) -> torch.Tensor:
     """Edges (..., n_split + 1) of the shares of the slots [begin, end): share
     i is [edges[i], edges[i + 1]), ceil(len / n_split) slots each, the last
@@ -149,8 +197,8 @@ def flash_decode_attention_plain(
     own max, sum and accumulator (P rounded to the cache dtype relative to
     the share's max), merged in rank order (`flash_decode_attention_shares`).
     `splits=1`, the default, is one softmax over the whole range, the form
-    the CPU tests hold against the Pallas kernel; `splits=split_count(...)`
-    is the kernel's form.
+    the CPU tests hold against the Pallas kernel; `splits=kernel_split_count(...)`
+    is the form of the kernel the shapes route to.
     """
     b, w, h, dh, h_kv, s = _shapes(q, k, v, starts, limit, layer)
     edges = split_bounds(*slot_range(starts, limit, w, s), splits)
@@ -212,13 +260,16 @@ def flash_decode_attention_shares(
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(rows: int, dh: int, elem: int, b: int, h_kv: int, s: int) -> int:
-    """The split count of a launch; raises for what the kernel does not take.
-    Cached per shape, so a launch makes one foreign call."""
-    if dh * elem > _MAX_ROW_BYTES:
+def _plan(kv_dtype: torch.dtype, b: int, h: int, h_kv: int, s: int, w: int,
+          dh: int) -> Tuple[str, int]:
+    """(route, split count) of a launch; raises for what the kernel does not
+    take. Cached per shape, so a launch makes one foreign call."""
+    route = k1_route(kv_dtype, h // h_kv, w, dh)
+    elem = torch.finfo(kv_dtype).bits // 8
+    if route == "split" and dh * elem > _MAX_ROW_BYTES:
         raise ValueError(f"Dh={dh} at {elem} bytes an element exceeds the kernel's "
                          f"{_MAX_ROW_BYTES}-byte head row (32 lanes of 16 bytes)")
-    return split_count(b, h_kv, s, rows)
+    return route, kernel_split_count(kv_dtype, b, h, h_kv, s, w, dh)
 
 
 def _launch(q, k, v, starts, limit, layer, shapes) -> torch.Tensor:
@@ -241,33 +292,57 @@ def _launch(q, k, v, starts, limit, layer, shapes) -> torch.Tensor:
         limit_scalar = int(limit)
     elem = k.element_size()
     if (dh * elem) % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("the kernel reads K/V rows in 16-byte vectors: Dh * itemsize must be "
+        raise ValueError("the kernels read K/V rows in 16-byte vectors: Dh * itemsize must be "
                          "a multiple of 16 and k/v 16-byte aligned")
     stride_s = h_kv * dh
     stride_b = s * stride_s
     stride_l = b * stride_b
     if stride_l > _INT32_MAX:
         raise ValueError("cache layer exceeds 2**31 elements")
-    n_split = _plan((h // h_kv) * w, dh, elem, b, h_kv, s)
+    route, n_split = _plan(k.dtype, b, h, h_kv, s, w, dh)
+    if route == "window" and q.data_ptr() % 8:
+        raise ValueError("the window kernel reads q in pairs: q must be 8-byte aligned")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _launch_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(), limits_ptr,
-        limit_scalar, out.data_ptr(), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
-        b, w, h, h_kv, dh, s, 0 if layer is None else layer, stride_l, stride_b, stride_s,
-        n_split, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    layer = 0 if layer is None else layer
+    if route == "window":
+        err = _window_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(), limits_ptr,
+            limit_scalar, out.data_ptr(), _DTYPE_CODES[q.dtype], b, w, h, h_kv, dh, s, layer,
+            stride_l, stride_b, stride_s, n_split, stream,
+        )
+    else:
+        err = _split_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(), limits_ptr,
+            limit_scalar, out.data_ptr(), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
+            b, w, h, h_kv, dh, s, layer, stride_l, stride_b, stride_s, n_split, stream,
+        )
     if err != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_decode {route} kernel launch failed: cudaError {err}")
     flash_decode_attention.launches += 1
+    if route == "window":
+        flash_decode_attention.launches_window += 1
+    else:
+        flash_decode_attention.launches_split += 1
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_fn():
-    """The kernel's C entry point, its argument types set once."""
+def _split_fn():
+    """The split kernel's C entry point, its argument types set once."""
     fn = load("flash_decode").flash_decode_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, p, i, p] + [i] * 13 + [p]
+    fn.restype = i
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _window_fn():
+    """The window kernel's C entry point, its argument types set once."""
+    fn = load("flash_decode_window").flash_decode_window_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, p] + [i] * 12 + [p]
     fn.restype = i
     return fn
 
@@ -282,8 +357,10 @@ def flash_decode_attention(
 ) -> torch.Tensor:
     """Decode attention over the valid cache prefix; (B, H, Dh) or (B, W, H, Dh).
 
-    CUDA tensors launch the kernel (and count the launch in
-    `flash_decode_attention.launches`); CPU tensors run the plain version.
+    CUDA tensors launch the kernel `k1_route` picks and count the launch in
+    `flash_decode_attention.launches` (every launch) and in
+    `launches_split` or `launches_window` (its route); CPU tensors run the
+    plain version.
     """
     shapes = _shapes(q, k, v, starts, limit, layer)
     if q.device.type == "cuda":
@@ -294,3 +371,5 @@ def flash_decode_attention(
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.launches_split = 0
+flash_decode_attention.launches_window = 0

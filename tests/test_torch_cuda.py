@@ -23,9 +23,13 @@ Tolerances: fp32 atol 2e-5 / rtol 1e-4 (the Pallas tests' own); bf16
 atol 2e-3 / rtol 1e-2 (both sides round P to bf16, at different points of the
 online softmax; an H100 80GB HBM3 at 700 W reads at most one bf16 step, 9.8e-4
 on outputs up to 0.25, and a kernel that drops or repeats one 64-slot tile moves them by
-~4e-3). K1 is held against its plain version at the kernel's own split count
-(`split_count`), a second call must give the same bits, and a result that
-leaves out one slot must fail the fp32 tolerance.
+~4e-3). K1 is held against its plain version at the split count of the kernel
+its dtype and shapes route to (`kernel_split_count`; `k1_route`: bf16 windows
+of 8 < G x W <= 64 rows a kv head on csrc/flash_decode_window.cu, the rest on
+csrc/flash_decode.cu), the route's launch counter must move, a second call
+must give the same bits, and a result that leaves out one slot must fail the
+fp32 tolerance (the window kernel's, at a short range, the bf16 one); a
+captured window launch replays as its device limits move.
 K2: `k2_close` (ops/quant_matmul.py): within 1e-6 x max|y| + 1e-5 x |y|
 (fp32 summation-order noise over K <= 4096 terms), bf16 also within one bf16
 ulp; a result without one K slice of the cluster must fail it. K3:
@@ -73,9 +77,10 @@ from parler_tts_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_plain,
     flash_decode_attention_shares,
+    k1_route,
+    kernel_split_count,
     slot_range,
     split_bounds,
-    split_count,
 )
 from parler_tts_tpu_torch.ops.fused_decode_step import (
     CUDA_CHUNK,
@@ -121,22 +126,38 @@ def case(device, dtype, b=2, h=16, h_kv=16, dh=64, s=868, w=None, layers=None, s
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def splits_of(q, k, layer=None):
-    """The kernel's split count for these operands (`split_count`)."""
+def shapes_of(q, k, layer=None):
+    """(B, H, H_kv, S, W, Dh) of these operands."""
     b, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
     w = q.shape[1] if q.dim() == 4 else 1
     kl = k if layer is None else k[layer]
-    s, h_kv = kl.shape[1], kl[0, 0].numel() // dh
-    return split_count(b, h_kv, s, (h // h_kv) * w)
+    return b, h, kl[0, 0].numel() // dh, kl.shape[1], w, dh
+
+
+def splits_of(q, k, layer=None):
+    """The split count of the kernel these operands route to
+    (`kernel_split_count`)."""
+    b, h, h_kv, s, w, dh = shapes_of(q, k, layer)
+    return kernel_split_count(k.dtype, b, h, h_kv, s, w, dh)
+
+
+def route_of(q, k, layer=None):
+    b, h, h_kv, s, w, dh = shapes_of(q, k, layer)
+    return k1_route(k.dtype, h // h_kv, w, dh)
 
 
 def check(q, k, v, starts, limit, layer=None):
     """The kernel against its plain version at the kernel's split count, and
-    a second call bit for bit the same."""
+    a second call bit for bit the same; the route's counter moves with
+    `launches`, the other route's does not."""
     before = flash_decode_attention.launches
+    routes = {r: getattr(flash_decode_attention, f"launches_{r}") for r in ("split", "window")}
     got = flash_decode_attention(q, k, v, starts, limit, layer=layer)
     torch.cuda.synchronize()
     assert flash_decode_attention.launches == before + 1
+    route = route_of(q, k, layer)
+    for r, n in routes.items():
+        assert getattr(flash_decode_attention, f"launches_{r}") == n + (r == route)
     want = flash_decode_attention_plain(q, k, v, starts, limit, layer=layer,
                                         splits=splits_of(q, k, layer))
     assert got.dtype == q.dtype and got.shape == q.shape
@@ -161,11 +182,19 @@ def test_kernel_per_row_starts_and_limits(cuda, dtype):
     check(q, k, v, starts, limits)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h_kv", [4, 1])
-@pytest.mark.parametrize("w", [None, 4])
-def test_kernel_gqa_mqa_and_windows(cuda, h_kv, w):
-    q, k, v = case(cuda, torch.float32, b=2, h_kv=h_kv, w=w, seed=2)
-    check(q, k, v, torch.tensor([0, 17], dtype=torch.int32, device=cuda), 300)
+@pytest.mark.parametrize("w", [None, 4, 16])
+def test_kernel_gqa_mqa_and_windows(cuda, dtype, h_kv, w):
+    """GQA (G = 4) and MQA (G = 16) over 1, 4 and 16 columns: in bf16 the
+    window kernel takes G x W = 16 and 64 rows a kv head, the split kernel
+    the rest (and every fp32 cache)."""
+    q, k, v = case(cuda, dtype, b=2, h_kv=h_kv, w=w, seed=2)
+    got = check(q, k, v, torch.tensor([0, 17], dtype=torch.int32, device=cuda), 300)
+    rows = (16 // h_kv) * (w or 1)
+    assert route_of(q, k) == ("window" if dtype == torch.bfloat16 and w and rows <= 64
+                              else "split")
+    assert got.shape == q.shape
 
 
 @pytest.mark.parametrize("layer", [0, 23])
@@ -301,23 +330,81 @@ def test_pipeline_on_the_gpu_launches_the_kernel_every_decode_step(cuda):
     assert (lengths == (gen.max_length - 4) * cfg.audio_encoder.hop_length).all()
 
 
+# (H, H_kv, W): mini-v1's window (R = G x W = 24 query rows a kv head),
+# large-v1's and the demo's (R = 16), and G = 2 and 4 (R = 32, 64)
+WINDOW_SHAPES = [(16, 16, 24), (24, 24, 16), (16, 8, 16), (16, 4, 16)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [1, 2])
-def test_kernel_at_the_speculative_window(cuda, dtype, b):
-    """K1 at mini-v1's speculative window: W=24 columns at H=16, G=1 (three
-    row tiles per kv head), over the stacked cache of s_p + L + W slots,
-    with (B,) limits that differ and row 1 left-padded; a result whose last
-    column lacks its last slot fails the fp32 tolerance."""
-    q, k, v = case(cuda, dtype, b=b, w=24, layers=24, s=892, seed=b)
-    starts = torch.tensor([0, 3][:b], dtype=torch.int32, device=cuda)
-    limits = torch.tensor([531, 434][:b], dtype=torch.int32, device=cuda)
-    got = check(q, k, v, starts, limits, layer=23)
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("h,h_kv,w", WINDOW_SHAPES)
+def test_kernel_at_the_speculative_window(cuda, dtype, b, h, h_kv, w):
+    """K1 at the speculative window: W columns over the stacked cache of
+    s_p + L + W slots, with (B,) limits that differ (shares ending mid-tile)
+    and rows left-padded; bf16 runs the window kernel (one pass over each kv
+    head's cache for all its rows), fp32 the split kernel. In fp32 a result
+    whose last column lacks its last slot fails the tolerance."""
+    layers = 4 if b == 8 else 24
+    q, k, v = case(cuda, dtype, b=b, h=h, h_kv=h_kv, w=w, layers=layers, s=868 + w, seed=b)
+    starts = torch.tensor([0, 3, 0, 5, 9, 1, 0, 2][:b], dtype=torch.int32, device=cuda)
+    limits = torch.tensor([531, 434, 800, 64, 65, 127, 300, 845][:b], dtype=torch.int32,
+                          device=cuda)
+    before = flash_decode_attention.launches_window
+    got = check(q, k, v, starts, limits, layer=layers - 1)
+    window = dtype == torch.bfloat16
+    assert route_of(q, k, layers - 1) == ("window" if window else "split")
+    assert flash_decode_attention.launches_window - before == (2 if window else 0)
     if dtype == torch.float32:
         wrong = got.clone()
         wrong[:, -1] = flash_decode_attention_plain(
-            q[:, -1:].contiguous(), k, v, starts, limits + 22, layer=23,
-            splits=splits_of(q[:, :1], k, 23))[:, 0]
+            q[:, -1:].contiguous(), k, v, starts, limits + w - 2, layer=layers - 1,
+            splits=splits_of(q[:, :1], k, layers - 1))[:, 0]
         assert not torch.allclose(got, wrong, **TOL[dtype])
+
+
+@pytest.mark.parametrize("h,h_kv,w", WINDOW_SHAPES)
+def test_window_kernel_without_the_last_slot_fails_the_bf16_tolerance(cuda, h, h_kv, w):
+    """The negative check on the window kernel's own dtype: over a short
+    range (the last column sees W + 5 and W + 6 slots) a result whose last
+    column lacks its last slot fails the bf16 tolerance the kernel passes."""
+    q, k, v = case(cuda, torch.bfloat16, b=2, h=h, h_kv=h_kv, w=w, layers=2, s=96, seed=11)
+    starts = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    limits = torch.tensor([6, 10], dtype=torch.int32, device=cuda)
+    got = check(q, k, v, starts, limits, layer=1)
+    wrong = got.clone()
+    wrong[:, -1] = flash_decode_attention_plain(
+        q[:, -1:].contiguous(), k, v, starts, limits + w - 2, layer=1,
+        splits=splits_of(q, k, 1))[:, 0]
+    assert not torch.allclose(got.float(), wrong.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("h,h_kv,w", WINDOW_SHAPES)
+def test_window_kernel_replays_in_a_cuda_graph_as_the_limit_moves(cuda, h, h_kv, w):
+    """The window kernel's grid comes from shapes alone and it reads (B,)
+    device limits: one captured launch, replayed as the limits move (across
+    64-slot tiles, to the end of the cache), equals the eager call bit for
+    bit each time."""
+    b, s = 2, 868 + w
+    q, k, v = case(cuda, torch.bfloat16, b=b, h=h, h_kv=h_kv, w=w, layers=2, s=s, seed=12)
+    starts = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    limits = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        flash_decode_attention(q, k, v, starts, limits, layer=1)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = flash_decode_attention.launches_window
+    with torch.cuda.graph(graph):
+        replayed = flash_decode_attention(q, k, v, starts, limits, layer=1)
+    assert flash_decode_attention.launches_window == before + 1
+    for lim in ([5, 9], [63, 64], [64, 130], [434, 531], [s - w + 1, s - w]):
+        limits.copy_(torch.tensor(lim, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, flash_decode_attention(q, k, v, starts, limits, layer=1))
+    del graph
 
 
 # ------------------------------------------------------------------ K2

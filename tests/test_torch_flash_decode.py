@@ -9,6 +9,8 @@ Pallas file's own); atol 2e-3, rtol 1e-2 in bf16 (one bf16 ulp, 2.4e-4, is the
 most these cases read).
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +22,12 @@ from parler_tts_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_plain,
     flash_decode_attention_shares,
+    k1_route,
+    kernel_split_count,
     slot_range,
     split_bounds,
     split_count,
+    window_split_count,
 )
 
 F32_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -215,12 +220,24 @@ def split_case(kind):
         return (*make_case(seed=43, h=8, h_kv=2), np.array([0, 33]), 200, np.float32)
     if kind == "bf16":
         return (*make_case(seed=44), np.array([0, 5]), 400, "bf16")
+    # the window kernel's shapes (G x W > 8 rows a kv head), per-row limits
+    # that differ, row 1 left-padded
+    if kind == "window_w24":
+        return (*make_case(seed=47, h=2, h_kv=2, w=24, s=256), np.array([0, 17]),
+                np.array([220, 140]), "bf16")
+    if kind == "window_w16":
+        return (*make_case(seed=48, h=3, h_kv=3, w=16, s=256), np.array([3, 0]),
+                np.array([90, 235]), np.float32)
+    if kind == "window_gqa":
+        return (*make_case(seed=49, h=8, h_kv=2, w=4, s=256), np.array([0, 33]),
+                np.array([200, 250]), "bf16")
     assert kind == "empty"
     return (*make_case(seed=45), np.array([40, 0]), np.array([40, 0]), np.float32)
 
 
 @pytest.mark.parametrize("splits", [1, 2, MAX_SPLITS])
-@pytest.mark.parametrize("kind", ["short_prefix", "per_row", "window", "gqa", "bf16", "empty"])
+@pytest.mark.parametrize("kind", ["short_prefix", "per_row", "window", "gqa", "bf16", "empty",
+                                  "window_w24", "window_w16", "window_gqa"])
 def test_plain_split_form_matches_pallas(kind, splits):
     """The kernel's form: each share its own max, sum and accumulator, merged
     in rank order; shares that own no slot weigh exactly nothing."""
@@ -269,6 +286,70 @@ def test_split_count_fills_the_card_from_shapes_alone(b, h_kv, s, rows, want):
     place of 32), never below 16 slots per share at the cache length."""
     n = split_count(b, h_kv, s, rows)
     assert n == want and n & (n - 1) == 0 and 1 <= n <= MAX_SPLITS
+
+
+# ------------------------------------------------ the window kernel's route
+@pytest.mark.parametrize("g,w,dtype,dh,want", [
+    (1, 24, torch.bfloat16, 64, "window"),   # mini-v1's speculative window
+    (1, 16, torch.bfloat16, 64, "window"),   # large-v1's and the demo's
+    (4, 4, torch.bfloat16, 64, "window"),    # the GQA test shapes
+    (2, 32, torch.bfloat16, 64, "window"),   # R = 64, the most the kernel holds
+    (1, 24, torch.bfloat16, 16, "window"), (1, 24, torch.bfloat16, 128, "window"),
+    (1, 1, torch.bfloat16, 64, "split"), (16, 1, torch.bfloat16, 64, "split"),  # W = 1
+    (1, 8, torch.bfloat16, 64, "split"), (4, 2, torch.bfloat16, 64, "split"),   # R <= 8
+    (1, 24, torch.float32, 64, "split"), (4, 4, torch.float32, 64, "split"),    # fp32 cache
+    (2, 33, torch.bfloat16, 64, "split"),    # R = 66
+    (1, 24, torch.bfloat16, 72, "split"), (1, 24, torch.bfloat16, 256, "split"),  # Dh
+])
+def test_k1_route_is_a_function_of_dtype_and_shapes(g, w, dtype, dh, want):
+    """bf16, W > 1, 8 < G x W <= 64 and Dh a multiple of 16 up to 128 take
+    the window kernel; everything else, every single-column decode and fp32
+    cache among it, the split kernel."""
+    assert k1_route(dtype, g, w, dh) == want
+    h_kv, s = 4, 892
+    n = kernel_split_count(dtype, 2, g * h_kv, h_kv, s, w, dh)
+    assert n == (window_split_count(2, h_kv, s, g * w) if want == "window"
+                 else split_count(2, h_kv, s, g * w))
+
+
+def test_route_and_split_counts_take_no_limit():
+    """What a launch takes is read from dtype and shapes alone, never from
+    `starts` or `limit`: a launch captured into a CUDA graph stays valid as
+    a device limit moves."""
+    for fn in (k1_route, split_count, window_split_count, kernel_split_count):
+        assert not {"limit", "limits", "starts"} & set(inspect.signature(fn).parameters)
+
+
+@pytest.mark.parametrize("b,h_kv,s,rows,want", [
+    (2, 16, 892, 24, 8), (1, 16, 892, 24, 8), (1, 24, 884, 16, 8), (8, 16, 892, 24, 2),
+    (32, 16, 892, 24, 1), (2, 2, 288, 16, 4), (2, 4, 100, 16, 1), (2, 16, 160, 24, 2),
+    (2, 16, 256, 24, 4), (2, 16, 511, 24, 4), (2, 16, 512, 24, 8),
+])
+def test_window_split_count_fills_the_card_from_shapes_alone(b, h_kv, s, rows, want):
+    """One block a (row, kv head, share), about two blocks per SM (mini-v1
+    W=24 B=2: 256 blocks), never below one 64-slot tile per share at S."""
+    n = window_split_count(b, h_kv, s, rows)
+    assert n == want and n & (n - 1) == 0 and 1 <= n <= MAX_SPLITS
+    assert n == 1 or (b * h_kv * n <= 264 and s // n >= 64)
+
+
+@pytest.mark.parametrize("kind,past", [("w24", 63), ("w24", 64), ("w24", 65), ("w16", 64),
+                                       ("gqa", 63), ("gqa", 65)])
+def test_plain_window_split_form_matches_pallas(kind, past):
+    """The window kernel's form, `splits=window_split_count(...)`: row 0's
+    shares hold `past` = 63 / 64 / 65 slots (one 64-slot tile less one, the
+    tile, the tile and one), row 1 left-padded with a shorter limit."""
+    h, h_kv, w = {"w24": (2, 2, 24), "w16": (3, 3, 16), "gqa": (8, 2, 4)}[kind]
+    b, s = 2, 288  # the Pallas kernel's cache length: whole blocks of 96 slots
+    q, k, v = make_case(seed=50 + past, b=b, h=h, h_kv=h_kv, w=w, s=s)
+    n = window_split_count(b, h_kv, s, (h // h_kv) * w)
+    assert n > 1 and n * past <= s
+    limit0 = n * past - w + 1          # row 0's range [0, limit + W - 1) is n shares of `past`
+    limits = np.array([limit0, limit0 - 37])
+    want, got = both(q, k, v, np.array([0, 11]), limits, block_s=96, dtype="bf16", splits=n)
+    edges = split_bounds(*slot_range(torch.tensor([0, 11]), torch.from_numpy(limits), w, s), n)
+    assert (edges[0, 1:] - edges[0, :-1]).tolist() == [past] * n
+    np.testing.assert_allclose(got, want, **BF16_TOL)
 
 
 @pytest.mark.parametrize("drop", ["first", "last", "boundary"])
